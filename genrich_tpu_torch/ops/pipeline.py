@@ -1,0 +1,156 @@
+"""Per-chromosome coverage and p-values (twin of ops/pipeline_jax.py).
+
+``tile_coverage`` merges expt, ctrl and exclusion breakpoints into one
+sort of 8-channel packed class deltas and scans them with kernel K1
+(``ops/scan.py``, two 10-bit groups); ``tile_stats`` turns coverage
+into -log10 p with kernel K2 (``csrc/stats.cu``) on the card, or with
+its plain PyTorch version on the CPU.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import kernels
+from .pileup import PACKED_ADD, PACKED_SUB, PACKED_ZERO, event_deltas
+from .pvalue import calc_pval
+from .scan import coverage_scan
+
+
+def build_event_points(start, end, count):
+    """Events -> (pos, deltas) point lists (2E points, deltas [2E, 4])."""
+    add, sub = event_deltas(count)
+    return torch.cat([start, end]), torch.cat([add, sub], dim=0)
+
+
+def _packed_points(start, end, count, group: int):
+    """Events -> (pos, packed) with the class deltas in ``group``.
+
+    The packed payload equals ``pack_deltas`` of the 8-channel rows
+    ``tile_coverage`` builds (the other group holds zero deltas), read
+    from a per-count-code table instead of packing each row.
+    """
+    dev = start.device
+    other = PACKED_ZERO << (10 * (1 - group))
+    tab_add = torch.as_tensor((PACKED_ADD << (10 * group)) | other,
+                              device=dev)
+    tab_sub = torch.as_tensor((PACKED_SUB << (10 * group)) | other,
+                              device=dev)
+    idx = count.long()
+    return (torch.cat([start, end]),
+            torch.cat([tab_add[idx], tab_sub[idx]]))
+
+
+def _excluded(starts, excl):
+    """True for intervals whose start lies inside a -E exclusion.
+
+    excl: int32 [K, 2] sorted (start, end) pairs, padded with
+    (tile_len, tile_len).  The JAX twin's ``side="right"`` parity test.
+    """
+    idx = torch.searchsorted(excl.reshape(-1).contiguous(), starts,
+                             right=True)
+    return (idx % 2) == 1
+
+
+def tile_coverage(es, ee, ec, cs, ce, cc, excl, tile_len, carry_e,
+                  carry_c, limit=None):
+    """Events -> per-interval expt/ctrl coverage for one tile.
+
+    es/ee: int32 [E] starts/ends, ec: count codes [E] (any integer
+    dtype, padding rows have code 0); likewise cs/ce/cc for control.
+    Returns (starts, ends, expt_val, ctrl_raw, excluded, live,
+    frag_len, ctrl_frag) like the JAX twin; ctrl_raw is the unscaled
+    control coverage.  ``limit`` (default tile_len) clips the analysed
+    span.  Rows that share a position come out of the (unstable) sort
+    in any order; consumers mask rows of length 0.
+    """
+    if limit is None:
+        limit = tile_len
+    dev = es.device
+    e_pos, e_pk = _packed_points(es, ee, ec, 0)
+    c_pos, c_pk = _packed_points(cs, ce, cc, 1)
+    x_pos = excl.reshape(-1).to(torch.int32)
+    zero8 = PACKED_ZERO | (PACKED_ZERO << 10)
+    pos = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                     e_pos.to(torch.int32), c_pos.to(torch.int32), x_pos])
+    packed = torch.cat([
+        torch.full((1,), zero8, dtype=torch.int32, device=dev),
+        e_pk, c_pk,
+        torch.full((x_pos.shape[0],), zero8, dtype=torch.int32,
+                   device=dev)])
+    pos, order = torch.sort(pos)
+    packed = packed[order]
+    vals, _ = coverage_scan(packed, 2,
+                            torch.cat([carry_e, carry_c]).to(torch.int32))
+    expt_val, ctrl_raw = vals[0], vals[1]
+
+    starts = pos
+    ends = torch.cat([pos[1:], torch.full((1,), int(tile_len),
+                                          dtype=pos.dtype, device=dev)])
+    ends = torch.clamp_max(ends, int(limit))
+    excluded = _excluded(starts, excl)
+    live = starts < int(limit)
+    lens = torch.clamp_min(ends - starts, 0).to(torch.float32)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    frag_len = torch.where(excluded, zero, lens * expt_val).sum()
+    ctrl_frag = torch.where(excluded, zero, lens * ctrl_raw).sum()
+    return (starts, ends, expt_val, ctrl_raw, excluded, live, frag_len,
+            ctrl_frag)
+
+
+def tile_stats_plain(expt_val, ctrl_raw, excluded, factor, lam):
+    """Plain PyTorch version of kernel K2 (pipeline_jax.tile_stats)."""
+    factor = float(np.float32(factor))
+    lam = float(np.float32(lam))
+    ctrl_val = torch.clamp_min(factor * ctrl_raw, lam)
+    ctrl_eff = torch.where(excluded, torch.full_like(ctrl_val, -1.0),
+                           ctrl_val)
+    return calc_pval(torch.where(excluded, torch.zeros_like(expt_val),
+                                 expt_val), ctrl_eff)
+
+
+def _tile_stats_cuda(expt_val, ctrl_raw, excluded, factor, lam):
+    """Launch csrc/stats.cu on the card.
+
+    Replaces the elementwise XLA program of pipeline_jax.tile_stats
+    (:164-173).  Bound by device-memory bandwidth (9 B in, 4 B out per
+    row); one thread per row with coalesced loads, and the p-value math
+    (csrc/pval.cuh) evaluates only the branch each row takes, where the
+    plain version evaluates every branch and selects.
+    """
+    expt_val = expt_val.contiguous()
+    ctrl_raw = ctrl_raw.contiguous()
+    ex = excluded.contiguous().view(torch.uint8)
+    m = expt_val.shape[0]
+    with torch.cuda.device(expt_val.device):
+        lib = kernels.library()
+        pval = torch.empty(m, dtype=torch.float32, device=expt_val.device)
+        rc = lib.tile_stats_launch(
+            kernels.ptr(expt_val), kernels.ptr(ctrl_raw), kernels.ptr(ex),
+            float(np.float32(factor)), float(np.float32(lam)),
+            kernels.ptr(pval), m, kernels.stream_of(expt_val))
+        kernels.check(rc, "tile_stats")
+    kernels.LAUNCHES["tile_stats"] += 1
+    return pval
+
+
+def tile_stats(expt_val, ctrl_raw, excluded, factor, lam):
+    """-log10 p per interval from coverage + global factor/lambda.
+
+    Ctrl coverage is max(factor * ctrl_raw, lambda); excluded intervals
+    carry SKIP (savePileupCtrl/savePval, Genrich.c:2052-2161,
+    1720-1794), in float32.  Kernel K2 on CUDA tensors, the plain
+    version on CPU tensors.
+    """
+    for t, dt in ((expt_val, torch.float32), (ctrl_raw, torch.float32),
+                  (excluded, torch.bool)):
+        if t.dtype != dt or t.dim() != 1 or t.shape != expt_val.shape:
+            raise TypeError("tile_stats takes f32 [M], f32 [M], bool [M]")
+        if t.device != expt_val.device:
+            raise ValueError("tile_stats inputs must share a device")
+    if expt_val.device.type == "cuda":
+        return _tile_stats_cuda(expt_val, ctrl_raw, excluded, factor, lam)
+    if expt_val.device.type != "cpu":
+        raise ValueError(f"unsupported device {expt_val.device}")
+    return tile_stats_plain(expt_val, ctrl_raw, excluded, factor, lam)
