@@ -7,22 +7,43 @@ Phases, each printed on its own line; any failure raises and exits
 non-zero, and the result line is printed only when every phase passed:
 
 1. Card: name, nvidia-smi power limit; no CUDA card is an error.
-2. Build: nvcc builds genrich_tpu_torch/csrc into the git-ignored
-   genrich_tpu_torch/_build/ (build seconds printed).
+2. Build: ``ingest.ensure_native()`` makes the native ingest library
+   load (building native/ingest.cpp into the git-ignored
+   genrich_tpu_torch/_build/ if the committed one does not), then nvcc
+   builds genrich_tpu_torch/csrc there (one process per source, all at
+   once); seconds and whether the ingest build has libdeflate are
+   printed.
 3. Kernels: each hand-written kernel against its plain PyTorch version
-   on the card at main-path sizes (2^23 rows and a ragged size):
-   coverage_scan (K1) bitwise in both modes (-log10 p of the lambda
-   mode rtol = atol = 1e-5), tile_stats (K2) rtol = atol = 1e-5;
-   median times over 20 runs with CUDA events.
+   on the card: coverage_scan (K1, 2^23 rows and a ragged size)
+   bitwise in both modes (-log10 p of the lambda mode rtol = atol =
+   1e-5), tile_stats (K2) rtol = atol = 1e-5, fisher_combine (K3, R =
+   2 and 3, 2^23 lanes and a ragged size, 10% SKIP) rtol 1e-6 against
+   the float64 plain version with SKIP lanes identical; median times
+   with CUDA events.  The BAMs of phases 4-6 are synthesised by
+   scripts/perf_synth.py into the git-ignored .bench_cache/ when
+   missing.
 4. Main path: the 2M-pair ATAC BAM on the 2.75 Gbp human-scale genome
-   of scripts/bench_e2e.py (synthesised by scripts/perf_synth.py into
-   the git-ignored .bench_cache/), ``--engine exact`` once, then the
-   port twice in this process (cold, warm) with ``-r -j -q 0.05 -a
-   20 --device cuda``.  Checks: both kernels launched in each run, and
-   the peak rows against the exact engine by bench_e2e's rule
-   (match_frac >= 0.99, worst_unmatched_margin <= 0.02).
-5. The last lines: the kernels JSON, the nvidia-smi line and
-   {"ok": true, "device": {...}}.
+   of scripts/bench_e2e.py, ``--engine exact`` once (in a subprocess,
+   through the same ``ensure_native()``), then the port twice in this
+   process (cold, warm) with ``-r -j -q 0.05 -a 20 --device cuda``.
+   Checks: K1, K2 and K4 launched in each run, native ingest in every
+   run, the peak rows against the exact engine by bench_e2e's rule
+   (match_frac >= 0.99, worst_unmatched_margin <= 0.02), cold and warm
+   narrowPeak byte-identical.  Then peak_reduce (K4) against its plain
+   version, summit fields exact and AUC rtol 1e-5, and against the
+   exact engine's float32 row-order sum, AUC bitwise: on the inputs of
+   the main path's own calls (kept by one more run) and on 2^23
+   synthetic rows holding about 30,000 short peaks.
+5. Fisher: ``-t A,B`` with replicate B a second 2M-pair BAM (seed 8),
+   the same flags; exact once, the port cold and warm.  Checks: the
+   same row rule, cold == warm bytes, K1 and K2 launched 6 times, K3 3
+   times, K4 at least 3 times per run.
+6. Logs (depth cut to a 200,000-pair BAM: every log row is text on
+   both sides): ``-f f.log -k k.log`` with the same flags, port against
+   exact by ``testing.check_log``.
+7. The last lines: the kernels JSON, the nvidia-smi line and
+   {"ok": true, "device": {...}}; jax is never imported in this
+   process.
 """
 
 from __future__ import annotations
@@ -36,14 +57,22 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, os.path.join(REPO, "scripts"))   # perf_synth, bench_e2e
+SCRIPTS = os.path.join(REPO, "scripts")
+sys.path.insert(0, SCRIPTS)                          # perf_synth, bench_e2e
 WORK = os.path.join(REPO, ".bench_cache")
 N_PAIRS = 2_000_000
+N_LOG_PAIRS = 200_000
 FLAGS = ["-r", "-j", "-q", "0.05", "-a", "20"]   # bench_e2e.FLAGS
 Q_THRESH = 1.3010299956639813                     # -log10(0.05)
 M_MAIN = 1 << 23
 M_RAGGED = (1 << 23) - 12_345
 TOL = 1e-5
+FISHER_RTOL = 1e-6
+PEAKS_K4 = 30_000
+DEV = "cuda"
+# (pairs, seed) of each BAM: main path / Fisher replicate A, Fisher
+# replicate B, logs
+BAMS = {"a": (N_PAIRS, 7), "b": (N_PAIRS, 8), "log": (N_LOG_PAIRS, 7)}
 
 
 def say(phase: str, **kw) -> None:
@@ -65,18 +94,43 @@ def card():
     return smi.splitlines()[0]
 
 
+def synth_bam(key: str) -> str:
+    """The BAM of ``BAMS[key]`` in .bench_cache/, made if missing."""
+    import perf_synth
+    from bench_e2e import HG_CHROMS
+    n, seed = BAMS[key]
+    os.makedirs(WORK, exist_ok=True)
+    tag = "" if seed == 7 else f"_seed{seed}"
+    path = os.path.join(WORK, f"atac_e2e_hg_{n}{tag}.bam")
+    if not os.path.exists(path):
+        t0 = time.perf_counter()
+        tmp = path + ".tmp"
+        perf_synth.synth_bam(tmp, n, seed=seed, chroms=HG_CHROMS)
+        os.replace(tmp, path)
+        say("synth", bam=key, pairs=n, seed=seed,
+            seconds=time.perf_counter() - t0,
+            mb=os.path.getsize(path) / 1e6)
+    return path
+
+
+# --- build ----------------------------------------------------------------
+
 def build():
-    from genrich_tpu_torch import kernels
+    from genrich_tpu_torch import ingest, kernels
     t0 = time.perf_counter()
+    nat_info = dict(ingest.ensure_native())
     kernels.library()
     info = dict(kernels.BUILD_INFO)
     ptxas = info.pop("ptxas", "")
     info["nvcc_seconds"] = info.pop("seconds")
-    say("build", wall_s=time.perf_counter() - t0, **info)
+    say("build", wall_s=time.perf_counter() - t0, **info,
+        native_ingest=nat_info)
     for line in ptxas.splitlines():
         if "registers" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
 
+
+# --- kernels against their plain versions ---------------------------------
 
 def _median_ms(fn, n=20):
     import torch
@@ -100,11 +154,11 @@ def _close(a, b, rtol=TOL, atol=TOL):
     return bool(torch.all((a - b).abs() <= atol + rtol * b.abs()))
 
 
-def kernels_phase():
-    """Each kernel against its plain version; returns JSON entries."""
+def scan_stats_phase():
+    """K1 and K2 against their plain versions; returns JSON entries."""
     import torch
     from genrich_tpu_torch.ops import pileup, pipeline, scan
-    dev = torch.device("cuda")
+    dev = torch.device(DEV)
     rng = np.random.RandomState(0)
     out = {}
     for m in (M_MAIN, M_RAGGED):
@@ -190,20 +244,151 @@ def kernels_phase():
     ]
 
 
-def synth_bam(n_pairs: int) -> str:
-    import perf_synth
-    from bench_e2e import HG_CHROMS
-    os.makedirs(WORK, exist_ok=True)
-    path = os.path.join(WORK, f"atac_e2e_hg_{n_pairs}.bam")
-    if not os.path.exists(path):
-        t0 = time.perf_counter()
-        tmp = path + ".tmp"
-        perf_synth.synth_bam(tmp, n_pairs, chroms=HG_CHROMS)
-        os.replace(tmp, path)
-        say("synth", n_pairs=n_pairs, seconds=round(
-            time.perf_counter() - t0, 2), mb=os.path.getsize(path) / 1e6)
-    return path
+def fisher_phase():
+    """K3 against its float64 plain version; returns a JSON entry."""
+    import torch
+    from genrich_tpu_torch.ops import chisq
+    dev = torch.device(DEV)
+    rng = np.random.RandomState(1)
+    worst_err, worst_rel = 0.0, 0.0
+    times = {}
+    for r in (2, 3):
+        for n in (M_MAIN, M_RAGGED):
+            pv = rng.uniform(0, 8, (r, n)).astype(np.float32)
+            pv[rng.rand(r, n) < 0.1] = -1.0
+            pv = torch.from_numpy(pv).to(dev)
+            got = chisq.fisher_combine(pv)
+            want = chisq.fisher_combine_plain(pv)
+            torch.cuda.synchronize()
+            if not torch.equal(got == -1.0, want == -1.0):
+                raise AssertionError(f"fisher_combine R={r} N={n}: SKIP "
+                                     f"lanes differ")
+            err = (got - want).abs()
+            rel = float((err / want.abs().clamp_min(1e-30)).max())
+            worst_err = max(worst_err, float(err.max()))
+            worst_rel = max(worst_rel, rel)
+            if not _close(got, want, rtol=FISHER_RTOL, atol=0.0):
+                raise AssertionError(f"fisher_combine R={r} N={n}: max "
+                                     f"rel err {rel}")
+            res = {"r": r, "n": n, "max_abs_err": float(err.max()),
+                   "max_rel_err": rel,
+                   "skip_lanes": int((want == -1.0).sum())}
+            if n == M_MAIN:
+                times[r] = (_median_ms(lambda: chisq.fisher_combine(pv)),
+                            _median_ms(lambda: chisq.fisher_combine_plain(
+                                pv), n=5))
+                res.update(ms=times[r][0], plain_ms=times[r][1])
+            say("kernels", kernel="fisher_combine", **res)
+            del pv, got, want, err
+    torch.cuda.empty_cache()
+    return {"name": "fisher_combine", "route": "cuda",
+            "source": "genrich_tpu_torch/csrc/fisher.cu",
+            "replaces": "genrich_tpu/ops/chisq_jax.py:174",
+            "launches": 0, "max_abs_err": worst_err,
+            "ms": times[2][0], "plain_ms": times[2][1],
+            "mode": "R=2, N=2^23 (R=3: %.4f / %.4f ms)" % times[3],
+            "max_rel_err": worst_rel}
 
+
+def _hold_k4(args, min_pq):
+    """K4 against its plain version (summit fields exact, AUC rtol
+    1e-5) and against the exact engine's float32 row-order sum on the
+    host (AUC bitwise), and twice in a row (bitwise); ``args`` are
+    peak_reduce's arguments on the card.  Returns error figures."""
+    import torch
+    from genrich_tpu_torch import testing
+    from genrich_tpu_torch.ops import peaks
+    starts, ends, stat, _, _, sig, _, first, last, _ = args
+    got = peaks.peak_reduce(*args)
+    want = peaks.peak_reduce_plain(*args)
+    again = peaks.peak_reduce(*args)
+    torch.cuda.synchronize()
+    ex = last >= first
+    names = ("auc", "max_stat", "summit_pval", "summit_qval",
+             "summit_pos", "summit_len")
+    for name, g, w in list(zip(names, got, want))[1:]:
+        if not torch.equal(g[ex], w[ex]):
+            raise AssertionError(f"peak_reduce: {name} differs")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("peak_reduce: two runs differ")
+    auc, plain_auc = got[0][ex], want[0][ex]
+    a_err = (auc - plain_auc).abs()
+    rel = float((a_err / plain_auc.abs().clamp_min(1e-30)).max())
+    if not _close(auc, plain_auc, rtol=TOL, atol=0.0):
+        raise AssertionError(f"peak_reduce: AUC max rel err {rel} "
+                             f"against the plain version")
+    host = [t.cpu().numpy() for t in (starts, ends, stat, sig, first,
+                                      last, ex)]
+    ref = testing.auc_rowwise(*host[:6], min_pq)[host[6]]
+    n_diff = int((auc.cpu().numpy() != ref).sum())
+    if n_diff:
+        raise AssertionError(f"peak_reduce: AUC of {n_diff} peaks is not "
+                             f"the row-order float32 sum")
+    rows = (last - first + 1)[ex]
+    return {"peaks": int(ex.sum()),
+            "rows_per_peak_median": float(rows.double().median()),
+            "rows_per_peak_max": int(rows.max()),
+            "auc_max_abs_err": float(a_err.max()),
+            "auc_max_rel_err": rel,
+            "plain_auc_differs_bitwise": int((plain_auc.cpu().numpy()
+                                              != ref).sum())}
+
+
+def peaks_phase(main_calls):
+    """K4 on the inputs of the main path's own calls (``main_calls``,
+    host copies) and on 2^23 synthetic rows holding about 30,000 short
+    peaks; returns a JSON entry whose times are the main path's."""
+    import torch
+    from genrich_tpu_torch import testing
+    from genrich_tpu_torch.ops import peaks
+    dev = torch.device(DEV)
+    ms = plain_ms = 0.0
+    worst_err = worst_rel = 0.0
+    for i, call in enumerate(main_calls):
+        args = [a.to(dev) if torch.is_tensor(a) else a for a in call]
+        res = _hold_k4(args, call[-1])
+        res.update(rows=int(args[0].shape[0]),
+                   ms=_median_ms(lambda: peaks.peak_reduce(*args)),
+                   plain_ms=_median_ms(
+                       lambda: peaks.peak_reduce_plain(*args)))
+        ms += res["ms"]
+        plain_ms += res["plain_ms"]
+        worst_err = max(worst_err, res["auc_max_abs_err"])
+        worst_rel = max(worst_rel, res["auc_max_rel_err"])
+        say("kernels", kernel="peak_reduce", inputs=f"main path call {i}",
+            **res)
+        del args
+    min_pq = 2.0
+    ends, stat, pval, qval = testing.peak_rows(
+        np.random.RandomState(2), M_MAIN, PEAKS_K4, region_rows=(3, 200),
+        min_pq=min_pq)
+    starts = np.concatenate([[0], ends[:-1]])
+    rows = [torch.from_numpy(a).to(dev) for a in (
+        starts.astype(np.int32), ends.astype(np.int32), stat, pval, qval)]
+    live = torch.ones(M_MAIN, dtype=torch.bool, device=dev)
+    c = peaks.peak_candidates(*rows[:3], live, min_pq, 100, 1 << 16)
+    args = rows + [c.sig, c.pid, c.first, c.last, min_pq]
+    syn = _hold_k4(args, min_pq)
+    syn.update(rows=M_MAIN,
+               ms=_median_ms(lambda: peaks.peak_reduce(*args)),
+               plain_ms=_median_ms(lambda: peaks.peak_reduce_plain(*args)))
+    say("kernels", kernel="peak_reduce", inputs="synthetic", **syn)
+    del rows, args, c, live
+    torch.cuda.empty_cache()
+    return {"name": "peak_reduce", "route": "cuda",
+            "source": "genrich_tpu_torch/csrc/peaks.cu",
+            "replaces": "genrich_tpu/ops/peaks_jax.py:85",
+            "launches": 0,
+            "max_abs_err": max(worst_err, syn["auc_max_abs_err"]),
+            "ms": ms, "plain_ms": plain_ms,
+            "mode": f"sum over the main path's {len(main_calls)} calls, "
+                    f"its own inputs; AUC bitwise to the row-order sum",
+            "auc_max_rel_err": max(worst_rel, syn["auc_max_rel_err"]),
+            "synthetic": {k: syn[k] for k in ("rows", "peaks", "ms",
+                                               "plain_ms")}}
+
+
+# --- end-to-end runs --------------------------------------------------------
 
 def _rows(path):
     return {tuple(ln.split("\t")[:3]): ln.split("\t")
@@ -224,72 +409,186 @@ def _rel_diffs(ref_path, out_path):
     return worst
 
 
-def main_path():
-    """Exact engine once, then the port cold and warm; returns the
-    launch counts of the warm run."""
+def _native_used() -> bool:
+    nat = sys.modules.get("genrich_tpu.ingest.native")
+    return nat is not None and nat.available(build=False)
+
+
+# The exact engine runs in a child process, so that this one never
+# imports jax; it makes native ingest load the same way the port does
+# and prints, last, whether the native library served the run.
+_EXACT = ("import sys; sys.path.insert(0, sys.argv[1]); "
+          "from genrich_tpu_torch.ingest import ensure_native; "
+          "ensure_native(); "
+          "from genrich_tpu import cli; "
+          "from genrich_tpu.ingest import native; "
+          "rc = cli.main(sys.argv[2:]); "
+          "print(native.available(build=False)); sys.exit(rc)")
+
+
+def run_exact(label: str, args):
+    """``--engine exact`` on ``args`` in a child process; returns its
+    wall (the child's start and imports included)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", _EXACT, REPO] + args
+                       + ["--engine", "exact"], capture_output=True,
+                       text=True)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"exact engine ({label}) exit code "
+                             f"{r.returncode}: {r.stderr[-2000:]}")
+    if r.stdout.split()[-1:] != ["True"]:
+        raise AssertionError(f"exact engine ({label}) used Python ingest")
+    return wall
+
+
+def run_port(label: str, args):
+    """One port run on the card; returns (wall, launches, perf, memory)."""
     import torch
-    from bench_e2e import _verify_rows
     from genrich_tpu_torch import cli, kernels
-    bam = synth_bam(N_PAIRS)
+    perf = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(args + ["--device", DEV], perf=perf)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"port run ({label}) exit code {rc}")
+    if not _native_used():
+        raise AssertionError(f"port run ({label}) used Python ingest")
+    return wall, counts, perf, torch.cuda.max_memory_allocated()
+
+
+def peak_runs(name: str, ts, need) -> dict:
+    """Exact once, then the port cold and warm on ``-t ts``; checks the
+    rows, the launch counts (``need(counts)`` returns a fault or None)
+    and that cold and warm wrote the same bytes.  Returns the counts of
+    the warm run."""
+    from bench_e2e import _verify_rows
     run_dir = os.path.join(WORK, "chip_smoke")
     os.makedirs(run_dir, exist_ok=True)
-    ref_np = os.path.join(run_dir, "exact.np")
-    env = {**os.environ, "PYTHONPATH": REPO}
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "genrich_tpu", "-t", bam,
-                        "-o", ref_np, "--engine", "exact"] + FLAGS,
-                       cwd=run_dir, env=env, capture_output=True,
-                       text=True)
-    if r.returncode != 0:
-        raise AssertionError(f"exact engine failed: {r.stderr[-2000:]}")
-    say("exact", wall_s=time.perf_counter() - t0,
-        peaks=sum(1 for _ in open(ref_np)))
+    ref_np = os.path.join(run_dir, f"{name}_exact.np")
+    wall = run_exact(name, ["-t", ts, "-o", ref_np] + FLAGS)
+    say(f"{name}_exact", wall_s=wall, peaks=sum(1 for _ in open(ref_np)),
+        ingest="native")
     counts = {}
     for label in ("cold", "warm"):
-        out_np = os.path.join(run_dir, f"port_{label}.np")
-        perf = {}
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        rc = cli.main(["-t", bam, "-o", out_np] + FLAGS
-                      + ["--device", "cuda"], perf=perf)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = dict(kernels.LAUNCHES)
-        if rc != 0:
-            raise AssertionError(f"port run ({label}) exit code {rc}")
-        nat = sys.modules.get("genrich_tpu.ingest.native")
-        ingest = "native" if nat is not None \
-            and nat.available(build=False) else "python"
+        out_np = os.path.join(run_dir, f"{name}_port_{label}.np")
+        wall, counts, perf, mem = run_port(
+            f"{name} {label}", ["-t", ts, "-o", out_np] + FLAGS)
         rows = _verify_rows(ref_np, out_np, thresh=Q_THRESH)
         diffs = _rel_diffs(ref_np, out_np)
-        say(f"port_{label}", wall_s=wall, launches=counts, ingest=ingest,
-            max_memory_allocated=torch.cuda.max_memory_allocated(),
-            rows=rows, worst_rel_diff=diffs, perf=perf)
-        if min(counts.values()) <= 0:
-            raise AssertionError(f"a kernel of the main path was not "
-                                 f"launched: {counts}")
+        say(f"{name}_port_{label}", wall_s=wall, launches=counts,
+            ingest="native", max_memory_allocated=mem, rows=rows,
+            worst_rel_diff=diffs, perf=perf)
+        fault = need(counts)
+        if fault:
+            raise AssertionError(f"{name} ({label}): {fault}: {counts}")
         if rows["match_frac"] < 0.99 \
                 or rows["worst_unmatched_margin"] > 0.02:
-            raise AssertionError(f"rows disagree with the exact engine: "
-                                 f"{rows}")
-    cold = open(os.path.join(run_dir, "port_cold.np")).read().splitlines()
-    warm = open(os.path.join(run_dir, "port_warm.np")).read().splitlines()
-    diff = [(a, b) for a, b in zip(cold, warm) if a != b]
-    say("repeat", cold_equals_warm=cold == warm, rows=len(warm),
-        differing_rows=len(diff) + abs(len(cold) - len(warm)),
+            raise AssertionError(f"{name} ({label}): rows disagree with "
+                                 f"the exact engine: {rows}")
+    cold = open(os.path.join(run_dir, f"{name}_port_cold.np"),
+                "rb").read()
+    warm = open(os.path.join(run_dir, f"{name}_port_warm.np"),
+                "rb").read()
+    cl, wl = cold.splitlines(), warm.splitlines()
+    diff = [(a, b) for a, b in zip(cl, wl) if a != b]
+    say(f"{name}_repeat", cold_equals_warm=cold == warm, rows=len(wl),
+        differing_rows=len(diff) + abs(len(cl) - len(wl)),
         first_differences=diff[:3])
+    if cold != warm:
+        raise AssertionError(f"{name}: cold and warm outputs differ")
     return counts
+
+
+def main_path(bam):
+    def need(c):
+        missing = [k for k in ("coverage_scan", "tile_stats",
+                               "peak_reduce") if c[k] <= 0]
+        return f"kernels not launched: {missing}" if missing else None
+    return peak_runs("main", bam, need)
+
+
+def main_k4_inputs(bam):
+    """One more port run of the main path (untimed, its counts unread)
+    that keeps a host copy of the arguments of each peak_reduce call."""
+    import torch
+    from genrich_tpu_torch.ops import peaks
+    calls = []
+    real = peaks.peak_reduce
+
+    def record(*args):
+        calls.append([a.cpu() if torch.is_tensor(a) else a for a in args])
+        return real(*args)
+    peaks.peak_reduce = record
+    try:
+        run_port("main, K4 inputs", ["-t", bam, "-o", os.path.join(
+            WORK, "chip_smoke", "main_k4_inputs.np")] + FLAGS)
+    finally:
+        peaks.peak_reduce = real
+    if not calls:
+        raise AssertionError("the main path made no peak_reduce call")
+    return calls
+
+
+def fisher_path(bam_a, bam_b):
+    def need(c):
+        want = {"coverage_scan": 6, "tile_stats": 6, "fisher_combine": 3}
+        bad = {k: c[k] for k, v in want.items() if c[k] != v}
+        if bad or c["peak_reduce"] < 3:
+            return (f"launches differ from {want} and peak_reduce >= 3")
+        return None
+    return peak_runs("fisher", f"{bam_a},{bam_b}", need)
+
+
+def logs_path(bam):
+    run_dir = os.path.join(WORK, "chip_smoke", "logs")
+    out = {}
+    for side in ("exact", "port"):
+        d = os.path.join(run_dir, side)
+        os.makedirs(d, exist_ok=True)
+        args = ["-t", bam, "-o", os.path.join(d, "out.np"),
+                "-f", os.path.join(d, "f.log"),
+                "-k", os.path.join(d, "k.log")] + FLAGS
+        if side == "exact":
+            out[side] = {"wall_s": run_exact("logs", args)}
+        else:
+            wall, counts, perf, mem = run_port("logs", args)
+            missing = [k for k in ("coverage_scan", "tile_stats")
+                       if counts[k] <= 0]
+            if missing:
+                raise AssertionError(f"logs: kernels not launched: "
+                                     f"{missing}")
+            out[side] = {"wall_s": wall, "launches": counts,
+                         "max_memory_allocated": mem, "perf": perf}
+    from genrich_tpu_torch import testing
+    checks = {name: testing.check_log(os.path.join(run_dir, "exact", name),
+                                      os.path.join(run_dir, "port", name))
+              for name in ("f.log", "k.log")}
+    say("logs", pairs=N_LOG_PAIRS, ingest="native", **out, **checks)
 
 
 def main() -> int:
     smi = card()
     build()
-    entries = kernels_phase()
-    counts = main_path()
+    entries = scan_stats_phase() + [fisher_phase()]
+    bam_a = synth_bam("a")
+    main_counts = main_path(bam_a)
+    entries.append(peaks_phase(main_k4_inputs(bam_a)))
+    fisher_counts = fisher_path(bam_a, synth_bam("b"))
+    logs_path(synth_bam("log"))
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported by the smoke's process")
     for e in entries:
-        e["launches"] = counts[e["name"]]
+        path = fisher_counts if e["name"] == "fisher_combine" \
+            else main_counts
+        e["launches"] = path[e["name"]]
+        e["launches_by_path"] = {"main": main_counts[e["name"]],
+                                 "fisher": fisher_counts[e["name"]]}
     import torch
     print(json.dumps({"kernels": entries}))
     print(smi)

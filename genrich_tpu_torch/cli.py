@@ -8,10 +8,14 @@ Flags are parsed by ``genrich_tpu.params.parse_args``; the analysis is
 device (default ``cuda``; no card is an error, never a silent switch to
 the CPU).  ``p.engine`` is set to "jax" so that the pipeline takes its
 device-engine branch (pipeline.py:856-869) with the engine it is given.
+Before the run, ``ingest.ensure_native()`` makes the native ingest
+library load on this host (building it if the committed one does not);
+if that fails, the run parses with the Python reader, as the JAX
+package does, after a one-line warning.
 
-Only the single-replicate peak-calling path is ported: flags that
-reach another path fail with "not yet ported to genrich_tpu_torch".
-Errors print ``Error! <msg>`` to stderr and exit 1.
+``--serve`` and ``--engine`` are not ported and fail with "not yet
+ported to genrich_tpu_torch".  Errors print ``Error! <msg>`` to stderr
+and exit 1.
 """
 
 from __future__ import annotations
@@ -56,18 +60,17 @@ def _no(what: str):
     raise NotPorted(f"{what} is not yet ported to genrich_tpu_torch")
 
 
-def _reject_unported(p: Params) -> None:
-    """Raise NotPorted for a flag whose path is not ported yet."""
-    if p.peaks_only:
-        _no("-P (peak calling from a log file)")
-    if not p.peaks_opt:
-        _no("-X (skip peak calling)")
-    if p.log_file:
-        _no("-f (p/q-value log)")
-    if p.pile_file:
-        _no("-k (pileup log)")
-    if p.in_file and len([f for f in p.in_file.split(",") if f]) > 1:
-        _no("more than one -t replicate (Fisher combination)")
+def _native_ingest(p: Params) -> None:
+    """Make native ingest load, or warn that the Python reader runs."""
+    if p.ingest == "python":
+        return
+    from .ingest import ensure_native
+    try:
+        ensure_native()
+    except (OSError, RuntimeError) as e:
+        reason = " ".join(str(e).split())[:200]
+        sys.stderr.write(f"Warning! native ingest unavailable ({reason}); "
+                         f"using the Python reader\n")
 
 
 def main(argv: Optional[List[str]] = None,
@@ -85,7 +88,6 @@ def main(argv: Optional[List[str]] = None,
         if "--engine" in rest:
             _no("--engine (the port has one engine; choose --device)")
         params = parse_args(rest)
-        _reject_unported(params)
     except UsageRequested:
         sys.stderr.write(USAGE + "  --device <str>   cuda (def.) or cpu\n")
         return 1
@@ -109,6 +111,7 @@ def main(argv: Optional[List[str]] = None,
     except RuntimeError as e:
         sys.stderr.write(f"Error! {e}\n")
         return 1
+    _native_ingest(params)
     params.engine = "jax"
     try:
         run(params, engine=engine, perf=perf)

@@ -14,11 +14,12 @@ records.  Reference semantics per stage:
 Float32 on the device: results are close to the exact engine (about
 1e-4 relative on -log10 p), not byte-identical.
 
-The single-replicate path only: ``archive_replicate``,
-``finalize_fisher`` and ``pvalue_pileups`` (Fisher replicates and the
--f/-k logs) are not ported yet, and the CLI rejects the flags that
-reach them.  Chromosomes longer than 2^31-1 bp run on the host
-(``HostChromMixin``), as in the JAX engine.
+Several replicates (``-t a,b``) archive each replicate's p-value RLE
+on the device (``archive_replicate``) and combine them by Fisher's
+method at peak-calling time (``finalize_fisher``, kernel K3); the
+-f/-k logs and -X pull compact RLE pileups back to the host
+(``pvalue_pileups``).  Chromosomes longer than 2^31-1 bp run on the
+host (``HostChromMixin``), as in the JAX engine.
 
 Events upload as int32 starts/ends and uint8 count codes at their real
 length; the kernels mask their ragged tails, so nothing is padded.
@@ -49,8 +50,9 @@ class TorchEngine(PerfMixin, HostChromMixin):
     """Per-run device context on one explicit ``device``.
 
     ``device`` is "cuda", "cuda:N" or "cpu"; a CUDA device with no card
-    raises.  On CUDA the coverage scan and the p-value stage run the
-    hand-written kernels; on the CPU their plain PyTorch versions.
+    raises.  On CUDA the coverage scan, the p-value stage, the Fisher
+    combination and the per-peak reduction run the hand-written
+    kernels; on the CPU their plain PyTorch versions.
     """
 
     def __init__(self, device):
@@ -151,16 +153,76 @@ class TorchEngine(PerfMixin, HostChromMixin):
     def stats_all(self, lam: float, factor: float) -> None:
         """-log10 p per interval for every resident chromosome.
 
-        The coverage arrays are released once the p-values exist: the
-        single-replicate path reads only starts/ends/pv/live after it.
+        The coverage arrays (ev, cr, excluded) stay: ``pvalue_pileups``
+        reads them with λ and the control factor kept here.  The stages
+        that only the full-device path reaches free them
+        (``_drop_coverage``).
         """
+        self._lam = F32(lam)
+        self._factor = F32(factor)
         for st in self._chrom.values():
             if st.get("host"):
                 continue
-            st["pv"] = self._call(tile_stats, st.pop("ev"), st.pop("cr"),
-                                  st.pop("excluded"), F32(factor),
-                                  F32(lam))
+            st["pv"] = self._call(tile_stats, st["ev"], st["cr"],
+                                  st["excluded"], F32(factor), F32(lam))
         self.host_stats(lam, factor)
+
+    @staticmethod
+    def _drop_coverage(st) -> None:
+        for key in ("ev", "cr", "excluded"):
+            st.pop(key, None)
+
+    # --- multi-replicate: archive + device Fisher ------------------------
+
+    def archive_replicate(self) -> None:
+        """Compact this replicate's p-values to RLE and free coverage.
+
+        Each chromosome's (ends, pv) runs stay resident, sliced (and
+        copied, so the full-width arrays can go) to the run count, with
+        at least one (chrom_len, SKIP) row; the dense arrays are
+        released.  Used when a later replicate follows and the
+        combination (Fisher) happens on the device at findPeaks time.
+        """
+        rep: Dict[int, tuple] = {}
+        pend = []
+        for cidx, st in self._chrom.items():
+            if st.get("host"):
+                rep[cidx] = self.host_archive(st)
+                continue
+            self._drop_coverage(st)
+            pend.append((cidx, st["len"], self._call(
+                compact.rle_pv, st["starts"], st["ends"], st["pv"],
+                st["live"], st["len"])))
+        if pend:
+            counts = self._fetch_many([b for _, _, (_, _, b) in pend])
+            for (cidx, length, (e_b, pv_b, _)), nb in zip(pend, counts):
+                n = max(int(nb), 1)
+                rep[cidx] = (e_b[:n].clone(), pv_b[:n].clone(), length)
+        self._reps.append(rep)
+        self._chrom.clear()
+
+    def finalize_fisher(self) -> None:
+        """combinePval (Genrich.c:612-667) on the device.
+
+        Merges every replicate's RLE breakpoints per chromosome and
+        combines -log10 p with kernel K3 (``compact.merge_fisher``); the
+        result repopulates ``self._chrom`` so q-values and peak calling
+        run unchanged.  Host chromosomes combine on the host.
+        """
+        chroms = sorted({c for rep in self._reps for c in rep})
+        for cidx in chroms:
+            present = [rep[cidx] for rep in self._reps if cidx in rep]
+            if any(self.host_is_archived(r) for r in present):
+                self.host_fisher(cidx, present)
+                continue
+            starts, ends, comb, live = self._call(
+                compact.merge_fisher, [r[0] for r in present],
+                [r[1] for r in present])
+            self._chrom[cidx] = {
+                "starts": starts, "ends": ends, "pv": comb,
+                "live": live, "len": present[0][2],
+            }
+        self._reps.clear()
 
     def pval_pileup(self, cidx: int) -> Pileup:
         """The p-value RLE pileup (host peak caller fallback)."""
@@ -176,6 +238,31 @@ class TorchEngine(PerfMixin, HostChromMixin):
                           np.zeros(1, F32))
         e_np, pv_np = self._fetch_many((e_b[:nb], pv_b[:nb]))
         return Pileup(e_np.astype(np.int64), pv_np.astype(F32))
+
+    # --- host-RLE path (-f/-k logs, -X, Fisher with logs) ----------------
+
+    def pvalue_pileups(self, cidx: int
+                       ) -> Tuple[Pileup, Pileup, Pileup]:
+        """(expt, ctrl, pval) RLE pileups, compacted on the device first."""
+        st = self._chrom[cidx]
+        if st.get("host"):
+            return self.host_pvalue_pileups(st)
+        e_b, pv_b, ev_b, cv_b, b = self._call(
+            compact.rle_runs, st["starts"], st["ends"], st["pv"],
+            st["ev"], st["cr"], st["excluded"], st["live"], self._lam,
+            self._factor)
+        nb = int(self._fetch(b))
+        if nb == 0:
+            ends = np.array([st["len"]], np.int64)
+            return (Pileup(ends, np.zeros(1, F32)),
+                    Pileup(ends, np.full(1, self._lam, F32)),
+                    Pileup(ends, np.zeros(1, F32)))
+        e_np, pv_np, ev_np, cv_np = self._fetch_many(
+            (e_b[:nb], pv_b[:nb], ev_b[:nb], cv_b[:nb]))
+        ends = e_np.astype(np.int64)
+        return (Pileup(ends, ev_np.astype(F32)),
+                Pileup(ends, cv_np.astype(F32)),
+                Pileup(ends, pv_np.astype(F32)))
 
     # --- stage 3: q-values ----------------------------------------------
 
@@ -197,6 +284,7 @@ class TorchEngine(PerfMixin, HostChromMixin):
                     ps.append(np.asarray(hp, F32))
                     ws.append(np.asarray(hw, np.uint64))
                 continue
+            self._drop_coverage(st)
             pend.append(self._call(compact.distinct_pvals, st["starts"],
                                    st["ends"], st["pv"], st["live"]))
         if pend:
@@ -249,6 +337,7 @@ class TorchEngine(PerfMixin, HostChromMixin):
         st = self._chrom[cidx]
         if st.get("host"):
             return None
+        self._drop_coverage(st)
         return self._call(self._peaks, st, min_pq, min_auc, min_len,
                           max_gap, use_q)
 

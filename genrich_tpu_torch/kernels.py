@@ -1,17 +1,19 @@
 """Build, bind and count the hand-written CUDA kernels of csrc/.
 
 The sources in ``csrc/*.cu`` (plain C entry points, no PyTorch headers)
-are compiled with ``nvcc`` for Hopper (``sm_90a``) into one shared
-library at first use, keyed by a hash of the sources and flags, under
+are compiled with ``nvcc`` for Hopper (``sm_90a``), one ``nvcc -c`` per
+source, all started together, and linked into one shared library at
+first use, keyed by a hash of the sources and flags, under
 ``genrich_tpu_torch/_build/`` (git-ignored); the library is loaded with
 ctypes.  Nothing is built or imported when this module is imported, so
 CPU-only hosts (no nvcc, no card) can import every module of the
 package.
 
 ``LAUNCHES`` counts, per kernel, the calls of its wrapper that
-launched it on the card (the wrappers in ``ops/scan.py`` and
-``ops/pipeline.py`` add one each time); a run reads the counts to show
-that its main path went through the kernels.
+launched it on the card (the wrappers in ``ops/scan.py``,
+``ops/pipeline.py``, ``ops/chisq.py`` and ``ops/peaks.py`` add one each
+time); a run reads the counts to show that its main path went through
+the kernels.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 import tempfile
 import time
@@ -31,14 +34,17 @@ BUILD_DIR = _PKG / "_build"
 
 # IEEE division and square root, no fused multiply-add contraction and
 # no fast math: canon_value's /6 and /10 must round like the CPU's for
-# coverage to be bitwise equal, and the p-value math stays as close to
-# the plain float32 version as the card's libm allows.
+# coverage to be bitwise equal, the p-value math stays as close to the
+# plain float32 version as the card's libm allows, and peak_reduce's
+# AUC adds each len * (stat - threshold) product after rounding it, as
+# the exact engine does.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-O3", "-Xcompiler", "-fPIC",
               "-prec-div=true", "-prec-sqrt=true", "-fmad=false",
               "-Xptxas", "-v"]
 
-LAUNCHES: Dict[str, int] = {"coverage_scan": 0, "tile_stats": 0}
+LAUNCHES: Dict[str, int] = {"coverage_scan": 0, "tile_stats": 0,
+                            "fisher_combine": 0, "peak_reduce": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 BUILD_INFO: Dict[str, object] = {}
@@ -72,20 +78,39 @@ def build() -> Path:
     if so.exists():
         BUILD_INFO.update(path=str(so), seconds=0.0, cached=True)
         return so
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp] + [str(f) for f in cus]
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if r.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n"
-                           f"{' '.join(cmd)}\n{r.stderr}")
-    os.replace(tmp, so)
-    BUILD_INFO.update(path=str(so), seconds=secs, cached=False,
-                      ptxas=r.stderr)
+    try:
+        procs = []
+        for f in cus:
+            cmd = [nvcc] + NVCC_FLAGS + ["-c", "-o",
+                                         str(tmp / (f.stem + ".o")), str(f)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        ptxas = []
+        failed = []
+        for cmd, p in procs:
+            _, err = p.communicate()
+            ptxas.append(err)
+            if p.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{err}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        out = tmp / "lib.so"
+        cmd = [nvcc, "-shared", "-o", str(out)] \
+            + [str(tmp / (f.stem + ".o")) for f in cus]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                               f"{' '.join(cmd)}\n{r.stderr}")
+        os.replace(out, so)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    BUILD_INFO.update(path=str(so), seconds=time.perf_counter() - t0,
+                      cached=False, ptxas="".join(ptxas))
     return so
 
 
@@ -102,6 +127,11 @@ def library() -> ctypes.CDLL:
         lib.coverage_scan_tile.argtypes = []
         lib.tile_stats_launch.argtypes = [p, p, p, f32, f32, p, i64, p]
         lib.tile_stats_launch.restype = ctypes.c_int
+        lib.fisher_combine_launch.argtypes = [p, ctypes.c_int, i64, p, p]
+        lib.fisher_combine_launch.restype = ctypes.c_int
+        lib.peak_reduce_launch.argtypes = [p, p, p, p, p, p, p, p, i64,
+                                           f32, p, p, p, p, p, p, p]
+        lib.peak_reduce_launch.restype = ctypes.c_int
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
         _lib = lib

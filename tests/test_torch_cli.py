@@ -15,6 +15,8 @@ import sys
 import numpy as np
 import pytest
 
+from genrich_tpu_torch.testing import check_log
+
 sys.path.insert(0, os.path.dirname(__file__))
 import oracle  # noqa: E402
 
@@ -153,6 +155,123 @@ def test_torch_port_cap_exceeded_uses_host_peak_caller(tmp_path,
     fast = out.read_text().splitlines()
     _close_rows(exact, fast)
     assert perf["fetch_n"] > 0 and perf["device_rep_s"] > 0
+
+
+def _run_reps(tmp_path, name, reps, extra, torch_port=False):
+    d = tmp_path / name
+    d.mkdir()
+    args = ["-t", ",".join(str(tmp_path / r) for r in reps), "-o",
+            "out.np", "-y", "-p", "0.01", "-a", "20"] + extra
+    r = _run_torch(args, str(d)) if torch_port \
+        else oracle.run_ours(args, cwd=str(d))
+    assert r.returncode == 0, r.stderr[-1500:]
+    return (d / "out.np").read_text().splitlines()
+
+
+def _fisher_rows(exact, fast, tol=1e-3):
+    """test_engine_jax_cli.py:84-92's rule for several replicates."""
+    assert exact and len(exact) == len(fast)
+    same = sum(a.split("\t")[:6] == b.split("\t")[:6]
+               for a, b in zip(exact, fast))
+    assert same >= len(exact) * 0.9
+    for a, b in zip(exact, fast):
+        fa, fb = a.split("\t"), b.split("\t")
+        for i in (6, 7):
+            x, y = float(fa[i]), float(fb[i])
+            assert abs(x - y) <= tol * max(1.0, abs(x)), (a, b)
+
+
+@pytest.fixture
+def two_reps(tmp_path):
+    oracle.random_sam(str(tmp_path / "in.sam"), seed=81)
+    oracle.random_sam(str(tmp_path / "b.sam"), seed=82, n_pairs=250)
+    return ["in.sam", "b.sam"]
+
+
+@pytest.mark.parametrize("ref", ["exact", "jax"])
+def test_torch_port_fisher_replicates(tmp_path, two_reps, ref):
+    """Two replicates combined on the device (archive_replicate,
+    finalize_fisher, kernel K3's plain version) against the exact
+    engine and ``--engine jax``."""
+    extra = [] if ref == "exact" else ["--engine", "jax"]
+    want = _run_reps(tmp_path, ref, two_reps, extra)
+    got = _run_reps(tmp_path, "torch", two_reps, [], torch_port=True)
+    _fisher_rows(want, got)
+
+
+def test_torch_port_three_replicates_with_q(tmp_path, two_reps):
+    oracle.random_sam(str(tmp_path / "c.sam"), seed=83, n_pairs=300)
+    reps = two_reps + ["c.sam"]
+    want = _run_reps(tmp_path, "exact", reps, ["-q", "0.5"])
+    got = _run_reps(tmp_path, "torch", reps, ["-q", "0.5"],
+                    torch_port=True)
+    _fisher_rows(want, got)
+
+
+def test_torch_port_fisher_big_chrom_host_fallback(tmp_path):
+    """Replicates of a >2^31-bp chromosome archive and combine on the
+    host (host_archive, host_fisher) beside a device chromosome."""
+    for name, seed in (("in.sam", 101), ("b.sam", 102)):
+        oracle.random_sam(str(tmp_path / name),
+                          chroms=(("chrBig", 3_000_000_000),
+                                  ("chr2", 50000)), seed=seed, n_pairs=400)
+    reps = ["in.sam", "b.sam"]
+    want = _run_reps(tmp_path, "exact", reps, ["-q", "0.5"])
+    got = _run_reps(tmp_path, "torch", reps, ["-q", "0.5"],
+                    torch_port=True)
+    assert any(ln.startswith("chrBig\t") for ln in want)
+    _fisher_rows(want, got)
+
+
+@pytest.mark.parametrize("ref", ["exact", "jax"])
+@pytest.mark.parametrize("extra", [[], ["-c", "c.sam", "-E", "x.bed"]])
+def test_torch_port_logs(tmp_path, ref, extra):
+    """-f/-k logs through the device RLE pull-back (pvalue_pileups,
+    compact.rle_runs)."""
+    oracle.random_sam(str(tmp_path / "in.sam"), seed=91)
+    oracle.random_sam(str(tmp_path / "c.sam"), seed=92, cluster=False,
+                      n_pairs=150)
+    (tmp_path / "x.bed").write_text("chr1\t2000\t9000\n")
+    extra = [str(tmp_path / a) if a.endswith((".sam", ".bed")) else a
+             for a in extra]
+    logs = ["-f", "f.log", "-k", "k.log"]
+    want = _run(tmp_path, ref, logs + extra
+                + ([] if ref == "exact" else ["--engine", ref]))
+    got = _run(tmp_path, "torch", logs + extra, torch_port=True)
+    assert [a.split("\t")[:6] for a in want] \
+        == [b.split("\t")[:6] for b in got]
+    for name in ("f.log", "k.log"):
+        check_log(tmp_path / ref / name, tmp_path / "torch" / name)
+
+
+def test_torch_port_fisher_with_log_takes_host_path(tmp_path, two_reps):
+    """Two replicates with -f: each replicate's RLE comes back
+    (pvalue_pileups) and the exact engine combines on the host."""
+    want = _run_reps(tmp_path, "exact", two_reps, ["-f", "f.log"])
+    got = _run_reps(tmp_path, "torch", two_reps, ["-f", "f.log"],
+                    torch_port=True)
+    _fisher_rows(want, got)
+    check_log(tmp_path / "exact" / "f.log", tmp_path / "torch" / "f.log")
+
+
+def test_torch_port_skip_peaks_then_peaks_only(tmp_path):
+    """-X -f x.log writes the log with no peaks; -P -f x.log then calls
+    peaks from it; both equal the exact engine's rows."""
+    oracle.random_sam(str(tmp_path / "in.sam"), seed=93)
+    for name, run in (("exact", oracle.run_ours), ("torch", _run_torch)):
+        d = tmp_path / name
+        d.mkdir()
+        r = run(["-t", str(tmp_path / "in.sam"), "-X", "-f", "x.log",
+                 "-y"], cwd=str(d))
+        assert r.returncode == 0, r.stderr[-1500:]
+        assert not (d / "out.np").exists()
+        r = run(["-P", "-f", "x.log", "-o", "out.np", "-p", "0.01", "-a",
+                 "20"], cwd=str(d))
+        assert r.returncode == 0, r.stderr[-1500:]
+    check_log(tmp_path / "exact" / "x.log", tmp_path / "torch" / "x.log")
+    want = (tmp_path / "exact" / "out.np").read_text().splitlines()
+    got = (tmp_path / "torch" / "out.np").read_text().splitlines()
+    _close_rows(want, got, cols=(6, 7), tol=1e-3)
 
 
 def test_torch_engine_long_fragment():

@@ -119,7 +119,8 @@ def test_tile_coverage_int64_count_codes():
 def test_tile_coverage_cpu_runs_plain_scan():
     kernels.reset_launches()
     _torch_coverage(_case(13))
-    assert kernels.LAUNCHES == {"coverage_scan": 0, "tile_stats": 0}
+    assert kernels.LAUNCHES["coverage_scan"] == 0
+    assert not any(kernels.LAUNCHES.values()), kernels.LAUNCHES
 
 
 def test_excluded_matches_searchsorted_parity():
