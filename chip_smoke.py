@@ -7,42 +7,50 @@ Phases, each printed on its own line; any failure raises and exits
 non-zero, and the result line is printed only when every phase passed:
 
 1. Card: name, nvidia-smi power limit; no CUDA card is an error.
-2. Build: ``ingest.ensure_native()`` makes the native ingest library
-   load (building native/ingest.cpp into the git-ignored
+2. Build: the port's ``ingest.ensure_native()`` makes the native
+   ingest library load (building native/ingest.cpp into the git-ignored
    genrich_tpu_torch/_build/ if the committed one does not), then nvcc
    builds genrich_tpu_torch/csrc there (one process per source, all at
-   once); seconds and whether the ingest build has libdeflate are
-   printed.
+   once), and csrc/reference (the first designs of K1 and K4, which the
+   port never loads); seconds and whether the ingest build has
+   libdeflate are printed.
 3. Kernels: each hand-written kernel against its plain PyTorch version
-   on the card: coverage_scan (K1, 2^23 rows and a ragged size)
-   bitwise in both modes (-log10 p of the lambda mode rtol = atol =
-   1e-5), tile_stats (K2) rtol = atol = 1e-5, fisher_combine (K3, R =
-   2 and 3, 2^23 lanes and a ragged size, 10% SKIP) rtol 1e-6 against
-   the float64 plain version with SKIP lanes identical; median times
-   with CUDA events.  The BAMs of phases 4-6 are synthesised by
-   scripts/perf_synth.py into the git-ignored .bench_cache/ when
-   missing.
+   on the card: coverage_scan (K1, 2^23 rows and a ragged size, with
+   carries) bitwise in both modes and bitwise to its first design
+   (-log10 p of the lambda mode rtol = atol = 1e-5), tile_stats (K2)
+   rtol = atol = 1e-5, fisher_combine (K3, R = 2 and 3, 2^23 lanes and
+   a ragged size, 10% SKIP) rtol 1e-6 against the float64 plain version
+   with SKIP lanes identical; median times with CUDA events.  The BAMs
+   of phases 4-6 are synthesised by scripts/perf_synth.py into the
+   git-ignored .bench_cache/ when missing.
 4. Main path: the 2M-pair ATAC BAM on the 2.75 Gbp human-scale genome
-   of scripts/bench_e2e.py, ``--engine exact`` once (in a subprocess,
-   through the same ``ensure_native()``), then the port twice in this
-   process (cold, warm) with ``-r -j -q 0.05 -a 20 --device cuda``.
-   Checks: K1, K2 and K4 launched in each run, native ingest in every
-   run, the peak rows against the exact engine by bench_e2e's rule
-   (match_frac >= 0.99, worst_unmatched_margin <= 0.02), cold and warm
-   narrowPeak byte-identical.  Then peak_reduce (K4) against its plain
-   version, summit fields exact and AUC rtol 1e-5, and against the
-   exact engine's float32 row-order sum, AUC bitwise: on the inputs of
-   the main path's own calls (kept by one more run) and on 2^23
-   synthetic rows holding about 30,000 short peaks.
+   of scripts/bench_e2e.py, ``--engine exact`` once (in a child process
+   that loads the native library the port's ``ensure_native()`` found),
+   then the port twice in this process (cold, warm) with ``-r -j -q
+   0.05 -a 20 --device cuda``.  Checks: K1, K2 and K4 launched in each
+   run, native ingest in every run, the peak rows against the exact
+   engine by bench_e2e's rule (match_frac >= 0.99,
+   worst_unmatched_margin <= 0.02), cold and warm narrowPeak
+   byte-identical.  One more run keeps the inputs of the main path's
+   own K1, K2 and K4 calls.  K1 on them: bitwise to its plain version
+   and its first design, one kernel launch per call (torch.profiler),
+   times; K2 on them against its plain version (rtol = atol = 1e-5),
+   times.  K4 on them and on 2^23 synthetic rows holding about 30,000
+   short peaks: against its plain version (summit fields exact, AUC
+   rtol 1e-5), against the exact engine's float32 row-order sum (AUC
+   bitwise), and all six outputs bitwise to its first design.
 5. Fisher: ``-t A,B`` with replicate B a second 2M-pair BAM (seed 8),
    the same flags; exact once, the port cold and warm.  Checks: the
    same row rule, cold == warm bytes, K1 and K2 launched 6 times, K3 3
-   times, K4 at least 3 times per run.
+   times, K4 at least 3 times per run.  One more run keeps the inputs
+   of its K3 calls: K3 on them against its float64 plain version, times.
 6. Logs (depth cut to a 200,000-pair BAM: every log row is text on
    both sides): ``-f f.log -k k.log`` with the same flags, port against
    exact by ``testing.check_log``.
-7. The last lines: the kernels JSON, the nvidia-smi line and
-   {"ok": true, "device": {...}}; jax is never imported in this
+7. The last lines: the kernels JSON (each kernel's time, plain time,
+   bound: bytes read and written once over 3.35 TB/s, and its launches
+   on the main path), the nvidia-smi line and {"ok": true, "device":
+   {...}}; neither jax nor genrich_tpu is ever imported in this
    process.
 """
 
@@ -70,6 +78,10 @@ TOL = 1e-5
 FISHER_RTOL = 1e-6
 PEAKS_K4 = 30_000
 DEV = "cuda"
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
+SM_CLOCK_HZ = 1.98e9           # H100 SXM boost clock (data sheet)
+FADD_CYCLES = 4                # dependent float32 add latency
+BUSY_CYCLES = 2_000_000        # about 1 ms of spinning ahead of a timing
 # (pairs, seed) of each BAM: main path / Fisher replicate A, Fisher
 # replicate B, logs
 BAMS = {"a": (N_PAIRS, 7), "b": (N_PAIRS, 8), "log": (N_LOG_PAIRS, 7)}
@@ -116,23 +128,36 @@ def synth_bam(key: str) -> str:
 # --- build ----------------------------------------------------------------
 
 def build():
-    from genrich_tpu_torch import ingest, kernels
+    """Native ingest, the kernels and their first designs; returns the
+    native ingest library's path."""
+    from genrich_tpu_torch import kernels
+    from genrich_tpu_torch.ingest import native
     t0 = time.perf_counter()
-    nat_info = dict(ingest.ensure_native())
+    nat_info = dict(native.ensure_native())
     kernels.library()
     info = dict(kernels.BUILD_INFO)
     ptxas = info.pop("ptxas", "")
     info["nvcc_seconds"] = info.pop("seconds")
+    t1 = time.perf_counter()
+    kernels.reference_library()
     say("build", wall_s=time.perf_counter() - t0, **info,
+        reference_nvcc_seconds=time.perf_counter() - t1,
         native_ingest=nat_info)
     for line in ptxas.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if "registers" in line or "Compiling entry" in line \
+                or "spill" in line:
             print("  ptxas:", line.strip())
+    return nat_info["path"]
 
 
 # --- kernels against their plain versions ---------------------------------
 
-def _median_ms(fn, n=20):
+def _median_ms(fn, n=20, busy=True):
+    """Median milliseconds of ``fn`` between two CUDA events.  With
+    ``busy`` the card first spins about a millisecond, so the host has
+    queued all of ``fn``'s work before the first event runs: the time is
+    the device's alone.  Without it, the time of the call, the host's
+    launch work included where the device waits on it."""
     import torch
     for _ in range(3):
         fn()
@@ -140,6 +165,8 @@ def _median_ms(fn, n=20):
     for _ in range(n):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if busy:
+            torch.cuda._sleep(BUSY_CYCLES)
         a.record()
         fn()
         b.record()
@@ -154,9 +181,32 @@ def _close(a, b, rtol=TOL, atol=TOL):
     return bool(torch.all((a - b).abs() <= atol + rtol * b.abs()))
 
 
+def _bound_ms(nbytes):
+    """The least time to move ``nbytes`` through device memory."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _scan_bytes(m, groups, lam):
+    """K1: packed int32 in, groups x f32 coverage (+ f32 p) out."""
+    return 4 * m * (1 + groups + (lam is not None))
+
+
+def _stats_bytes(m):
+    """K2: ev, cr f32 and the excluded mask in, -log10 p f32 out."""
+    return 13 * m
+
+
+def _fisher_bytes(r, n):
+    """K3: r x f32 -log10 p in, f32 out."""
+    return 4 * n * (r + 1)
+
+
 def scan_stats_phase():
-    """K1 and K2 against their plain versions; returns JSON entries."""
+    """K1 and K2 against their plain versions (K1 also against its first
+    design); returns JSON entries, K1's to be completed on the main
+    path's inputs."""
     import torch
+    from genrich_tpu_torch import testing
     from genrich_tpu_torch.ops import pileup, pipeline, scan
     dev = torch.device(DEV)
     rng = np.random.RandomState(0)
@@ -174,19 +224,27 @@ def scan_stats_phase():
         # K1, main-path mode: two groups, coverage only
         vals, _ = scan.coverage_scan(packed, 2, carry)
         ref, _ = scan.coverage_scan_plain(packed, 2, carry)
+        first, _ = testing.coverage_scan_first_design(packed, 2, carry)
         torch.cuda.synchronize()
         g2_err = float((vals - ref).abs().max())
         if not torch.equal(vals, ref):
             raise AssertionError(f"coverage_scan G=2 M={m}: not bitwise "
                                  f"(max abs err {g2_err})")
+        if not torch.equal(vals, first):
+            raise AssertionError(f"coverage_scan G=2 M={m}: differs from "
+                                 f"the first design")
         # K1, lambda mode: one group + -log10 p against lambda
         p1 = packed & 0x3FF
-        z4 = torch.zeros(4, dtype=torch.int32, device=dev)
-        v1, pv1 = scan.coverage_scan(p1, 1, z4, lam=2.5)
-        rv1, rpv1 = scan.coverage_scan_plain(p1, 1, z4, lam=2.5)
+        c4 = carry[:4].contiguous()
+        v1, pv1 = scan.coverage_scan(p1, 1, c4, lam=2.5)
+        rv1, rpv1 = scan.coverage_scan_plain(p1, 1, c4, lam=2.5)
+        fv1, fpv1 = testing.coverage_scan_first_design(p1, 1, c4, lam=2.5)
         torch.cuda.synchronize()
         if not torch.equal(v1, rv1):
             raise AssertionError(f"coverage_scan G=1 M={m}: vals differ")
+        if not (torch.equal(v1, fv1) and torch.equal(pv1, fpv1)):
+            raise AssertionError(f"coverage_scan G=1 M={m}: differs from "
+                                 f"the first design")
         p_err = float((pv1 - rpv1).abs().max())
         if not _close(pv1, rpv1):
             raise AssertionError(f"coverage_scan G=1 M={m}: p max abs "
@@ -207,19 +265,26 @@ def scan_stats_phase():
             res.update(
                 g2_ms=_median_ms(lambda: scan.coverage_scan(packed, 2,
                                                             carry)),
+                g2_first_design_ms=_median_ms(
+                    lambda: testing.coverage_scan_first_design(
+                        packed, 2, carry)),
                 g2_plain_ms=_median_ms(
                     lambda: scan.coverage_scan_plain(packed, 2, carry)),
                 g1_ms=_median_ms(lambda: scan.coverage_scan(
-                    p1, 1, z4, lam=2.5)),
+                    p1, 1, c4, lam=2.5)),
+                g1_first_design_ms=_median_ms(
+                    lambda: testing.coverage_scan_first_design(
+                        p1, 1, c4, lam=2.5)),
                 g1_plain_ms=_median_ms(lambda: scan.coverage_scan_plain(
-                    p1, 1, z4, lam=2.5)),
+                    p1, 1, c4, lam=2.5)),
                 stats_ms=_median_ms(lambda: pipeline.tile_stats(
                     ev, cr, ex, 1.37, 2.5)),
                 stats_plain_ms=_median_ms(lambda: pipeline.tile_stats_plain(
                     ev, cr, ex, 1.37, 2.5)))
         out[m] = res
         say("kernels", m=m, **res)
-        del packed, vals, ref, p1, v1, pv1, rv1, rpv1, ex, ev, cr, pv, rpv
+        del packed, vals, ref, first, p1, v1, pv1, rv1, rpv1, fv1, fpv1
+        del ex, ev, cr, pv, rpv
         torch.cuda.empty_cache()
     main, ragged = out[M_MAIN], out[M_RAGGED]
 
@@ -230,18 +295,97 @@ def scan_stats_phase():
          "source": "genrich_tpu_torch/csrc/scan.cu",
          "replaces": "genrich_tpu/ops/pallas_scan.py:44",
          "launches": 0, "max_abs_err": worst("g2_max_abs_err"),
-         "ms": main["g2_ms"], "plain_ms": main["g2_plain_ms"],
-         "mode": "G=2 coverage (main path), M=2^23",
+         "library_ms": None,
+         "at_2^23": {
+             "mode": "G=2 coverage (main-path mode), M=2^23",
+             "ms": main["g2_ms"],
+             "first_design_ms": main["g2_first_design_ms"],
+             "plain_ms": main["g2_plain_ms"],
+             "bound_ms": _bound_ms(_scan_bytes(M_MAIN, 2, None))},
          "lambda_mode": {"p_max_abs_err": worst("g1_p_max_abs_err"),
                          "ms": main["g1_ms"],
-                         "plain_ms": main["g1_plain_ms"]}},
+                         "first_design_ms": main["g1_first_design_ms"],
+                         "plain_ms": main["g1_plain_ms"],
+                         "bound_ms": _bound_ms(_scan_bytes(M_MAIN, 1,
+                                                           2.5))}},
         {"name": "tile_stats", "route": "cuda",
          "source": "genrich_tpu_torch/csrc/stats.cu",
          "replaces": "genrich_tpu/ops/pipeline_jax.py:164",
          "launches": 0, "max_abs_err": worst("stats_max_abs_err"),
-         "ms": main["stats_ms"], "plain_ms": main["stats_plain_ms"],
-         "mode": "M=2^23"},
+         "library_ms": None,
+         "at_2^23": {"ms": main["stats_ms"],
+                     "plain_ms": main["stats_plain_ms"],
+                     "bound_ms": _bound_ms(_stats_bytes(M_MAIN))}},
     ]
+
+
+def _kernel_launches(fn):
+    """Names of the device kernels (memsets and copies aside) that one
+    call of ``fn`` runs, from torch.profiler's device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [n for n in names if not n.startswith(("Memset", "Memcpy"))]
+
+
+def k1_main_phase(calls, entry):
+    """K1 on the inputs of the main path's own calls (host copies of
+    coverage_scan's arguments): bitwise to its plain version and its
+    first design, one kernel per call; completes ``entry``."""
+    import torch
+    from genrich_tpu_torch import testing
+    from genrich_tpu_torch.ops import scan
+    dev = torch.device(DEV)
+    ms = call_ms = first_ms = plain_ms = nbytes = 0.0
+    for i, call in enumerate(calls):
+        packed, groups, carry, lam = (list(call) + [None, None])[:4]
+        packed, carry = packed.to(dev), carry.to(dev)
+        got = scan.coverage_scan(packed, groups, carry, lam)
+        want = scan.coverage_scan_plain(packed, groups, carry, lam)
+        first = testing.coverage_scan_first_design(packed, groups, carry,
+                                                   lam)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0])
+                and torch.equal(got[0], first[0])):
+            raise AssertionError(f"coverage_scan, main path call {i}: "
+                                 f"not bitwise")
+        ran = _kernel_launches(lambda: scan.coverage_scan(packed, groups,
+                                                          carry, lam))
+        if len(ran) != 1:
+            raise AssertionError(f"coverage_scan, main path call {i}: "
+                                 f"{len(ran)} kernels: {ran}")
+        m = packed.shape[0]
+        res = {"rows": m, "groups": groups, "kernels_per_call": ran,
+               "ms": _median_ms(lambda: scan.coverage_scan(
+                   packed, groups, carry, lam)),
+               "call_ms": _median_ms(lambda: scan.coverage_scan(
+                   packed, groups, carry, lam), busy=False),
+               "first_design_ms": _median_ms(
+                   lambda: testing.coverage_scan_first_design(
+                       packed, groups, carry, lam)),
+               "plain_ms": _median_ms(lambda: scan.coverage_scan_plain(
+                   packed, groups, carry, lam)),
+               "bound_ms": _bound_ms(_scan_bytes(m, groups, lam))}
+        ms += res["ms"]
+        call_ms += res["call_ms"]
+        first_ms += res["first_design_ms"]
+        plain_ms += res["plain_ms"]
+        nbytes += _scan_bytes(m, groups, lam)
+        say("kernels", kernel="coverage_scan",
+            inputs=f"main path call {i}", **res)
+        del packed, carry, got, want, first
+    torch.cuda.empty_cache()
+    entry.update(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                 first_design_ms=first_ms,
+                 bound_ms=_bound_ms(nbytes), bound_by="bytes",
+                 mode=f"sum over the main path's {len(calls)} calls, its "
+                      f"own inputs; one kernel launch per call")
 
 
 def fisher_phase():
@@ -285,15 +429,34 @@ def fisher_phase():
             "source": "genrich_tpu_torch/csrc/fisher.cu",
             "replaces": "genrich_tpu/ops/chisq_jax.py:174",
             "launches": 0, "max_abs_err": worst_err,
-            "ms": times[2][0], "plain_ms": times[2][1],
-            "mode": "R=2, N=2^23 (R=3: %.4f / %.4f ms)" % times[3],
+            "library_ms": None,
+            "at_2^23": {"ms": times[2][0], "plain_ms": times[2][1],
+                        "bound_ms": _bound_ms(_fisher_bytes(2, M_MAIN)),
+                        "r3_ms": times[3][0], "r3_plain_ms": times[3][1]},
             "max_rel_err": worst_rel}
+
+
+def _k4_first_design(args):
+    from genrich_tpu_torch import testing
+    starts, ends, stat, pval, qval, sig, _, first, last, min_pq = args
+    return testing.peak_reduce_first_design(starts, ends, stat, pval, qval,
+                                            sig, first, last, min_pq)
+
+
+def _k4_bytes(args):
+    """K4's bytes on these inputs: 13 per row of an existing peak
+    (starts, ends, stat, sig; the summit's p and q are two rows more),
+    16 per candidate in and 24 out."""
+    first, last = args[7], args[8]
+    rows = int((last - first + 1).clamp_min(0).sum())
+    return 13 * rows + 40 * first.shape[0]
 
 
 def _hold_k4(args, min_pq):
     """K4 against its plain version (summit fields exact, AUC rtol
-    1e-5) and against the exact engine's float32 row-order sum on the
-    host (AUC bitwise), and twice in a row (bitwise); ``args`` are
+    1e-5), against the exact engine's float32 row-order sum on the host
+    (AUC bitwise), against its first design (all six outputs bitwise,
+    every candidate), and twice in a row (bitwise); ``args`` are
     peak_reduce's arguments on the card.  Returns error figures."""
     import torch
     from genrich_tpu_torch import testing
@@ -302,6 +465,7 @@ def _hold_k4(args, min_pq):
     got = peaks.peak_reduce(*args)
     want = peaks.peak_reduce_plain(*args)
     again = peaks.peak_reduce(*args)
+    old = _k4_first_design(args)
     torch.cuda.synchronize()
     ex = last >= first
     names = ("auc", "max_stat", "summit_pval", "summit_qval",
@@ -311,6 +475,10 @@ def _hold_k4(args, min_pq):
             raise AssertionError(f"peak_reduce: {name} differs")
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError("peak_reduce: two runs differ")
+    for name, g, o in zip(names, got, old):
+        if not torch.equal(g, o):
+            raise AssertionError(f"peak_reduce: {name} differs from the "
+                                 f"first design")
     auc, plain_auc = got[0][ex], want[0][ex]
     a_err = (auc - plain_auc).abs()
     rel = float((a_err / plain_auc.abs().clamp_min(1e-30)).max())
@@ -325,7 +493,8 @@ def _hold_k4(args, min_pq):
         raise AssertionError(f"peak_reduce: AUC of {n_diff} peaks is not "
                              f"the row-order float32 sum")
     rows = (last - first + 1)[ex]
-    return {"peaks": int(ex.sum()),
+    return {"peaks": int(ex.sum()), "candidates": int(first.shape[0]),
+            "first_design_bitwise": True,
             "rows_per_peak_median": float(rows.double().median()),
             "rows_per_peak_max": int(rows.max()),
             "auc_max_abs_err": float(a_err.max()),
@@ -342,36 +511,54 @@ def peaks_phase(main_calls):
     from genrich_tpu_torch import testing
     from genrich_tpu_torch.ops import peaks
     dev = torch.device(DEV)
-    ms = plain_ms = 0.0
+    ms = call_ms = plain_ms = first_ms = first_call_ms = 0.0
+    nbytes = chain_ms = 0.0
     worst_err = worst_rel = 0.0
     for i, call in enumerate(main_calls):
         args = [a.to(dev) if torch.is_tensor(a) else a for a in call]
         res = _hold_k4(args, call[-1])
         res.update(rows=int(args[0].shape[0]),
                    ms=_median_ms(lambda: peaks.peak_reduce(*args)),
+                   call_ms=_median_ms(lambda: peaks.peak_reduce(*args),
+                                      busy=False),
+                   first_design_ms=_median_ms(
+                       lambda: _k4_first_design(args)),
+                   first_design_call_ms=_median_ms(
+                       lambda: _k4_first_design(args), busy=False),
                    plain_ms=_median_ms(
-                       lambda: peaks.peak_reduce_plain(*args)))
+                       lambda: peaks.peak_reduce_plain(*args)),
+                   bound_ms=_bound_ms(_k4_bytes(args)),
+                   add_chain_floor_ms=res["rows_per_peak_max"]
+                   * FADD_CYCLES / SM_CLOCK_HZ * 1e3)
         ms += res["ms"]
+        call_ms += res["call_ms"]
         plain_ms += res["plain_ms"]
+        first_ms += res["first_design_ms"]
+        first_call_ms += res["first_design_call_ms"]
+        nbytes += _k4_bytes(args)
+        chain_ms += res["add_chain_floor_ms"]
         worst_err = max(worst_err, res["auc_max_abs_err"])
         worst_rel = max(worst_rel, res["auc_max_rel_err"])
         say("kernels", kernel="peak_reduce", inputs=f"main path call {i}",
             **res)
         del args
     min_pq = 2.0
-    ends, stat, pval, qval = testing.peak_rows(
+    rows = [torch.from_numpy(a).to(dev) for a in testing.peak_row_columns(
         np.random.RandomState(2), M_MAIN, PEAKS_K4, region_rows=(3, 200),
-        min_pq=min_pq)
-    starts = np.concatenate([[0], ends[:-1]])
-    rows = [torch.from_numpy(a).to(dev) for a in (
-        starts.astype(np.int32), ends.astype(np.int32), stat, pval, qval)]
+        min_pq=min_pq)]
     live = torch.ones(M_MAIN, dtype=torch.bool, device=dev)
     c = peaks.peak_candidates(*rows[:3], live, min_pq, 100, 1 << 16)
     args = rows + [c.sig, c.pid, c.first, c.last, min_pq]
     syn = _hold_k4(args, min_pq)
     syn.update(rows=M_MAIN,
                ms=_median_ms(lambda: peaks.peak_reduce(*args)),
-               plain_ms=_median_ms(lambda: peaks.peak_reduce_plain(*args)))
+               call_ms=_median_ms(lambda: peaks.peak_reduce(*args),
+                                  busy=False),
+               first_design_ms=_median_ms(lambda: _k4_first_design(args)),
+               first_design_call_ms=_median_ms(
+                   lambda: _k4_first_design(args), busy=False),
+               plain_ms=_median_ms(lambda: peaks.peak_reduce_plain(*args)),
+               bound_ms=_bound_ms(_k4_bytes(args)))
     say("kernels", kernel="peak_reduce", inputs="synthetic", **syn)
     del rows, args, c, live
     torch.cuda.empty_cache()
@@ -380,12 +567,18 @@ def peaks_phase(main_calls):
             "replaces": "genrich_tpu/ops/peaks_jax.py:85",
             "launches": 0,
             "max_abs_err": max(worst_err, syn["auc_max_abs_err"]),
-            "ms": ms, "plain_ms": plain_ms,
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "first_design_ms": first_ms,
+            "first_design_call_ms": first_call_ms,
+            "bound_ms": _bound_ms(nbytes), "bound_by": "bytes",
+            "add_chain_floor_ms": chain_ms, "library_ms": None,
             "mode": f"sum over the main path's {len(main_calls)} calls, "
-                    f"its own inputs; AUC bitwise to the row-order sum",
+                    f"its own inputs; AUC bitwise to the row-order sum, "
+                    f"all outputs bitwise to the first design",
             "auc_max_rel_err": max(worst_rel, syn["auc_max_rel_err"]),
-            "synthetic": {k: syn[k] for k in ("rows", "peaks", "ms",
-                                               "plain_ms")}}
+            "synthetic": {k: syn[k] for k in (
+                "rows", "peaks", "ms", "call_ms", "first_design_ms",
+                "first_design_call_ms", "plain_ms", "bound_ms")}}
 
 
 # --- end-to-end runs --------------------------------------------------------
@@ -410,29 +603,30 @@ def _rel_diffs(ref_path, out_path):
 
 
 def _native_used() -> bool:
-    nat = sys.modules.get("genrich_tpu.ingest.native")
-    return nat is not None and nat.available(build=False)
+    from genrich_tpu_torch.ingest import native
+    return native.available(build=False)
 
 
 # The exact engine runs in a child process, so that this one never
-# imports jax; it makes native ingest load the same way the port does
-# and prints, last, whether the native library served the run.
+# imports jax or genrich_tpu; it loads the native library that the
+# port's ensure_native() found (argv[2]) and prints, last, whether that
+# library served the run.
 _EXACT = ("import sys; sys.path.insert(0, sys.argv[1]); "
-          "from genrich_tpu_torch.ingest import ensure_native; "
-          "ensure_native(); "
-          "from genrich_tpu import cli; "
           "from genrich_tpu.ingest import native; "
-          "rc = cli.main(sys.argv[2:]); "
+          "native._SO = sys.argv[2]; "
+          "from genrich_tpu import cli; "
+          "rc = cli.main(sys.argv[3:]); "
           "print(native.available(build=False)); sys.exit(rc)")
+NATIVE_SO = {}
 
 
 def run_exact(label: str, args):
     """``--engine exact`` on ``args`` in a child process; returns its
     wall (the child's start and imports included)."""
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-c", _EXACT, REPO] + args
-                       + ["--engine", "exact"], capture_output=True,
-                       text=True)
+    r = subprocess.run([sys.executable, "-c", _EXACT, REPO,
+                        NATIVE_SO["path"]] + args + ["--engine", "exact"],
+                       capture_output=True, text=True)
     wall = time.perf_counter() - t0
     if r.returncode != 0:
         raise AssertionError(f"exact engine ({label}) exit code "
@@ -513,26 +707,133 @@ def main_path(bam):
     return peak_runs("main", bam, need)
 
 
-def main_k4_inputs(bam):
-    """One more port run of the main path (untimed, its counts unread)
-    that keeps a host copy of the arguments of each peak_reduce call."""
+def kernel_inputs(label, ts, targets):
+    """One more port run on ``-t ts`` (untimed, its counts unread) with
+    each (module, name) of ``targets`` wrapped to keep host copies of
+    the arguments of its calls; returns {name: [args, ...]}."""
     import torch
-    from genrich_tpu_torch.ops import peaks
-    calls = []
-    real = peaks.peak_reduce
+    calls = {name: [] for _, name in targets}
+    real = {name: getattr(mod, name) for mod, name in targets}
 
-    def record(*args):
-        calls.append([a.cpu() if torch.is_tensor(a) else a for a in args])
-        return real(*args)
-    peaks.peak_reduce = record
+    def wrap(name):
+        def record(*args):
+            calls[name].append([a.cpu() if torch.is_tensor(a) else a
+                                for a in args])
+            return real[name](*args)
+        return record
+    for mod, name in targets:
+        setattr(mod, name, wrap(name))
     try:
-        run_port("main, K4 inputs", ["-t", bam, "-o", os.path.join(
-            WORK, "chip_smoke", "main_k4_inputs.np")] + FLAGS)
+        run_port(f"{label}, kernel inputs", ["-t", ts, "-o", os.path.join(
+            WORK, "chip_smoke", f"{label}_kernel_inputs.np")] + FLAGS)
     finally:
-        peaks.peak_reduce = real
-    if not calls:
-        raise AssertionError("the main path made no peak_reduce call")
+        for mod, name in targets:
+            setattr(mod, name, real[name])
+    empty = [name for name, c in calls.items() if not c]
+    if empty:
+        raise AssertionError(f"{label}: no call of {empty}")
     return calls
+
+
+def main_kernel_inputs(bam):
+    """The arguments of the main path's K1, K2 and K4 calls."""
+    from genrich_tpu_torch.engine import torch_bridge
+    from genrich_tpu_torch.ops import peaks, pipeline
+    return kernel_inputs("main", bam, [(pipeline, "coverage_scan"),
+                                       (torch_bridge, "tile_stats"),
+                                       (peaks, "peak_reduce")])
+
+
+def fisher_kernel_inputs(bam_a, bam_b):
+    """The arguments of the Fisher path's K3 calls."""
+    from genrich_tpu_torch.ops import compact
+    return kernel_inputs("fisher", f"{bam_a},{bam_b}",
+                         [(compact, "fisher_combine")])["fisher_combine"]
+
+
+def k2_main_phase(calls, entry):
+    """K2 on the inputs of the main path's own calls, against its plain
+    version (rtol = atol = 1e-5); completes ``entry``."""
+    import torch
+    from genrich_tpu_torch.ops import pipeline
+    dev = torch.device(DEV)
+    ms = call_ms = plain_ms = nbytes = worst = 0.0
+    for i, call in enumerate(calls):
+        args = [a.to(dev) if torch.is_tensor(a) else a for a in call]
+        got = pipeline.tile_stats(*args)
+        want = pipeline.tile_stats_plain(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not _close(got, want):
+            raise AssertionError(f"tile_stats, main path call {i}: max abs "
+                                 f"err {err}")
+        m = args[0].shape[0]
+        res = {"rows": m, "max_abs_err": err,
+               "ms": _median_ms(lambda: pipeline.tile_stats(*args)),
+               "call_ms": _median_ms(lambda: pipeline.tile_stats(*args),
+                                     busy=False),
+               "plain_ms": _median_ms(
+                   lambda: pipeline.tile_stats_plain(*args)),
+               "bound_ms": _bound_ms(_stats_bytes(m))}
+        ms += res["ms"]
+        call_ms += res["call_ms"]
+        plain_ms += res["plain_ms"]
+        nbytes += _stats_bytes(m)
+        worst = max(worst, err)
+        say("kernels", kernel="tile_stats", inputs=f"main path call {i}",
+            **res)
+        del args, got, want
+    torch.cuda.empty_cache()
+    entry.update(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                 bound_ms=_bound_ms(nbytes), bound_by="bytes",
+                 max_abs_err=max(entry["max_abs_err"], worst),
+                 mode=f"sum over the main path's {len(calls)} calls, its "
+                      f"own inputs")
+
+
+def k3_fisher_phase(calls, entry):
+    """K3 on the inputs of the Fisher path's own calls, against its
+    float64 plain version (rtol 1e-6, SKIP lanes identical); completes
+    ``entry``."""
+    import torch
+    from genrich_tpu_torch.ops import chisq
+    dev = torch.device(DEV)
+    ms = call_ms = plain_ms = nbytes = worst = 0.0
+    for i, (pv,) in enumerate(calls):
+        pv = pv.to(dev)
+        got = chisq.fisher_combine(pv)
+        want = chisq.fisher_combine_plain(pv)
+        torch.cuda.synchronize()
+        if not torch.equal(got == -1.0, want == -1.0):
+            raise AssertionError(f"fisher_combine, Fisher path call {i}: "
+                                 f"SKIP lanes differ")
+        if not _close(got, want, rtol=FISHER_RTOL, atol=0.0):
+            raise AssertionError(f"fisher_combine, Fisher path call {i}: "
+                                 f"outside rtol {FISHER_RTOL}")
+        r, n = pv.shape
+        err = float((got - want).abs().max())
+        res = {"replicates": r, "lanes": n, "max_abs_err": err,
+               "ms": _median_ms(lambda: chisq.fisher_combine(pv)),
+               "call_ms": _median_ms(lambda: chisq.fisher_combine(pv),
+                                     busy=False),
+               "plain_ms": _median_ms(
+                   lambda: chisq.fisher_combine_plain(pv), n=5),
+               "bound_ms": _bound_ms(_fisher_bytes(r, n))}
+        ms += res["ms"]
+        call_ms += res["call_ms"]
+        plain_ms += res["plain_ms"]
+        nbytes += _fisher_bytes(r, n)
+        worst = max(worst, err)
+        say("kernels", kernel="fisher_combine",
+            inputs=f"Fisher path call {i}", **res)
+        del pv, got, want
+    torch.cuda.empty_cache()
+    # its FP64 operations are data-dependent series, not counted
+    entry.update(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                 bound_ms=_bound_ms(nbytes), bound_by="bytes",
+                 max_abs_err=max(entry["max_abs_err"], worst),
+                 mode=f"sum over the Fisher path's {len(calls)} calls, its "
+                      f"own inputs")
 
 
 def fisher_path(bam_a, bam_b):
@@ -574,15 +875,23 @@ def logs_path(bam):
 
 def main() -> int:
     smi = card()
-    build()
+    NATIVE_SO["path"] = build()
     entries = scan_stats_phase() + [fisher_phase()]
     bam_a = synth_bam("a")
     main_counts = main_path(bam_a)
-    entries.append(peaks_phase(main_k4_inputs(bam_a)))
-    fisher_counts = fisher_path(bam_a, synth_bam("b"))
+    calls = main_kernel_inputs(bam_a)
+    k1_main_phase(calls["coverage_scan"], entries[0])
+    k2_main_phase(calls["tile_stats"], entries[1])
+    entries.append(peaks_phase(calls["peak_reduce"]))
+    del calls
+    bam_b = synth_bam("b")
+    fisher_counts = fisher_path(bam_a, bam_b)
+    k3_fisher_phase(fisher_kernel_inputs(bam_a, bam_b), entries[2])
     logs_path(synth_bam("log"))
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported by the smoke's process")
+    loaded = sorted({m.split(".")[0] for m in sys.modules}
+                    & {"jax", "genrich_tpu"})
+    if loaded:
+        raise AssertionError(f"{loaded} imported by the smoke's process")
     for e in entries:
         path = fisher_counts if e["name"] == "fisher_combine" \
             else main_counts

@@ -4,17 +4,33 @@ The peak-calling path of ``genrich_tpu``'s ``--engine jax`` (one or
 several ``-t`` replicates, the ``-f``/``-k`` logs, ``-X``/``-P``) runs
 here on one NVIDIA Hopper card through hand-written CUDA kernels
 (``genrich_tpu_torch/csrc``), or on the CPU through their plain PyTorch
-versions.  Host-side work (ingest, BH q-value sweep, output writers,
-the exact-engine fallback for >2^31-bp chromosomes) is imported from
-``genrich_tpu``, never copied; this package imports ``torch`` and never
-``jax``.
+versions.  The package stands alone: it imports ``torch`` and never
+``jax`` nor ``genrich_tpu``, and keeps its own copy of the host half it
+runs (ingest, params, the exact engine's host numerics for BH, Fisher
+with logs, ``-P`` and the >2^31-bp fallback, the writers).
 
-Layout mirrors ``genrich_tpu``: ``ops/`` holds the tensor programs
-(each with its JAX twin named in its docstring), ``engine/`` the
-device engine that ``genrich_tpu.pipeline.run`` drives, ``kernels.py``
-the nvcc build, ctypes binding and launch counters, ``ingest.py`` the
-native ingest build, ``prof.py`` a device-time profile of the main and
-Fisher paths, ``testing.py`` helpers of the tests and chip_smoke.py.
+Layout mirrors ``genrich_tpu``, so each module's counterpart has the
+same path there: ``errors``, ``params``, ``io/``, ``ingest/`` (with the
+native library's build in ``ingest/native.py``), ``output/``,
+``logreader``, ``utils/`` and the host modules of ``engine/`` are
+copies; ``pipeline`` is cut to the device engine; ``ops/`` holds the
+tensor programs (each with its JAX twin named in its docstring),
+``engine/torch_bridge.py`` the device engine that ``pipeline.run``
+drives, ``kernels.py`` the nvcc build, ctypes binding and launch
+counters, ``prof.py`` a device-time profile of the main and Fisher
+paths, ``testing.py`` helpers of the tests and chip_smoke.py.
 """
 
 __version__ = "0.1.0"
+
+# Keep genome-scale numpy temporaries on the persistent heap instead
+# of per-allocation mmap/munmap (see utils/malloc_tuning.py), as the
+# JAX package does, so the two packages' ingest walls compare.
+import os as _os
+
+if _os.environ.get("GENRICH_MALLOC_TUNING", "1") != "0":
+    from .utils.malloc_tuning import tune_malloc as _tune_malloc
+
+    _tune_malloc()
+
+GENRICH_COMPAT_VERSION = "0.6.2"  # reference Genrich.h:9

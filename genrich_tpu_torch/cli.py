@@ -3,11 +3,9 @@
     python -m genrich_tpu_torch -t in.bam -o out.narrowPeak [flags]
         [--device cuda|cpu]
 
-Flags are parsed by ``genrich_tpu.params.parse_args``; the analysis is
-``genrich_tpu.pipeline.run`` with a ``TorchEngine`` on the chosen
-device (default ``cuda``; no card is an error, never a silent switch to
-the CPU).  ``p.engine`` is set to "jax" so that the pipeline takes its
-device-engine branch (pipeline.py:856-869) with the engine it is given.
+Flags are parsed by ``params.parse_args``; the analysis is
+``pipeline.run`` with a ``TorchEngine`` on the chosen device (default
+``cuda``; no card is an error, never a silent switch to the CPU).
 Before the run, ``ingest.ensure_native()`` makes the native ingest
 library load on this host (building it if the committed one does not);
 if that fails, the run parses with the Python reader, as the JAX
@@ -23,15 +21,48 @@ from __future__ import annotations
 import sys
 from typing import List, Optional, Tuple
 
-from genrich_tpu import GENRICH_COMPAT_VERSION
-from genrich_tpu.cli import USAGE
-from genrich_tpu.errors import GenrichError
-from genrich_tpu.params import (Params, UsageRequested, VersionRequested,
-                                parse_args)
-
-from . import __version__
+from . import GENRICH_COMPAT_VERSION, __version__
+from .errors import GenrichError
+from .params import (DEFATAC, DEFAUC, DEFMAXGAP, DEFMINLEN, DEFPVAL,
+                     Params, UsageRequested, VersionRequested, parse_args)
 
 DEVICES = ("cuda", "cpu")
+
+USAGE = f"""Usage: genrich-tpu  -t <file>  -o <file>  [optional arguments]
+Required arguments:
+  -t  <file>       Input SAM/BAM file(s) for experimental sample(s)
+  -o  <file>       Output peak file (in ENCODE narrowPeak format)
+Optional I/O arguments:
+  -c  <file>       Input SAM/BAM file(s) for control sample(s)
+  -f  <file>       Output bedgraph-ish file for p/q values
+  -k  <file>       Output bedgraph-ish file for pileups and p-values
+  -b  <file>       Output BED file for reads/fragments/intervals
+  -R  <file>       Output file for PCR duplicates (only with -r)
+Filtering options:
+  -r               Remove PCR duplicates
+  -e  <arg>        Comma-separated list of chromosomes to exclude
+  -E  <file>       Input BED file(s) of genomic regions to exclude
+  -m  <int>        Minimum MAPQ to keep an alignment (def. 0)
+  -s  <float>      Keep sec alns with AS >= bestAS - <float> (def. 0)
+  -y               Keep unpaired alignments (def. false)
+  -w  <int>        Keep unpaired alns, lengths changed to <int>
+  -x               Keep unpaired alns, lengths changed to paired avg
+Options for ATAC-seq:
+  -j               Use ATAC-seq mode (def. false)
+  -d  <int>        Expand cut sites to <int> bp (def. {DEFATAC})
+  -D               Skip Tn5 adjustments of cut sites (def. false)
+Options for peak-calling:
+  -p  <float>      Maximum p-value (def. {float(DEFPVAL):.2f})
+  -q  <float>      Maximum q-value (FDR-adjusted p-value; def. 1)
+  -a  <float>      Minimum AUC for a peak (def. {float(DEFAUC):.1f})
+  -l  <int>        Minimum length of a peak (def. {DEFMINLEN})
+  -g  <int>        Maximum distance between signif. sites (def. {DEFMAXGAP})
+Other options:
+  -X               Skip peak-calling
+  -P               Call peaks directly from a log file (-f)
+  -z               Option to gzip-compress output(s)
+  -v               Option to print status updates/counts to stderr
+"""
 
 
 class NotPorted(Exception):
@@ -103,16 +134,14 @@ def main(argv: Optional[List[str]] = None,
         sys.stderr.write(f"Error! {e}\n")
         return 1
 
-    from genrich_tpu.pipeline import run
-
     from .engine.torch_bridge import TorchEngine
+    from .pipeline import run
     try:
         engine = TorchEngine(device)
     except RuntimeError as e:
         sys.stderr.write(f"Error! {e}\n")
         return 1
     _native_ingest(params)
-    params.engine = "jax"
     try:
         run(params, engine=engine, perf=perf)
     except GenrichError as e:

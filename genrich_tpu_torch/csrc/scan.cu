@@ -13,19 +13,31 @@
 // reads 4 B and writes 8 B per row, with a few integer operations per
 // row.  The TPU kernel carried its running sum across grid steps in
 // scalar memory, which relies on steps running in order; Hopper blocks
-// run in no order, so this is a reduce-then-scan in three launches:
-//   1. scan_block_totals: each block sums its tile's channels;
-//   2. scan_block_offsets: one block of 1024 threads takes the
-//      exclusive scan of the block totals, starting from the carry
-//      (each thread sums a contiguous run of tiles, then one block
-//      scan);
-//   3. scan_final: each block scans its tile again (thread-local run,
-//      __shfl_up_sync warp scan, shared-memory block scan), adds its
-//      block offset, canonicalises and stores through shared memory so
-//      the global stores are coalesced.
-// The packed input is read twice (8 B/row in all); a single pass with
-// decoupled look-back would save the first read.  The ragged tail is
-// masked, so M need not be a multiple of the tile.
+// run in no order.  So this is one launch of a single-pass scan with
+// decoupled look-back (Merrill & Garland, "Single-pass Parallel Prefix
+// Scan with Decoupled Look-back", 2016):
+//   * each block takes the next tile index from an atomic counter, so a
+//     tile waits only on tiles whose blocks already started;
+//   * a thread loads its 8 consecutive rows with two 16-byte loads
+//     (the packed input is read once), sums their channels, and a block
+//     scan gives the tile's aggregate;
+//   * the tile publishes its aggregate (flag AGG), then one warp walks
+//     back over its predecessors 32 at a time, summing aggregates until
+//     it meets an inclusive prefix (flag INC), and the tile publishes
+//     its own inclusive prefix; the incoming carry is the prefix of
+//     tile 0.  Sums are written before their flag with release
+//     ordering and read after it with acquire ordering: two round trips
+//     per window, but a spinning lane reads 4 bytes, not every sum;
+//   * each thread then runs its 8 rows from its exclusive prefix,
+//     canonicalises them (no division per row) and stores them through
+//     shared memory, so the global stores are coalesced.
+// Tiles are small (1,024 rows, 128 threads) so that many blocks are
+// resident: a block spends most of its life waiting on its loads and
+// its look-back, and other blocks' loads fill that time.
+// The tile counter, the per-tile flags and sums live in the wrapper's
+// scratch; the launch function zeroes the counter and the flags with one
+// cudaMemsetAsync on the stream.  The ragged tail is masked, so M need
+// not be a multiple of the tile.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -33,15 +45,17 @@
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 128;
 constexpr int ITEMS = 8;                  // consecutive rows per thread
 constexpr int TILE = THREADS * ITEMS;     // rows per block
 constexpr int WARPS = THREADS / 32;
 constexpr int PADDED = TILE + TILE / 32;  // one pad word per 32
-constexpr int OFFSET_THREADS = 1024;      // the one block of pass 2
+constexpr int FLAG_AGG = 1;               // the tile's aggregate is out
+constexpr int FLAG_INC = 2;               // its inclusive prefix is out
+constexpr unsigned FULL_MASK = 0xffffffffu;
 
-// shared-memory index with a pad word every 32, so thread t reading
-// rows ITEMS*t .. ITEMS*t+ITEMS-1 hits 32 distinct banks
+// shared-memory index with a pad word every 32, so the 32 threads of a
+// warp writing rows ITEMS*t + k (one k at a time) hit 32 distinct banks
 __device__ __forceinline__ int pad(int j) { return j + (j >> 5); }
 
 template <int G>
@@ -62,19 +76,41 @@ __device__ __forceinline__ int zero_packed() {
   return G == 1 ? 1 : (1 | (1 << 10));
 }
 
+// s / 6.0f and t / 10.0f for the values s (0-2) and t (0-4) take,
+// rounded to nearest at compile time as the division rounds them at run
+// time, so that no division runs per row; other values divide
+__device__ __forceinline__ float sixths(int s) {
+  constexpr float K1 = 1.0f / 6.0f, K2 = 2.0f / 6.0f;
+  return s == 0 ? 0.0f : s == 1 ? K1 : s == 2 ? K2 : (float)s / 6.0f;
+}
+
+__device__ __forceinline__ float tenths(int t) {
+  constexpr float K1 = 1.0f / 10.0f, K2 = 2.0f / 10.0f,
+                  K3 = 3.0f / 10.0f, K4 = 4.0f / 10.0f;
+  return t == 0   ? 0.0f
+         : t == 1 ? K1
+         : t == 2 ? K2
+         : t == 3 ? K3
+         : t == 4 ? K4
+                  : (float)t / 10.0f;
+}
+
 // getVal: e8, s6, t10 are cumulative sums of non-negative deltas plus a
-// non-negative carry, so C's truncating / and % equal floor semantics
+// non-negative carry, so unsigned / and % (cheaper by constants than
+// signed ones) equal the plain version's floor semantics.  e / 8.0f is
+// e * 0.125f exactly.
 __device__ __forceinline__ float canon_value(int cov, int e8, int s6,
                                              int t10) {
-  const int halves = e8 / 4 + s6 / 3 + t10 / 5;
-  const int covc = cov + halves / 2;
-  const int e = e8 % 4 + 4 * (halves % 2);
-  const int s = s6 % 3;
-  const int t = t10 % 5;
+  const unsigned ue8 = e8, us6 = s6, ut10 = t10;
+  const unsigned halves = ue8 / 4 + us6 / 3 + ut10 / 5;
+  const int covc = cov + (int)(halves / 2);
+  const int e = (int)(ue8 % 4 + 4 * (halves % 2));
+  const int s = (int)(us6 % 3);
+  const int t = (int)(ut10 % 5);
   float v = (float)covc;
-  v = v + (float)e / 8.0f;
-  v = v + (float)s / 6.0f;
-  v = v + (float)t / 10.0f;
+  v = v + (float)e * 0.125f;
+  v = v + sixths(s);
+  v = v + tenths(t);
   return v;
 }
 
@@ -119,100 +155,107 @@ __device__ __forceinline__ void block_exclusive_scan(int (&v)[C],
   __syncthreads();  // smem may be reused by the caller
 }
 
-template <int G>
-__global__ void __launch_bounds__(THREADS)
-scan_block_totals(const int* __restrict__ packed, int64_t m,
-                  int* __restrict__ totals) {
-  constexpr int C = 4 * G;
-  __shared__ int smem[WARPS * C];
-  const int64_t base = (int64_t)blockIdx.x * TILE;
-  int acc[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = 0;
-#pragma unroll
-  for (int k = 0; k < ITEMS; ++k) {
-    const int64_t i = base + k * THREADS + threadIdx.x;
-    if (i < m) {
-      int d[C];
-      unpack<G>(packed[i], d);
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc[c] += d[c];
-    }
-  }
-  // block sum: warp shuffle reduction, then one thread over the warps
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-      acc[c] += __shfl_down_sync(0xffffffffu, acc[c], off);
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int c = 0; c < C; ++c) smem[warp * C + c] = acc[c];
-  }
-  __syncthreads();
-  if (threadIdx.x < C) {
-    int sum = 0;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) sum += smem[w * C + threadIdx.x];
-    totals[(int64_t)blockIdx.x * C + threadIdx.x] = sum;
-  }
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
 }
 
-// one block; thread t owns the contiguous run of tiles
-// [t * per, (t + 1) * per), so a single block-wide scan suffices
-template <int G>
-__global__ void __launch_bounds__(OFFSET_THREADS)
-scan_block_offsets(const int* __restrict__ totals, int64_t nblocks,
-                   const int* __restrict__ carry,
-                   int* __restrict__ offsets) {
-  constexpr int C = 4 * G;
-  __shared__ int smem[(OFFSET_THREADS / 32) * C];
-  const int64_t per = (nblocks + OFFSET_THREADS - 1) / OFFSET_THREADS;
-  const int64_t first = (int64_t)threadIdx.x * per;
-  const int64_t lo = first < nblocks ? first : nblocks;
-  const int64_t hi = lo + per < nblocks ? lo + per : nblocks;
-  int run[C];
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// int32 scratch: [0] tile counter, [1, 1 + ntiles) flags, then the
+// tiles' aggregates and inclusive prefixes, C channels each
+__host__ __device__ __forceinline__ int64_t scratch_ints(int64_t ntiles,
+                                                         int c) {
+  return 1 + ntiles * (1 + 2 * (int64_t)c);
+}
+
+// The exclusive prefix of tile ``tile`` (> 0), by warp 0: look back over
+// the predecessors 32 at a time (lane l reads tile win - l), adding
+// aggregates up to the nearest inclusive prefix.  A lane reads its
+// predecessor's flag, then (after it, with acquire ordering) the sums
+// the flag announces.
+template <int C>
+__device__ __forceinline__ void look_back(int64_t tile, const int* flags,
+                                          const int* agg, const int* inc,
+                                          int (&excl)[C]) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int c = 0; c < C; ++c) run[c] = 0;
-  for (int64_t b = lo; b < hi; ++b) {
-#pragma unroll
-    for (int c = 0; c < C; ++c) run[c] += totals[b * C + c];
-  }
-  int total[C];
-  block_exclusive_scan<C, OFFSET_THREADS>(run, total, smem);
-#pragma unroll
-  for (int c = 0; c < C; ++c) run[c] += carry[c];
-  for (int64_t b = lo; b < hi; ++b) {
+  for (int c = 0; c < C; ++c) excl[c] = 0;
+  for (int64_t win = tile - 1;; win -= 32) {
+    const int64_t b = win - lane;
+    int f = FLAG_INC;  // before tile 0: never read (tile 0 is INC)
+    if (b >= 0) {
+      do {
+        f = ld_acquire(flags + b);
+      } while (f == 0);
+    }
+    const unsigned incs = __ballot_sync(FULL_MASK, f == FLAG_INC);
+    const int nearest = incs ? __ffs(incs) - 1 : 32;
+    int v[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      offsets[b * C + c] = run[c];
-      run[c] += totals[b * C + c];
+      v[c] = 0;
+      if (b >= 0 && lane <= nearest)
+        v[c] = (f == FLAG_INC ? inc : agg)[b * C + c];
     }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        v[c] += __shfl_xor_sync(FULL_MASK, v[c], off);
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) excl[c] += v[c];
+    if (incs) return;
   }
 }
 
 template <int G, bool WITH_PVAL>
 __global__ void __launch_bounds__(THREADS)
-scan_final(const int* __restrict__ packed, int64_t m,
-           const int* __restrict__ offsets, float lam,
-           float* __restrict__ vals, float* __restrict__ pval) {
+coverage_scan_kernel(const int* __restrict__ packed, int64_t m,
+                     const int* __restrict__ carry, float lam,
+                     float* __restrict__ vals, float* __restrict__ pval,
+                     int* __restrict__ scratch, int64_t ntiles) {
   constexpr int C = 4 * G;
-  __shared__ int s_in[PADDED];
   __shared__ float s_out[PADDED];
   __shared__ int s_scan[WARPS * C];
-  const int64_t base = (int64_t)blockIdx.x * TILE;
+  __shared__ int s_prefix[C];
+  __shared__ int64_t s_tile;
+  int* const flags = scratch + 1;
+  int* const agg = flags + ntiles;
+  int* const inc = agg + ntiles * C;
   const int t = threadIdx.x;
 
-#pragma unroll
-  for (int k = 0; k < ITEMS; ++k) {
-    const int j = k * THREADS + t;
-    const int64_t i = base + j;
-    s_in[pad(j)] = i < m ? packed[i] : zero_packed<G>();
-  }
+  if (t == 0) s_tile = atomicAdd(scratch, 1);
   __syncthreads();
+  const int64_t tile = s_tile;
+  const int64_t base = tile * TILE;
+
+  // this thread's consecutive rows, 16-byte loads
+  int p[ITEMS];
+  const int64_t r0 = base + (int64_t)t * ITEMS;
+  if (r0 + ITEMS <= m) {
+    const int4* src = reinterpret_cast<const int4*>(packed + r0);
+#pragma unroll
+    for (int q = 0; q < ITEMS / 4; ++q) {
+      const int4 v = src[q];
+      p[4 * q + 0] = v.x;
+      p[4 * q + 1] = v.y;
+      p[4 * q + 2] = v.z;
+      p[4 * q + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k)
+      p[k] = r0 + k < m ? packed[r0 + k] : zero_packed<G>();
+  }
 
   int run[C];
 #pragma unroll
@@ -220,36 +263,67 @@ scan_final(const int* __restrict__ packed, int64_t m,
 #pragma unroll
   for (int k = 0; k < ITEMS; ++k) {
     int d[C];
-    unpack<G>(s_in[pad(t * ITEMS + k)], d);
+    unpack<G>(p[k], d);
 #pragma unroll
     for (int c = 0; c < C; ++c) run[c] += d[c];
   }
   int total[C];
   block_exclusive_scan<C, THREADS>(run, total, s_scan);
-#pragma unroll
-  for (int c = 0; c < C; ++c) run[c] += offsets[(int64_t)blockIdx.x * C + c];
 
-  float v[G][ITEMS];
-  float p[ITEMS];
+  if (t == 0) {
+    if (tile == 0) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        s_prefix[c] = carry[c];
+        inc[c] = carry[c] + total[c];
+      }
+      st_release(flags, FLAG_INC);
+    } else {
+#pragma unroll
+      for (int c = 0; c < C; ++c) agg[tile * C + c] = total[c];
+      st_release(flags + tile, FLAG_AGG);
+    }
+  }
+  if (tile > 0 && t < 32) {
+    int excl[C];
+    look_back<C>(tile, flags, agg, inc, excl);
+    if (t == 0) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        s_prefix[c] = excl[c];
+        inc[tile * C + c] = excl[c] + total[c];
+      }
+      st_release(flags + tile, FLAG_INC);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < C; ++c) run[c] += s_prefix[c];
+
+  // every output of this thread's rows: each group's coverage, then p
+  constexpr int NOUT = G + (WITH_PVAL ? 1 : 0);
+  float o[NOUT][ITEMS];
 #pragma unroll
   for (int k = 0; k < ITEMS; ++k) {
     int d[C];
-    unpack<G>(s_in[pad(t * ITEMS + k)], d);
+    unpack<G>(p[k], d);
 #pragma unroll
     for (int c = 0; c < C; ++c) run[c] += d[c];
 #pragma unroll
     for (int g = 0; g < G; ++g)
-      v[g][k] = canon_value(run[4 * g], run[4 * g + 1], run[4 * g + 2],
+      o[g][k] = canon_value(run[4 * g], run[4 * g + 1], run[4 * g + 2],
                             run[4 * g + 3]);
-    if constexpr (WITH_PVAL) p[k] = genrich::calc_pval(v[0][k], lam);
+    if constexpr (WITH_PVAL) o[G][k] = genrich::calc_pval(o[0][k], lam);
   }
 
   // stage each output row of the tile through shared memory, so the
   // global stores are coalesced
-  auto store = [&](const float (&src)[ITEMS], float* out) {
-    __syncthreads();
 #pragma unroll
-    for (int k = 0; k < ITEMS; ++k) s_out[pad(t * ITEMS + k)] = src[k];
+  for (int u = 0; u < NOUT; ++u) {
+    float* out = u < G ? vals + (int64_t)u * m : pval;
+    __syncthreads();  // the previous row's stores have read s_out
+#pragma unroll
+    for (int k = 0; k < ITEMS; ++k) s_out[pad(t * ITEMS + k)] = o[u][k];
     __syncthreads();
 #pragma unroll
     for (int k = 0; k < ITEMS; ++k) {
@@ -257,27 +331,20 @@ scan_final(const int* __restrict__ packed, int64_t m,
       const int64_t i = base + j;
       if (i < m) out[i] = s_out[pad(j)];
     }
-  };
-#pragma unroll
-  for (int g = 0; g < G; ++g) store(v[g], vals + (int64_t)g * m);
-  if constexpr (WITH_PVAL) store(p, pval);
+  }
 }
 
 template <int G, bool WITH_PVAL>
 cudaError_t launch(const int* packed, int64_t m, const int* carry,
-                   float lam, float* vals, float* pval, int* totals,
-                   int* offsets, cudaStream_t stream) {
-  const int64_t nblocks = (m + TILE - 1) / TILE;
-  scan_block_totals<G><<<(unsigned)nblocks, THREADS, 0, stream>>>(
-      packed, m, totals);
-  cudaError_t err = cudaGetLastError();
+                   float lam, float* vals, float* pval, int* scratch,
+                   cudaStream_t stream) {
+  const int64_t ntiles = (m + TILE - 1) / TILE;
+  cudaError_t err = cudaMemsetAsync(
+      scratch, 0, (size_t)(1 + ntiles) * sizeof(int), stream);
   if (err != cudaSuccess) return err;
-  scan_block_offsets<G><<<1, OFFSET_THREADS, 0, stream>>>(
-      totals, nblocks, carry, offsets);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  scan_final<G, WITH_PVAL><<<(unsigned)nblocks, THREADS, 0, stream>>>(
-      packed, m, offsets, lam, vals, pval);
+  coverage_scan_kernel<G, WITH_PVAL><<<(unsigned)ntiles, THREADS, 0,
+                                       stream>>>(
+      packed, m, carry, lam, vals, pval, scratch, ntiles);
   return cudaGetLastError();
 }
 
@@ -285,28 +352,32 @@ cudaError_t launch(const int* packed, int64_t m, const int* carry,
 
 extern "C" {
 
-// Rows per block: the wrapper sizes the two int32 scratch buffers
-// (totals, offsets) as ceil(m / tile) * 4 * groups each.
-int64_t coverage_scan_tile() { return TILE; }
+// int32 words of scratch the wrapper allocates for m rows and ``groups``
+// groups (tile counter, per-tile flags, aggregates, inclusive prefixes).
+int64_t coverage_scan_scratch(int64_t m, int groups) {
+  return scratch_ints((m + TILE - 1) / TILE, 4 * groups);
+}
 
-// packed: int32 [m]; carry: int32 [4 * groups] (device); vals: f32
-// [groups, m]; pval: f32 [m] when with_pval (groups must be 1), else
-// unused.  Returns the first CUDA error of the three launches.
+// packed: int32 [m], 16-byte aligned; carry: int32 [4 * groups]
+// (device); vals: f32 [groups, m]; pval: f32 [m] when with_pval (groups
+// must be 1), else unused; scratch: int32 [coverage_scan_scratch(m,
+// groups)], zeroed here.  Returns the first CUDA error of the memset and
+// the launch.
 int coverage_scan_launch(const int* packed, int64_t m, int groups,
                          const int* carry, float lam, int with_pval,
-                         float* vals, float* pval, int* totals,
-                         int* offsets, void* stream) {
+                         float* vals, float* pval, int* scratch,
+                         void* stream) {
   if (m <= 0) return (int)cudaSuccess;
   const cudaStream_t s = (cudaStream_t)stream;
   if (groups == 1 && with_pval)
-    return (int)launch<1, true>(packed, m, carry, lam, vals, pval, totals,
-                                offsets, s);
+    return (int)launch<1, true>(packed, m, carry, lam, vals, pval, scratch,
+                                s);
   if (groups == 1)
-    return (int)launch<1, false>(packed, m, carry, lam, vals, pval, totals,
-                                 offsets, s);
+    return (int)launch<1, false>(packed, m, carry, lam, vals, pval,
+                                 scratch, s);
   if (groups == 2 && !with_pval)
-    return (int)launch<2, false>(packed, m, carry, lam, vals, pval, totals,
-                                 offsets, s);
+    return (int)launch<2, false>(packed, m, carry, lam, vals, pval,
+                                 scratch, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,8 +1,8 @@
 """PyTorch device engine for the CLI (twin of engine/jax_bridge.py).
 
-``TorchEngine`` honours the device-engine contract that
-``genrich_tpu.pipeline._replicate_jax`` and ``_find_peaks_jax`` call
-(pipeline.py:310-505): per-chromosome interval arrays stay resident on
+``TorchEngine`` is what ``pipeline._replicate_device`` and
+``pipeline._find_peaks_device`` drive (the JAX package's device-engine
+contract, ``genrich_tpu/pipeline.py:310-505``): per-chromosome interval arrays stay resident on
 the device between stages, and only compact data comes back to the
 host -- the fragment-length scalars, the distinct (p, bp) table for the
 host BH sweep (``engine/qvalue.merge_distinct_tables``) and the peak
@@ -32,14 +32,14 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from genrich_tpu.engine.host_fallback import INT32_MAX, HostChromMixin
-from genrich_tpu.engine.pileup import Pileup
-
 from .. import kernels
 from ..ops import compact
 from ..ops.peaks import call_peaks
 from ..ops.pipeline import tile_coverage, tile_stats
+from . import qvalue
+from .host_fallback import INT32_MAX, HostChromMixin
 from .perf import PerfMixin
+from .pileup import Pileup
 
 F32 = np.float32
 PEAK_CAP = 1 << 15        # per-chrom device peak rows (jax_bridge's cap)
@@ -70,10 +70,7 @@ class TorchEngine(PerfMixin, HostChromMixin):
         self._qtable_host = None
         self.begin_run()
 
-    def prepare(self, max_events: int, max_excl_pairs: int,
-                min_pq: float, min_auc: float, min_len: int,
-                max_gap: int, use_q: bool,
-                max_chrom_len: int = 0) -> None:
+    def prepare(self) -> None:
         """Build the CUDA kernels before the first chromosome.
 
         Eager PyTorch needs no shape buckets or program prewarm; a
@@ -274,7 +271,6 @@ class TorchEngine(PerfMixin, HostChromMixin):
         engine's float32 math (computeQval, Genrich.c:352-401).
         Returns the "all q-values are 1" warning condition.
         """
-        from genrich_tpu.engine import qvalue
         ps, ws = [], []
         pend = []
         for st in self._chrom.values():
@@ -357,13 +353,6 @@ class TorchEngine(PerfMixin, HostChromMixin):
         return (ints[0, k].astype(np.int64), ints[1, k].astype(np.int64),
                 flts[0, k], flts[1, k], flts[2, k],
                 ints[2, k].astype(np.int64))
-
-    def peaks_chrom(self, cidx: int, min_pq: float, min_auc: float,
-                    min_len: int, max_gap: int, use_q: bool):
-        """Blocking submit + fetch (single-chromosome convenience)."""
-        h = self.peaks_submit(cidx, min_pq, min_auc, min_len, max_gap,
-                              use_q)
-        return None if h is None else self.peaks_fetch(h)
 
     def release(self) -> None:
         self._chrom.clear()

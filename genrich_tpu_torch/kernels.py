@@ -9,6 +9,11 @@ ctypes.  Nothing is built or imported when this module is imported, so
 CPU-only hosts (no nvcc, no card) can import every module of the
 package.
 
+``csrc/reference/*.cu`` holds earlier designs of the kernels, which the
+card tests and chip_smoke.py hold the current ones to; they build into
+a library of their own (``reference_library()``) that the port never
+loads.
+
 ``LAUNCHES`` counts, per kernel, the calls of its wrapper that
 launched it on the card (the wrappers in ``ops/scan.py``,
 ``ops/pipeline.py``, ``ops/chisq.py`` and ``ops/peaks.py`` add one each
@@ -47,6 +52,7 @@ LAUNCHES: Dict[str, int] = {"coverage_scan": 0, "tile_stats": 0,
                             "fisher_combine": 0, "peak_reduce": 0}
 
 _lib: Optional[ctypes.CDLL] = None
+_ref_lib: Optional[ctypes.CDLL] = None
 BUILD_INFO: Dict[str, object] = {}
 
 
@@ -55,8 +61,8 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+def _sources(src_dir: Path):
+    return sorted(src_dir.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -67,16 +73,20 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def build() -> Path:
-    """Compile csrc/*.cu into the shared library (cached by hash)."""
-    cus, cuhs = _sources()
+def build(src_dir: Path = CSRC, name: str = "genrich_kernels",
+          info: Optional[Dict[str, object]] = None) -> Path:
+    """Compile ``src_dir/*.cu`` into one shared library (cached by
+    hash); ``info`` (``BUILD_INFO`` by default) gets its path, seconds
+    and ptxas report."""
+    info = BUILD_INFO if info is None else info
+    cus, cuhs = _sources(src_dir)
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in cus + cuhs:
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    so = BUILD_DIR / f"libgenrich_kernels_{h.hexdigest()[:16]}.so"
+    so = BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
     if so.exists():
-        BUILD_INFO.update(path=str(so), seconds=0.0, cached=True)
+        info.update(path=str(so), seconds=0.0, cached=True)
         return so
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -85,7 +95,7 @@ def build() -> Path:
     try:
         procs = []
         for f in cus:
-            cmd = [nvcc] + NVCC_FLAGS + ["-c", "-o",
+            cmd = [nvcc] + NVCC_FLAGS + ["-I", str(CSRC), "-c", "-o",
                                          str(tmp / (f.stem + ".o")), str(f)]
             procs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -109,8 +119,8 @@ def build() -> Path:
         os.replace(out, so)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    BUILD_INFO.update(path=str(so), seconds=time.perf_counter() - t0,
-                      cached=False, ptxas="".join(ptxas))
+    info.update(path=str(so), seconds=time.perf_counter() - t0,
+                cached=False, ptxas="".join(ptxas))
     return so
 
 
@@ -121,21 +131,41 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         p, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
         lib.coverage_scan_launch.argtypes = [
-            p, i64, ctypes.c_int, p, f32, ctypes.c_int, p, p, p, p, p]
+            p, i64, ctypes.c_int, p, f32, ctypes.c_int, p, p, p, p]
         lib.coverage_scan_launch.restype = ctypes.c_int
-        lib.coverage_scan_tile.restype = i64
-        lib.coverage_scan_tile.argtypes = []
+        lib.coverage_scan_scratch.restype = i64
+        lib.coverage_scan_scratch.argtypes = [i64, ctypes.c_int]
         lib.tile_stats_launch.argtypes = [p, p, p, f32, f32, p, i64, p]
         lib.tile_stats_launch.restype = ctypes.c_int
         lib.fisher_combine_launch.argtypes = [p, ctypes.c_int, i64, p, p]
         lib.fisher_combine_launch.restype = ctypes.c_int
         lib.peak_reduce_launch.argtypes = [p, p, p, p, p, p, p, p, i64,
-                                           f32, p, p, p, p, p, p, p]
+                                           i64, f32, p, p, p, p, p, p, p]
         lib.peak_reduce_launch.restype = ctypes.c_int
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def reference_library() -> ctypes.CDLL:
+    """The earlier kernel designs of csrc/reference (built on first
+    call); for the card tests and chip_smoke.py only."""
+    global _ref_lib
+    if _ref_lib is None:
+        lib = ctypes.CDLL(str(build(CSRC / "reference",
+                                    "genrich_kernels_reference", {})))
+        p, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+        lib.peak_reduce_warp_launch.argtypes = [
+            p, p, p, p, p, p, p, p, i64, f32, p, p, p, p, p, p, p]
+        lib.peak_reduce_warp_launch.restype = ctypes.c_int
+        lib.coverage_scan_three_pass_launch.argtypes = [
+            p, i64, ctypes.c_int, p, f32, ctypes.c_int, p, p, p, p, p]
+        lib.coverage_scan_three_pass_launch.restype = ctypes.c_int
+        lib.coverage_scan_three_pass_tile.restype = i64
+        lib.coverage_scan_three_pass_tile.argtypes = []
+        _ref_lib = lib
+    return _ref_lib
 
 
 def check(rc: int, what: str) -> None:
@@ -152,3 +182,9 @@ def stream_of(t) -> ctypes.c_void_p:
 
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def aligned(t, nbytes: int):
+    """``t`` itself if its data starts on an ``nbytes`` boundary (a
+    kernel's vector loads need it), else an aligned copy."""
+    return t if t.data_ptr() % nbytes == 0 else t.clone()

@@ -22,9 +22,8 @@ import math
 import numpy as np
 import torch
 
-from genrich_tpu.utils.cfloat import FLT_MAX
-
 from .. import kernels
+from ..utils.cfloat import FLT_MAX
 
 SKIP = -1.0
 MAX_REPLICATES = 200       # pgamma's alph = live replicates, in [2, 200]

@@ -103,26 +103,25 @@ def _peak_reduce_cuda(starts, ends, stat, pval, qval, sig, first, last,
     """Launch csrc/peaks.cu on the card (see its header)."""
     k = first.shape[0]
     dev = starts.device
-    args = [t.contiguous() for t in (starts, ends, stat, pval, qval)]
-    sig = sig.contiguous().view(torch.uint8)
+    # the row columns take 16-byte loads, sig 4-byte ones
+    args = [kernels.aligned(t.contiguous(), 16)
+            for t in (starts, ends, stat, pval, qval)]
+    args.append(kernels.aligned(sig.contiguous().view(torch.uint8), 4))
     first = first.contiguous()
     last = last.contiguous()
     with torch.cuda.device(dev):
         lib = kernels.library()
-        f32 = [torch.empty(k, dtype=torch.float32, device=dev)
-               for _ in range(4)]
-        i32 = [torch.empty(k, dtype=torch.int32, device=dev)
-               for _ in range(2)]
+        # the six outputs, rows of one allocation (the last two int32)
+        buf = torch.empty((6, k), dtype=torch.float32, device=dev)
+        rows = [buf.data_ptr() + 4 * k * i for i in range(6)]
         rc = lib.peak_reduce_launch(
-            *(kernels.ptr(t) for t in args), kernels.ptr(sig),
-            kernels.ptr(first), kernels.ptr(last), k,
-            float(np.float32(min_pq)),
-            *(kernels.ptr(t) for t in f32 + i32),
-            kernels.stream_of(starts))
+            *(t.data_ptr() for t in args), first.data_ptr(),
+            last.data_ptr(), starts.shape[0], k,
+            float(np.float32(min_pq)), *rows, kernels.stream_of(starts))
         kernels.check(rc, "peak_reduce")
     kernels.LAUNCHES["peak_reduce"] += 1
-    auc, max_stat, spv, sqv = f32
-    spos, slen = i32
+    auc, max_stat, spv, sqv = buf[:4].unbind(0)
+    spos, slen = buf[4:].view(torch.int32).unbind(0)
     return auc, max_stat, spv, sqv, spos, slen
 
 

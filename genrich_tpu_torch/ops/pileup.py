@@ -2,10 +2,10 @@
 
 The reference's per-base diff-array sweep (savePileupExpt,
 Genrich.c:2168-2295) is a sort of per-event class deltas, a cumulative
-sum and a canonicalisation; ``genrich_tpu/engine/pileup.py`` derives
-the four integer classes (cov, e8, s6, t10).  The class tables are
-rebuilt here from that module's ``_ADD_*``/``_SUB_*`` columns, because
-``pileup_jax`` imports jax.
+sum and a canonicalisation; ``engine/pileup.py`` (the port's copy of
+the exact engine's module) derives the four integer classes (cov, e8,
+s6, t10).  The class tables are rebuilt here from that module's
+``_ADD_*``/``_SUB_*`` columns.
 """
 
 from __future__ import annotations
@@ -13,9 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from genrich_tpu.engine.pileup import (_ADD_COV, _ADD_E8, _ADD_S6,
-                                       _ADD_T10, _SUB_COV, _SUB_E8,
-                                       _SUB_S6, _SUB_T10)
+from ..engine.pileup import (_ADD_COV, _ADD_E8, _ADD_S6, _ADD_T10,
+                             _SUB_COV, _SUB_E8, _SUB_S6, _SUB_T10)
 
 # per-class raw contributions indexed by count code N (0..10): [11, 4]
 ADD = np.stack([_ADD_COV, _ADD_E8, _ADD_S6, _ADD_T10], axis=1) \

@@ -3,7 +3,7 @@
 calcPval/plnorm/pnorm (Genrich.c:1490-1653; R-3.5.0 rational
 approximations) as a branch-free tensor program, parameterised by the
 dtype of its input: float64 follows the exact engine
-(``genrich_tpu/engine/pvalue.py``), float32 is the device path.  The
+(``engine/pvalue.py``), float32 is the device path.  The
 same float32 arithmetic is written in CUDA in ``csrc/pval.cuh`` for the
 kernels; this module is its plain version.
 
@@ -16,8 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from genrich_tpu.engine.pvalue import _A, _B, _C, _D, _M_LN10, _P, _Q
-from genrich_tpu.utils.cfloat import FLT_MAX, LOGSQRT, SQRTLOG
+from ..engine.pvalue import _A, _B, _C, _D, _M_LN10, _P, _Q
+from ..utils.cfloat import FLT_MAX, LOGSQRT, SQRTLOG
 
 _NP = {torch.float32: np.float32, torch.float64: np.float64}
 

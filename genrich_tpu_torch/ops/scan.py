@@ -11,10 +11,11 @@ On a CUDA tensor the wrapper launches ``csrc/scan.cu`` (CUDA C++,
 sm_90a).  It is bound by device-memory bandwidth: the main-path mode
 (G = 2, no p) moves 4 B in and 8 B out per row.  TPU grid steps ran in
 order and carried the running sum in scalar memory; Hopper blocks run
-in no order, so the kernel is a reduce-then-scan in three launches
-(block totals, one-block scan of the totals from the carry, per-block
-scan + canon + store).  On a CPU tensor the wrapper runs the plain
-PyTorch version below; there is no fallback from one to the other.
+in no order, so the kernel is one launch of a single-pass scan with
+decoupled look-back: each tile publishes its sums, and a tile finds its
+prefix from its predecessors' (see the source).  On a CPU tensor the
+wrapper runs the plain PyTorch version below; there is no fallback from
+one to the other.
 """
 
 from __future__ import annotations
@@ -63,24 +64,23 @@ def _check(packed, groups, carry, lam):
 def _coverage_scan_cuda(packed: torch.Tensor, groups: int,
                         carry: torch.Tensor, lam: Optional[float]):
     """Launch csrc/scan.cu on the card: (vals [groups, M], pval|None)."""
-    packed = packed.contiguous()
+    packed = kernels.aligned(packed.contiguous(), 16)
     carry = carry.to(torch.int32).contiguous()
     m = packed.shape[0]
     with torch.cuda.device(packed.device):
         lib = kernels.library()
-        nblocks = -(-m // lib.coverage_scan_tile())
         dev = packed.device
         vals = torch.empty((groups, m), dtype=torch.float32, device=dev)
         pval = torch.empty(m if lam is not None else 0,
                            dtype=torch.float32, device=dev)
-        scratch = torch.empty((2, max(nblocks, 1), 4 * groups),
+        # tile counter, per-tile flags and sums; zeroed by the launch
+        scratch = torch.empty(lib.coverage_scan_scratch(m, groups),
                               dtype=torch.int32, device=dev)
         rc = lib.coverage_scan_launch(
             kernels.ptr(packed), m, groups, kernels.ptr(carry),
             float(np.float32(0.0 if lam is None else lam)),
             int(lam is not None), kernels.ptr(vals), kernels.ptr(pval),
-            kernels.ptr(scratch[0]), kernels.ptr(scratch[1]),
-            kernels.stream_of(packed))
+            kernels.ptr(scratch), kernels.stream_of(packed))
         kernels.check(rc, "coverage_scan")
     kernels.LAUNCHES["coverage_scan"] += 1
     return vals, (pval if lam is not None else None)

@@ -14,8 +14,8 @@ commit, unpacked with ``git archive``), it then runs the main path in
 child processes, parent / this tree / this tree / parent, each cold and
 warm, and prints each run's wall, peak device memory
 (``torch.cuda.max_memory_allocated``) and the md5 of its narrowPeak.
-Every child reads BAMs through the native ingest library that this
-tree's ``ingest.ensure_native()`` makes load.
+Each child's CLI makes native ingest load through its own tree's
+``ingest.ensure_native()``; the child prints the library it used.
 """
 
 from __future__ import annotations
@@ -32,28 +32,27 @@ FLAGS = ["-r", "-j", "-q", "0.05", "-a", "20"]
 TOP = 18
 
 # One tree's main path, cold then warm, in a fresh process: argv is
-# tree, native library, BAM, output directory; prints one JSON line.
+# tree, BAM, output directory; prints one JSON line.
 _CHILD = """
 import hashlib, json, os, sys, time
-tree, so, bam, out_dir = sys.argv[1:5]
+tree, bam, out_dir = sys.argv[1:4]
 sys.path.insert(0, tree)
-from genrich_tpu.ingest import native
-native._SO = so
 import torch
 from genrich_tpu_torch import cli
+from genrich_tpu_torch.ingest import ensure_native
 res = {}
 for label in ("cold", "warm"):
     out = os.path.join(out_dir, label + ".np")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    rc = cli.main(["-t", bam, "-o", out] + sys.argv[5:]
+    rc = cli.main(["-t", bam, "-o", out] + sys.argv[4:]
                   + ["--device", "cuda"])
     torch.cuda.synchronize()
     res[label] = {"rc": rc, "wall_s": time.perf_counter() - t0,
                   "max_memory_allocated": torch.cuda.max_memory_allocated(),
                   "md5": hashlib.md5(open(out, "rb").read()).hexdigest(),
-                  "native_ingest": native.available(build=False)}
+                  "native_ingest": ensure_native()["path"]}
 print(json.dumps(res))
 """
 
@@ -101,13 +100,13 @@ def profile_path(name, ts):
               f"{key[:90]}")
 
 
-def compare_trees(parent, bam, so):
+def compare_trees(parent, bam):
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     for label, tree in (("parent", parent), ("this", here),
                         ("this", here), ("parent", parent)):
         out_dir = tempfile.mkdtemp()
         r = subprocess.run([sys.executable, "-c", _CHILD,
-                            os.path.abspath(tree), so, bam, out_dir]
+                            os.path.abspath(tree), bam, out_dir]
                            + FLAGS, capture_output=True, text=True)
         if r.returncode != 0:
             raise SystemExit(f"{label} tree failed: {r.stderr[-2000:]}")
@@ -133,7 +132,7 @@ def main(argv=None) -> int:
     profile_path("main", a.bam_a)
     profile_path("fisher", f"{a.bam_a},{a.bam_b}")
     if a.parent:
-        compare_trees(a.parent, a.bam_a, nat["path"])
+        compare_trees(a.parent, a.bam_a)
     return 0
 
 

@@ -1,9 +1,13 @@
 """Helpers shared by the port's tests and ``chip_smoke.py``.
 
 ``peak_rows`` makes a synthetic chromosome of coverage rows holding
-peaks; ``auc_rowwise`` is the exact engine's AUC on the host (a float32
-sum in row order); ``check_log`` holds a port's ``-f``/``-k`` log to
-the exact engine's.  numpy only: nothing here touches a device.
+peaks, and ``peak_row_columns`` the same rows as ``peak_reduce``'s
+int32/float32 columns; ``auc_rowwise`` is the exact engine's AUC on the
+host (a float32 sum in row order); ``check_log`` holds a port's
+``-f``/``-k`` log to the exact engine's.  numpy only, except
+``peak_reduce_first_design`` and ``coverage_scan_first_design``, which
+launch the first designs of kernels K4 and K1 (``csrc/reference/``) on
+the card so that the current ones can be held to them.
 """
 
 from __future__ import annotations
@@ -41,6 +45,70 @@ def peak_rows(rng, m, n_regions, region_rows=(3, 40), min_pq=2.0,
     pval = (stat + rng.uniform(0, 1, m)).astype(F32)
     qval = (stat * 0.5).astype(F32)
     return ends, stat, pval, qval
+
+
+def peak_row_columns(rng, m, n_regions, **kw):
+    """``peak_rows`` as the columns ``peak_reduce`` takes: (starts,
+    ends int32, stat, pval, qval float32), numpy."""
+    ends, stat, pval, qval = peak_rows(rng, m, n_regions, **kw)
+    starts = np.concatenate([[0], ends[:-1]])
+    return (starts.astype(np.int32), ends.astype(np.int32), stat, pval,
+            qval)
+
+
+def peak_reduce_first_design(starts, ends, stat, pval, qval, sig, first,
+                             last, min_pq):
+    """Kernel K4's first design (one warp per peak) on CUDA tensors,
+    with ``peak_reduce``'s arguments (less ``pid``) and outputs.  Not
+    counted in ``kernels.LAUNCHES``."""
+    import torch
+
+    from . import kernels
+    k = first.shape[0]
+    dev = starts.device
+    args = [t.contiguous() for t in (starts, ends, stat, pval, qval)]
+    args += [sig.contiguous().view(torch.uint8), first.contiguous(),
+             last.contiguous()]
+    with torch.cuda.device(dev):
+        lib = kernels.reference_library()
+        f32 = [torch.empty(k, dtype=torch.float32, device=dev)
+               for _ in range(4)]
+        i32 = [torch.empty(k, dtype=torch.int32, device=dev)
+               for _ in range(2)]
+        rc = lib.peak_reduce_warp_launch(
+            *(kernels.ptr(t) for t in args), k, float(F32(min_pq)),
+            *(kernels.ptr(t) for t in f32 + i32),
+            kernels.stream_of(starts))
+        kernels.check(rc, "peak_reduce_warp")
+    return tuple(f32 + i32)
+
+
+def coverage_scan_first_design(packed, groups, carry, lam=None):
+    """Kernel K1's first design (reduce-then-scan in three launches) on
+    CUDA tensors, with ``coverage_scan``'s arguments and outputs.  Not
+    counted in ``kernels.LAUNCHES``."""
+    import torch
+
+    from . import kernels
+    packed = packed.contiguous()
+    carry = carry.to(torch.int32).contiguous()
+    m = packed.shape[0]
+    dev = packed.device
+    with torch.cuda.device(dev):
+        lib = kernels.reference_library()
+        nblocks = -(-m // lib.coverage_scan_three_pass_tile())
+        vals = torch.empty((groups, m), dtype=torch.float32, device=dev)
+        pval = torch.empty(m if lam is not None else 0,
+                           dtype=torch.float32, device=dev)
+        scratch = torch.empty((2, max(nblocks, 1), 4 * groups),
+                              dtype=torch.int32, device=dev)
+        rc = lib.coverage_scan_three_pass_launch(
+            kernels.ptr(packed), m, groups, kernels.ptr(carry),
+            float(F32(0.0 if lam is None else lam)), int(lam is not None),
+            kernels.ptr(vals), kernels.ptr(pval), kernels.ptr(scratch[0]),
+            kernels.ptr(scratch[1]), kernels.stream_of(packed))
+        kernels.check(rc, "coverage_scan_three_pass")
+    return vals, (pval if lam is not None else None)
 
 
 def auc_rowwise(starts, ends, stat, sig, first, last, min_pq):

@@ -1,12 +1,16 @@
 """Import and fallback guards of the port's CLI.
 
-The port never imports jax; ``--device cuda`` with no card is an error,
-never a silent switch to the CPU; ``--serve`` and ``--engine``, whose
-paths are not ported, fail with "not yet ported to genrich_tpu_torch".
+The port stands alone: no module of it, and no line that chip_smoke.py
+runs in its own process, imports jax or genrich_tpu, and every CLI path
+runs on the CPU with both imports refused.  ``--device cuda`` with no
+card is an error, never a silent switch to the CPU; ``--serve`` and
+``--engine``, whose paths are not ported, fail with "not yet ported to
+genrich_tpu_torch".
 """
 
 from __future__ import annotations
 
+import ast
 import os
 import subprocess
 import sys
@@ -89,7 +93,101 @@ def test_every_module_imports_without_jax(tmp_path):
                        capture_output=True, text=True, env=_env())
     assert r.returncode == 0, r.stderr[-1500:]
     assert "JAX_LOADED False" in r.stdout
-    assert int(r.stdout.split("MODULES")[1].split()[0]) >= 15
+    assert int(r.stdout.split("MODULES")[1].split()[0]) >= 42
+
+
+REFUSED = ("jax", "genrich_tpu")
+
+
+def _imports(path):
+    """(line, module) of every import statement in ``path``, plus the
+    first argument of each ``importlib.import_module`` / ``__import__``
+    call given as a string constant."""
+    found = []
+    for node in ast.walk(ast.parse(open(path).read(), path)):
+        if isinstance(node, ast.Import):
+            found += [(node.lineno, a.name) for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            found.append((node.lineno, node.module))
+        elif isinstance(node, ast.Call) and node.args \
+                and isinstance(node.args[0], ast.Constant) \
+                and isinstance(node.args[0].value, str) \
+                and getattr(node.func, "attr",
+                            getattr(node.func, "id", None)) \
+                in ("import_module", "__import__"):
+            found.append((node.lineno, node.args[0].value))
+    return [(ln, m) for ln, m in found
+            if m.split(".")[0] in REFUSED]
+
+
+def test_no_module_of_the_port_imports_jax_or_genrich_tpu():
+    pkg = os.path.join(oracle.REPO, "genrich_tpu_torch")
+    paths = [os.path.join(d, f) for d, _, fs in os.walk(pkg)
+             for f in fs if f.endswith(".py")]
+    assert len(paths) >= 44
+    bad = {os.path.relpath(p, pkg): _imports(p) for p in paths}
+    assert not {k: v for k, v in bad.items() if v}
+
+
+def test_chip_smoke_imports_neither_in_its_own_process():
+    """chip_smoke.py's reference child is a string run by another
+    interpreter, so the AST of the file sees only what the smoke's
+    own process imports."""
+    assert _imports(os.path.join(oracle.REPO, "chip_smoke.py")) == []
+
+
+# (name, flags, files the run must write); each CLI path of the port
+PATHS = [
+    ("main", ["-y", "-p", "0.01", "-a", "5"], ["out.np"]),
+    ("two_reps", ["-t2", "-y", "-p", "0.01", "-a", "5"], ["out.np"]),
+    ("logs", ["-f", "f.log", "-k", "k.log", "-y", "-a", "5"],
+     ["f.log", "k.log", "out.np"]),
+    ("X_then_P", ["-X", "-f", "x.log", "-y", "-q", "0.5"], ["x.log"]),
+    ("ctrl", ["-c", "CTRL", "-y", "-p", "0.01", "-a", "5"], ["out.np"]),
+    ("excl", ["-E", "EXCL", "-e", "chr2", "-y", "-p", "0.05", "-a", "5"],
+     ["out.np"]),
+]
+
+_REFUSE = """
+import sys
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "genrich_tpu"):
+            raise ImportError("refused: " + name)
+        return None
+sys.meta_path.insert(0, Refuse())
+from genrich_tpu_torch.cli import main
+for argv in {runs!r}:
+    rc = main(argv + ["--device", "cpu"])
+    assert rc == 0, (rc, argv)
+print("LOADED", sorted({{m.split(".")[0] for m in sys.modules}}
+                       & {{"jax", "genrich_tpu"}}))
+"""
+
+
+@pytest.mark.parametrize("name,flags,outputs", PATHS,
+                         ids=[p[0] for p in PATHS])
+def test_cpu_path_runs_with_jax_and_genrich_tpu_refused(tmp_path, sam,
+                                                        name, flags,
+                                                        outputs):
+    ctrl = tmp_path / "ctrl.sam"
+    oracle.random_sam(str(ctrl), seed=6, n_pairs=60)
+    (tmp_path / "excl.bed").write_text("chr1\t1000\t5000\n")
+    ts = f"{sam},{sam}" if "-t2" in flags else sam
+    flags = [{"CTRL": str(ctrl), "EXCL": str(tmp_path / "excl.bed")}
+             .get(f, f) for f in flags if f != "-t2"]
+    runs = [["-t", ts, "-o", "out.np"] + flags]
+    if name == "X_then_P":
+        runs = [["-t", ts] + flags,
+                ["-P", "-f", "x.log", "-o", "out.np", "-q", "0.5"]]
+        outputs = outputs + ["out.np"]
+    r = subprocess.run([sys.executable, "-c", _REFUSE.format(runs=runs)],
+                       cwd=str(tmp_path), capture_output=True, text=True,
+                       env=_env())
+    assert r.returncode == 0, r.stderr[-1500:]
+    assert "LOADED []" in r.stdout
+    for f in outputs:
+        assert (tmp_path / f).exists(), f
 
 
 def test_cuda_without_card_fails_clearly(tmp_path, sam):

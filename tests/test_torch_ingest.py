@@ -1,4 +1,4 @@
-"""Native ingest that the port builds (genrich_tpu_torch/ingest.py).
+"""Native ingest that the port builds (genrich_tpu_torch/ingest/native.py).
 
 ``build_native`` compiles ``native/ingest.cpp`` with the repo's
 Makefile into a directory of its own; a port run that loads the built
@@ -18,14 +18,14 @@ import pytest
 sys.path.insert(0, os.path.dirname(__file__))
 import oracle  # noqa: E402
 
-from genrich_tpu.ingest import native  # noqa: E402
-from genrich_tpu_torch import cli, ingest  # noqa: E402
+from genrich_tpu_torch import cli  # noqa: E402
+from genrich_tpu_torch.ingest import native  # noqa: E402
 
 
 @pytest.fixture(scope="module")
 def built(tmp_path_factory):
     d = tmp_path_factory.mktemp("native_build")
-    info = ingest.build_native(d)
+    info = native.build_native(d)
     return d, info
 
 
@@ -34,7 +34,7 @@ def fresh_native(monkeypatch):
     """Start each test with no native library loaded."""
     monkeypatch.setattr(native, "_lib", None)
     monkeypatch.setattr(native, "_SO", native._SO)
-    monkeypatch.setattr(ingest, "INFO", {})
+    monkeypatch.setattr(native, "INFO", {})
 
 
 def _run(tmp_path, name, sam, extra=()):
@@ -51,11 +51,11 @@ def test_build_native_into_a_directory(built, tmp_path):
     d, info = built
     assert os.path.dirname(info["path"]) == str(d)
     assert not info["cached"] and info["seconds"] > 0
-    again = ingest.build_native(d)
+    again = native.build_native(d)
     assert again["cached"] and again["path"] == info["path"]
     assert again["libdeflate"] == info["libdeflate"]
     # nothing is written into native/
-    assert sorted(os.listdir(ingest.NATIVE_DIR)) == [
+    assert sorted(os.listdir(native.NATIVE_DIR)) == [
         "Makefile", "ingest.cpp", "libgenrich_ingest.so"]
 
 
@@ -76,7 +76,7 @@ def test_built_library_parses_like_the_python_reader(built, tmp_path,
 def test_ensure_native_keeps_a_library_that_loads(built, fresh_native):
     _, info = built
     native._SO = info["path"]
-    got = ingest.ensure_native()
+    got = native.ensure_native()
     assert got == {"path": info["path"], "built": False}
     assert native._SO == info["path"]
 
@@ -87,8 +87,8 @@ def test_ensure_native_builds_when_the_library_does_not_load(
     bad = tmp_path / "libbroken.so"
     bad.write_text("not a shared object")
     native._SO = str(bad)
-    monkeypatch.setattr(ingest, "BUILD_DIR", d)
-    got = ingest.ensure_native()
+    monkeypatch.setattr(native, "BUILD_DIR", d)
+    got = native.ensure_native()
     assert got["built"] and got["path"] == info["path"]
     assert "libbroken.so" in got["committed_error"]
     assert native._SO == info["path"] and native._lib is None
@@ -107,8 +107,8 @@ def test_cli_warns_and_uses_the_python_reader_when_no_library(
     (empty / "ingest.cpp").write_text("#error no sources here\n")
     (empty / "Makefile").write_text(
         "all:\n\tfalse\n$(TARGET):\n\tfalse\n")
-    monkeypatch.setattr(ingest, "NATIVE_DIR", empty)
-    monkeypatch.setattr(ingest, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "NATIVE_DIR", empty)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
     out = _run(tmp_path, "fallback", sam)
     err = capsys.readouterr().err
     lines = [ln for ln in err.splitlines() if "native ingest" in ln]

@@ -9,7 +9,9 @@ combination (K3) rtol 1e-6 against the float64 plain version, SKIP
 lanes identical; peak reduction (K4) summit fields exact, AUC rtol 1e-5
 against the plain version (a float32 sum in row order against a
 float64 prefix difference) and bitwise against the exact engine's
-row-order float32 sum (``testing.auc_rowwise``).
+row-order float32 sum (``testing.auc_rowwise``).  K1 and K4 are also
+held bitwise to their first designs (``csrc/reference``), K4 on all six
+outputs of every candidate.
 """
 
 from __future__ import annotations
@@ -47,7 +49,8 @@ def _packed(seed, m, groups):
     return pileup.pack_deltas(torch.from_numpy(d))
 
 
-@pytest.mark.parametrize("m", [1, 2047, 2048, 3 * 2048 + 77, 1 << 20])
+@pytest.mark.parametrize("m", [1, 2047, 2048, 3 * 2048 + 77, 4095, 4096,
+                               33 * 4096 + 5, 1 << 20])
 def test_coverage_scan_two_groups(cuda, m):
     packed = _packed(3, m, 2).to(cuda)
     carry = torch.tensor([1, 2, 3, 4, 0, 7, 2, 9], dtype=torch.int32,
@@ -58,9 +61,24 @@ def test_coverage_scan_two_groups(cuda, m):
     assert pval is None and kernels.LAUNCHES["coverage_scan"] == 1
     ref, _ = scan.coverage_scan_plain(packed, 2, carry)
     assert torch.equal(vals, ref)
+    first, _ = testing.coverage_scan_first_design(packed, 2, carry)
+    assert torch.equal(vals, first)
 
 
-@pytest.mark.parametrize("m", [4096, 3 * 2048 + 77])
+def test_coverage_scan_unaligned_input_and_large_carry(cuda):
+    """A packed view one row into a larger tensor (not 16-byte aligned)
+    and carries near a real chromosome's depth."""
+    m = 200 * 4096 + 3
+    big = _packed(6, m + 1, 2).to(cuda)
+    carry = torch.tensor([90_000, 7, 2, 4, 1000, 3, 1, 0],
+                         dtype=torch.int32, device=cuda)
+    assert big[1:].data_ptr() % 16 != 0
+    vals, _ = scan.coverage_scan(big[1:], 2, carry)
+    ref, _ = scan.coverage_scan_plain(big[1:], 2, carry)
+    assert torch.equal(vals, ref)
+
+
+@pytest.mark.parametrize("m", [4096, 3 * 2048 + 77, 40 * 4096 + 9])
 def test_coverage_scan_lambda_mode(cuda, m):
     packed = _packed(4, m, 1).to(cuda)
     vals, pval = scan.coverage_pval_fused(packed, 2.5)
@@ -180,13 +198,9 @@ def test_merge_fisher_on_card_matches_cpu(cuda):
 
 
 def _peak_rows(seed, m, n_regions, **kw):
-    """testing.peak_rows as (starts, ends, stat, pval, qval) tensors."""
-    ends, stat, pval, qval = testing.peak_rows(np.random.RandomState(seed),
-                                               m, n_regions, **kw)
-    starts = np.concatenate([[0], ends[:-1]])
-    return [torch.from_numpy(a) for a in (starts.astype(np.int32),
-                                          ends.astype(np.int32), stat,
-                                          pval, qval)]
+    """testing.peak_row_columns as tensors."""
+    return [torch.from_numpy(a) for a in testing.peak_row_columns(
+        np.random.RandomState(seed), m, n_regions, **kw)]
 
 
 def _check_peaks(got, want):
@@ -264,6 +278,51 @@ def test_peak_reduce_kernel_summit_tie_rules(cuda):
     # every sig row in order: len * (stat - 2), integers, exact in f32
     assert float(got.auc[k]) == 10 * 3 + 15 * 3 + 5 * 1 + 20 * 3 \
         + 10 * 7 + 10 * 7 + 15 * 7
+
+
+@pytest.mark.parametrize("m,regions,region_rows,max_gap", [
+    (300_007, 1000, (3, 200), 100),
+    # around the short/long split (1024 rows) and far above it; m odd,
+    # so the last peak can end in a row group that the array cuts
+    (400_003, 60, (900, 1200), 100),
+    (400_001, 40, (1000, 12_000), 10_000)])
+def test_peak_reduce_kernel_matches_first_design(cuda, m, regions,
+                                                 region_rows, max_gap):
+    """All six outputs, for every candidate (empty ones included),
+    bitwise equal to the first design (one warp per peak)."""
+    rows = _peak_rows(m + 1, m, regions, region_rows=region_rows)
+    rows[2][-300:] = 9.0      # a peak that runs to the last row
+    rows = [t.to(cuda) for t in rows]
+    c = peaks.peak_candidates(*rows[:3], torch.ones(m, dtype=torch.bool,
+                                                    device=cuda),
+                              2.0, max_gap, 4096)
+    kernels.reset_launches()
+    got = peaks.peak_reduce(*rows, c.sig, c.pid, c.first, c.last, 2.0)
+    want = testing.peak_reduce_first_design(*rows, c.sig, c.first,
+                                            c.last, 2.0)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["peak_reduce"] == 1
+    assert int(c.exists.sum()) >= regions // 2
+    assert int(c.last[-1]) == m - 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_peak_reduce_kernel_unaligned_rows(cuda):
+    """Row columns that start off a 16-byte boundary (views one row
+    into a larger tensor) give the same outputs as aligned copies."""
+    m = 50_001
+    big = _peak_rows(3, m + 1, 30, region_rows=(500, 3000))
+    rows = [t.to(cuda) for t in big]
+    views = [t[1:] for t in rows]
+    copies = [t.clone() for t in views]
+    assert views[0].data_ptr() % 16 != 0
+    live = torch.ones(m, dtype=torch.bool, device=cuda)
+    a = peaks.call_peaks(*views, live, 2.0, 20.0, 0, 10_000, k_peaks=512)
+    b = peaks.call_peaks(*copies, live, 2.0, 20.0, 0, 10_000, k_peaks=512)
+    assert int(b.valid.sum()) > 5
+    for f in a._fields:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
 
 
 def test_peak_reduce_kernel_is_deterministic(cuda):
