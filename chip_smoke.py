@@ -11,18 +11,20 @@ non-zero, and the result line is printed only when every phase passed:
    ingest library load (building native/ingest.cpp into the git-ignored
    genrich_tpu_torch/_build/ if the committed one does not), then nvcc
    builds genrich_tpu_torch/csrc there (one process per source, all at
-   once), and csrc/reference (the first designs of K1 and K4, which the
+   once), and csrc/reference (the first designs of K1-K4, which the
    port never loads); seconds and whether the ingest build has
    libdeflate are printed.
 3. Kernels: each hand-written kernel against its plain PyTorch version
-   on the card: coverage_scan (K1, 2^23 rows and a ragged size, with
-   carries) bitwise in both modes and bitwise to its first design
-   (-log10 p of the lambda mode rtol = atol = 1e-5), tile_stats (K2)
-   rtol = atol = 1e-5, fisher_combine (K3, R = 2 and 3, 2^23 lanes and
-   a ragged size, 10% SKIP) rtol 1e-6 against the float64 plain version
-   with SKIP lanes identical; median times with CUDA events.  The BAMs
-   of phases 4-6 are synthesised by scripts/perf_synth.py into the
-   git-ignored .bench_cache/ when missing.
+   and its first design on the card: coverage_scan (K1, 2^23 rows and a
+   ragged size, with carries) bitwise in both modes and bitwise to its
+   first design (-log10 p of the lambda mode rtol = atol = 1e-5),
+   tile_stats (K2) rtol = atol = 1e-5 and bitwise to its first design,
+   fisher_combine (K3, R = 2 and 3, 2^23 lanes and a ragged size, 10%
+   SKIP) rtol 1e-6 against the float64 plain version with SKIP lanes
+   identical and bitwise to its first design; median times with CUDA
+   events.  The BAMs of phases 4-7 are synthesised by
+   scripts/perf_synth.py into the git-ignored .bench_cache/ when
+   missing.
 4. Main path: the 2M-pair ATAC BAM on the 2.75 Gbp human-scale genome
    of scripts/bench_e2e.py, ``--engine exact`` once (in a child process
    that loads the native library the port's ``ensure_native()`` found),
@@ -34,24 +36,35 @@ non-zero, and the result line is printed only when every phase passed:
    byte-identical.  One more run keeps the inputs of the main path's
    own K1, K2 and K4 calls.  K1 on them: bitwise to its plain version
    and its first design, one kernel launch per call (torch.profiler),
-   times; K2 on them against its plain version (rtol = atol = 1e-5),
-   times.  K4 on them and on 2^23 synthetic rows holding about 30,000
-   short peaks: against its plain version (summit fields exact, AUC
-   rtol 1e-5), against the exact engine's float32 row-order sum (AUC
-   bitwise), and all six outputs bitwise to its first design.
-5. Fisher: ``-t A,B`` with replicate B a second 2M-pair BAM (seed 8),
-   the same flags; exact once, the port cold and warm.  Checks: the
-   same row rule, cold == warm bytes, K1 and K2 launched 6 times, K3 3
-   times, K4 at least 3 times per run.  One more run keeps the inputs
-   of its K3 calls: K3 on them against its float64 plain version, times.
-6. Logs (depth cut to a 200,000-pair BAM: every log row is text on
+   times; K2 on them against its plain version (rtol = atol = 1e-5)
+   and its first design (bitwise), times, and the rows it read from
+   its tables (branches ``table_p`` and ``table_params``).  K4 on them and on 2^23
+   synthetic rows holding about 30,000 short peaks: against its plain
+   version (summit fields exact, AUC rtol 1e-5), against the exact
+   engine's float32 row-order sum (AUC bitwise), and all six outputs
+   bitwise to its first design.
+5. Control: ``-t A -c B`` (B the second 2M-pair BAM, seed 8), the
+   same flags; exact once, the port cold and warm, the same checks as
+   the main path.  One more run keeps the inputs of its K2 calls, the
+   only ones where the control varies from row to row: K2 on them as
+   on the main path's.
+6. Fisher: ``-t A,B``, the same flags; exact once, the port cold and
+   warm.  Checks: the same row rule, cold == warm bytes, K1 and K2
+   launched 6 times, K3 3 times, K4 at least 3 times per run.  One
+   more run keeps the inputs of its K3 calls: K3 on them against its
+   float64 plain version and its first design (bitwise), times.
+7. Logs (depth cut to a 200,000-pair BAM: every log row is text on
    both sides): ``-f f.log -k k.log`` with the same flags, port against
    exact by ``testing.check_log``.
-7. The last lines: the kernels JSON (each kernel's time, plain time,
-   bound: bytes read and written once over 3.35 TB/s, and its launches
-   on the main path), the nvidia-smi line and {"ok": true, "device":
-   {...}}; neither jax nor genrich_tpu is ever imported in this
-   process.
+8. The last lines: the kernels JSON, the nvidia-smi line and {"ok":
+   true, "device": {...}}; neither jax nor genrich_tpu is ever imported
+   in this process.  Each kernel's bound is the larger of its bytes
+   (each input read once, each output written once) over 3.35 TB/s and
+   its operations over the peak of their unit (67 TFLOP/s float32, 34
+   TFLOP/s float64), the operations counted on the same inputs by
+   ``testing``'s counters (``bound_by`` says which term binds; the
+   entry carries ``bytes``, ``fp32_ops`` and ``fp64_ops``); its
+   ``launches`` are those of the main path (the Fisher path's for K3).
 """
 
 from __future__ import annotations
@@ -78,7 +91,6 @@ TOL = 1e-5
 FISHER_RTOL = 1e-6
 PEAKS_K4 = 30_000
 DEV = "cuda"
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 SM_CLOCK_HZ = 1.98e9           # H100 SXM boost clock (data sheet)
 FADD_CYCLES = 4                # dependent float32 add latency
 BUSY_CYCLES = 2_000_000        # about 1 ms of spinning ahead of a timing
@@ -181,9 +193,42 @@ def _close(a, b, rtol=TOL, atol=TOL):
     return bool(torch.all((a - b).abs() <= atol + rtol * b.abs()))
 
 
+def _bound(nbytes, fp32_ops=0, fp64_ops=0):
+    """The bound of work that moves ``nbytes`` and runs these operations
+    (``testing.bound``), with its terms."""
+    from genrich_tpu_torch import testing
+    ms, by = testing.bound(nbytes, fp32_ops, fp64_ops)
+    return {"bound_ms": ms, "bound_by": by, "bytes": int(nbytes),
+            "fp32_ops": int(fp32_ops), "fp64_ops": int(fp64_ops)}
+
+
 def _bound_ms(nbytes):
     """The least time to move ``nbytes`` through device memory."""
-    return nbytes / HBM_BYTES_PER_S * 1e3
+    return _bound(nbytes)["bound_ms"]
+
+
+def _sum_bounds(parts):
+    """One bound over several calls: their bytes and operations add."""
+    return _bound(sum(p["bytes"] for p in parts),
+                  sum(p["fp32_ops"] for p in parts),
+                  sum(p["fp64_ops"] for p in parts))
+
+
+def _stats_bound(args):
+    """K2's bound on these arguments, its operations counted."""
+    from genrich_tpu_torch import testing
+    c = testing.tile_stats_opcount(*args)
+    return dict(_bound(_stats_bytes(c["rows"]), c["fp32_ops"]),
+                branches=c["branches"])
+
+
+def _fisher_bound(pv):
+    """K3's bound on these rows, its operations counted."""
+    from genrich_tpu_torch import testing
+    c = testing.fisher_combine_opcount(pv)
+    r, n = pv.shape
+    return dict(_bound(_fisher_bytes(r, n), c["fp32_ops"], c["fp64_ops"]),
+                paths=c["paths"], trips=c["trips"])
 
 
 def _scan_bytes(m, groups, lam):
@@ -254,14 +299,27 @@ def scan_stats_phase():
         ev, cr = vals[0].clamp_min(0), vals[1].clamp_min(0)
         pv = pipeline.tile_stats(ev, cr, ex, 1.37, 2.5)
         rpv = pipeline.tile_stats_plain(ev, cr, ex, 1.37, 2.5)
+        fpv = testing.tile_stats_first_design(ev, cr, ex, 1.37, 2.5)
         torch.cuda.synchronize()
         st_err = float((pv - rpv).abs().max())
         if not _close(pv, rpv):
             raise AssertionError(f"tile_stats M={m}: max abs err "
                                  f"{st_err}")
+        if not torch.equal(pv, fpv):
+            raise AssertionError(f"tile_stats M={m}: differs from the "
+                                 f"first design")
         res = {"g2_max_abs_err": g2_err, "g1_p_max_abs_err": p_err,
                "stats_max_abs_err": st_err}
         if m == M_MAIN:
+            lam_ops = testing.coverage_scan_opcount(m, 1, v1[0], 2.5)
+            bounds = {
+                "g2": _bound(_scan_bytes(m, 2, None),
+                             testing.coverage_scan_opcount(m, 2)["fp32_ops"]),
+                "g1": dict(_bound(_scan_bytes(m, 1, 2.5),
+                                  lam_ops["fp32_ops"]),
+                           branches=lam_ops["branches"]),
+                "stats": _stats_bound((ev, cr, ex, 1.37, 2.5))}
+            say("bounds", m=m, **bounds)
             res.update(
                 g2_ms=_median_ms(lambda: scan.coverage_scan(packed, 2,
                                                             carry)),
@@ -279,12 +337,15 @@ def scan_stats_phase():
                     p1, 1, c4, lam=2.5)),
                 stats_ms=_median_ms(lambda: pipeline.tile_stats(
                     ev, cr, ex, 1.37, 2.5)),
+                stats_first_design_ms=_median_ms(
+                    lambda: testing.tile_stats_first_design(
+                        ev, cr, ex, 1.37, 2.5)),
                 stats_plain_ms=_median_ms(lambda: pipeline.tile_stats_plain(
                     ev, cr, ex, 1.37, 2.5)))
         out[m] = res
         say("kernels", m=m, **res)
         del packed, vals, ref, first, p1, v1, pv1, rv1, rpv1, fv1, fpv1
-        del ex, ev, cr, pv, rpv
+        del ex, ev, cr, pv, rpv, fpv
         torch.cuda.empty_cache()
     main, ragged = out[M_MAIN], out[M_RAGGED]
 
@@ -300,22 +361,23 @@ def scan_stats_phase():
              "mode": "G=2 coverage (main-path mode), M=2^23",
              "ms": main["g2_ms"],
              "first_design_ms": main["g2_first_design_ms"],
-             "plain_ms": main["g2_plain_ms"],
-             "bound_ms": _bound_ms(_scan_bytes(M_MAIN, 2, None))},
+             "plain_ms": main["g2_plain_ms"], **bounds["g2"]},
          "lambda_mode": {"p_max_abs_err": worst("g1_p_max_abs_err"),
                          "ms": main["g1_ms"],
                          "first_design_ms": main["g1_first_design_ms"],
                          "plain_ms": main["g1_plain_ms"],
-                         "bound_ms": _bound_ms(_scan_bytes(M_MAIN, 1,
-                                                           2.5))}},
+                         **{k: v for k, v in bounds["g1"].items()
+                            if k != "branches"}}},
         {"name": "tile_stats", "route": "cuda",
          "source": "genrich_tpu_torch/csrc/stats.cu",
          "replaces": "genrich_tpu/ops/pipeline_jax.py:164",
          "launches": 0, "max_abs_err": worst("stats_max_abs_err"),
          "library_ms": None,
          "at_2^23": {"ms": main["stats_ms"],
+                     "first_design_ms": main["stats_first_design_ms"],
                      "plain_ms": main["stats_plain_ms"],
-                     "bound_ms": _bound_ms(_stats_bytes(M_MAIN))}},
+                     **{k: v for k, v in bounds["stats"].items()
+                        if k != "branches"}}},
     ]
 
 
@@ -342,7 +404,8 @@ def k1_main_phase(calls, entry):
     from genrich_tpu_torch import testing
     from genrich_tpu_torch.ops import scan
     dev = torch.device(DEV)
-    ms = call_ms = first_ms = plain_ms = nbytes = 0.0
+    ms = call_ms = first_ms = plain_ms = 0.0
+    parts = []
     for i, call in enumerate(calls):
         packed, groups, carry, lam = (list(call) + [None, None])[:4]
         packed, carry = packed.to(dev), carry.to(dev)
@@ -361,6 +424,9 @@ def k1_main_phase(calls, entry):
             raise AssertionError(f"coverage_scan, main path call {i}: "
                                  f"{len(ran)} kernels: {ran}")
         m = packed.shape[0]
+        parts.append(_bound(_scan_bytes(m, groups, lam),
+                            testing.coverage_scan_opcount(
+                                m, groups, got[0][0], lam)["fp32_ops"]))
         res = {"rows": m, "groups": groups, "kernels_per_call": ran,
                "ms": _median_ms(lambda: scan.coverage_scan(
                    packed, groups, carry, lam)),
@@ -370,27 +436,26 @@ def k1_main_phase(calls, entry):
                    lambda: testing.coverage_scan_first_design(
                        packed, groups, carry, lam)),
                "plain_ms": _median_ms(lambda: scan.coverage_scan_plain(
-                   packed, groups, carry, lam)),
-               "bound_ms": _bound_ms(_scan_bytes(m, groups, lam))}
+                   packed, groups, carry, lam)), **parts[-1]}
         ms += res["ms"]
         call_ms += res["call_ms"]
         first_ms += res["first_design_ms"]
         plain_ms += res["plain_ms"]
-        nbytes += _scan_bytes(m, groups, lam)
         say("kernels", kernel="coverage_scan",
             inputs=f"main path call {i}", **res)
         del packed, carry, got, want, first
     torch.cuda.empty_cache()
     entry.update(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                 first_design_ms=first_ms,
-                 bound_ms=_bound_ms(nbytes), bound_by="bytes",
+                 first_design_ms=first_ms, **_sum_bounds(parts),
                  mode=f"sum over the main path's {len(calls)} calls, its "
                       f"own inputs; one kernel launch per call")
 
 
 def fisher_phase():
-    """K3 against its float64 plain version; returns a JSON entry."""
+    """K3 against its float64 plain version and its first design
+    (bitwise); returns a JSON entry."""
     import torch
+    from genrich_tpu_torch import testing
     from genrich_tpu_torch.ops import chisq
     dev = torch.device(DEV)
     rng = np.random.RandomState(1)
@@ -403,10 +468,14 @@ def fisher_phase():
             pv = torch.from_numpy(pv).to(dev)
             got = chisq.fisher_combine(pv)
             want = chisq.fisher_combine_plain(pv)
+            first = testing.fisher_combine_first_design(pv)
             torch.cuda.synchronize()
             if not torch.equal(got == -1.0, want == -1.0):
                 raise AssertionError(f"fisher_combine R={r} N={n}: SKIP "
                                      f"lanes differ")
+            if not torch.equal(got, first):
+                raise AssertionError(f"fisher_combine R={r} N={n}: differs "
+                                     f"from the first design")
             err = (got - want).abs()
             rel = float((err / want.abs().clamp_min(1e-30)).max())
             worst_err = max(worst_err, float(err.max()))
@@ -420,10 +489,14 @@ def fisher_phase():
             if n == M_MAIN:
                 times[r] = (_median_ms(lambda: chisq.fisher_combine(pv)),
                             _median_ms(lambda: chisq.fisher_combine_plain(
-                                pv), n=5))
-                res.update(ms=times[r][0], plain_ms=times[r][1])
+                                pv), n=5), _fisher_bound(pv),
+                            _median_ms(
+                                lambda: testing.fisher_combine_first_design(
+                                    pv)))
+                res.update(ms=times[r][0], plain_ms=times[r][1],
+                           first_design_ms=times[r][3], **times[r][2])
             say("kernels", kernel="fisher_combine", **res)
-            del pv, got, want, err
+            del pv, got, want, first, err
     torch.cuda.empty_cache()
     return {"name": "fisher_combine", "route": "cuda",
             "source": "genrich_tpu_torch/csrc/fisher.cu",
@@ -431,8 +504,13 @@ def fisher_phase():
             "launches": 0, "max_abs_err": worst_err,
             "library_ms": None,
             "at_2^23": {"ms": times[2][0], "plain_ms": times[2][1],
-                        "bound_ms": _bound_ms(_fisher_bytes(2, M_MAIN)),
-                        "r3_ms": times[3][0], "r3_plain_ms": times[3][1]},
+                        "first_design_ms": times[2][3],
+                        **{k: v for k, v in times[2][2].items()
+                           if k not in ("paths", "trips")},
+                        "r3_ms": times[3][0], "r3_plain_ms": times[3][1],
+                        "r3_first_design_ms": times[3][3],
+                        "r3_bound_ms": times[3][2]["bound_ms"],
+                        "r3_bound_by": times[3][2]["bound_by"]},
             "max_rel_err": worst_rel}
 
 
@@ -656,23 +734,23 @@ def run_port(label: str, args):
     return wall, counts, perf, torch.cuda.max_memory_allocated()
 
 
-def peak_runs(name: str, ts, need) -> dict:
-    """Exact once, then the port cold and warm on ``-t ts``; checks the
-    rows, the launch counts (``need(counts)`` returns a fault or None)
-    and that cold and warm wrote the same bytes.  Returns the counts of
-    the warm run."""
+def peak_runs(name: str, ts, need, extra=()) -> dict:
+    """Exact once, then the port cold and warm on ``-t ts`` and the
+    flags ``extra``; checks the rows, the launch counts (``need(counts)``
+    returns a fault or None) and that cold and warm wrote the same bytes.
+    Returns the counts of the warm run."""
     from bench_e2e import _verify_rows
     run_dir = os.path.join(WORK, "chip_smoke")
     os.makedirs(run_dir, exist_ok=True)
     ref_np = os.path.join(run_dir, f"{name}_exact.np")
-    wall = run_exact(name, ["-t", ts, "-o", ref_np] + FLAGS)
+    wall = run_exact(name, ["-t", ts, "-o", ref_np, *extra] + FLAGS)
     say(f"{name}_exact", wall_s=wall, peaks=sum(1 for _ in open(ref_np)),
         ingest="native")
     counts = {}
     for label in ("cold", "warm"):
         out_np = os.path.join(run_dir, f"{name}_port_{label}.np")
         wall, counts, perf, mem = run_port(
-            f"{name} {label}", ["-t", ts, "-o", out_np] + FLAGS)
+            f"{name} {label}", ["-t", ts, "-o", out_np, *extra] + FLAGS)
         rows = _verify_rows(ref_np, out_np, thresh=Q_THRESH)
         diffs = _rel_diffs(ref_np, out_np)
         say(f"{name}_port_{label}", wall_s=wall, launches=counts,
@@ -699,18 +777,26 @@ def peak_runs(name: str, ts, need) -> dict:
     return counts
 
 
+def _need_main(c):
+    missing = [k for k in ("coverage_scan", "tile_stats", "peak_reduce")
+               if c[k] <= 0]
+    return f"kernels not launched: {missing}" if missing else None
+
+
 def main_path(bam):
-    def need(c):
-        missing = [k for k in ("coverage_scan", "tile_stats",
-                               "peak_reduce") if c[k] <= 0]
-        return f"kernels not launched: {missing}" if missing else None
-    return peak_runs("main", bam, need)
+    return peak_runs("main", bam, _need_main)
 
 
-def kernel_inputs(label, ts, targets):
-    """One more port run on ``-t ts`` (untimed, its counts unread) with
-    each (module, name) of ``targets`` wrapped to keep host copies of
-    the arguments of its calls; returns {name: [args, ...]}."""
+def control_path(bam_t, bam_c):
+    """``-t bam_t -c bam_c``: the one run where K2 meets a control that
+    varies from row to row."""
+    return peak_runs("control", bam_t, _need_main, ["-c", bam_c])
+
+
+def kernel_inputs(label, ts, targets, extra=()):
+    """One more port run on ``-t ts`` and ``extra`` (untimed, its counts
+    unread) with each (module, name) of ``targets`` wrapped to keep host
+    copies of the arguments of its calls; returns {name: [args, ...]}."""
     import torch
     calls = {name: [] for _, name in targets}
     real = {name: getattr(mod, name) for mod, name in targets}
@@ -723,9 +809,11 @@ def kernel_inputs(label, ts, targets):
         return record
     for mod, name in targets:
         setattr(mod, name, wrap(name))
+    os.makedirs(os.path.join(WORK, "chip_smoke"), exist_ok=True)
     try:
         run_port(f"{label}, kernel inputs", ["-t", ts, "-o", os.path.join(
-            WORK, "chip_smoke", f"{label}_kernel_inputs.np")] + FLAGS)
+            WORK, "chip_smoke", f"{label}_kernel_inputs.np"), *extra]
+            + FLAGS)
     finally:
         for mod, name in targets:
             setattr(mod, name, real[name])
@@ -744,6 +832,13 @@ def main_kernel_inputs(bam):
                                        (peaks, "peak_reduce")])
 
 
+def control_kernel_inputs(bam_t, bam_c):
+    """The arguments of the control run's K2 calls."""
+    from genrich_tpu_torch.engine import torch_bridge
+    return kernel_inputs("control", bam_t, [(torch_bridge, "tile_stats")],
+                         ["-c", bam_c])["tile_stats"]
+
+
 def fisher_kernel_inputs(bam_a, bam_b):
     """The arguments of the Fisher path's K3 calls."""
     from genrich_tpu_torch.ops import compact
@@ -751,62 +846,78 @@ def fisher_kernel_inputs(bam_a, bam_b):
                          [(compact, "fisher_combine")])["fisher_combine"]
 
 
-def k2_main_phase(calls, entry):
-    """K2 on the inputs of the main path's own calls, against its plain
-    version (rtol = atol = 1e-5); completes ``entry``."""
+def k2_path_phase(calls, path):
+    """K2 on the inputs of a path's own calls, against its plain version
+    (rtol = atol = 1e-5) and its first design (bitwise); returns the sums
+    over the calls."""
     import torch
+    from genrich_tpu_torch import testing
     from genrich_tpu_torch.ops import pipeline
     dev = torch.device(DEV)
-    ms = call_ms = plain_ms = nbytes = worst = 0.0
+    ms = call_ms = plain_ms = first_ms = worst = 0.0
+    parts = []
     for i, call in enumerate(calls):
         args = [a.to(dev) if torch.is_tensor(a) else a for a in call]
         got = pipeline.tile_stats(*args)
         want = pipeline.tile_stats_plain(*args)
+        first = testing.tile_stats_first_design(*args)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         if not _close(got, want):
-            raise AssertionError(f"tile_stats, main path call {i}: max abs "
-                                 f"err {err}")
+            raise AssertionError(f"tile_stats, {path} path call {i}: max "
+                                 f"abs err {err}")
+        if not torch.equal(got, first):
+            raise AssertionError(f"tile_stats, {path} path call {i}: "
+                                 f"differs from the first design")
         m = args[0].shape[0]
         res = {"rows": m, "max_abs_err": err,
                "ms": _median_ms(lambda: pipeline.tile_stats(*args)),
                "call_ms": _median_ms(lambda: pipeline.tile_stats(*args),
                                      busy=False),
+               "first_design_ms": _median_ms(
+                   lambda: testing.tile_stats_first_design(*args)),
                "plain_ms": _median_ms(
                    lambda: pipeline.tile_stats_plain(*args)),
-               "bound_ms": _bound_ms(_stats_bytes(m))}
+               **_stats_bound(args)}
+        parts.append(res)
         ms += res["ms"]
         call_ms += res["call_ms"]
         plain_ms += res["plain_ms"]
-        nbytes += _stats_bytes(m)
+        first_ms += res["first_design_ms"]
         worst = max(worst, err)
-        say("kernels", kernel="tile_stats", inputs=f"main path call {i}",
+        say("kernels", kernel="tile_stats", inputs=f"{path} path call {i}",
             **res)
-        del args, got, want
+        del args, got, want, first
     torch.cuda.empty_cache()
-    entry.update(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                 bound_ms=_bound_ms(nbytes), bound_by="bytes",
-                 max_abs_err=max(entry["max_abs_err"], worst),
-                 mode=f"sum over the main path's {len(calls)} calls, its "
-                      f"own inputs")
+    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                first_design_ms=first_ms,
+                **_sum_bounds(parts), max_abs_err=worst,
+                mode=f"sum over the {path} path's {len(calls)} calls, its "
+                     f"own inputs")
 
 
 def k3_fisher_phase(calls, entry):
     """K3 on the inputs of the Fisher path's own calls, against its
-    float64 plain version (rtol 1e-6, SKIP lanes identical); completes
-    ``entry``."""
+    float64 plain version (rtol 1e-6, SKIP lanes identical) and its first
+    design (bitwise); completes ``entry``."""
     import torch
+    from genrich_tpu_torch import testing
     from genrich_tpu_torch.ops import chisq
     dev = torch.device(DEV)
-    ms = call_ms = plain_ms = nbytes = worst = 0.0
+    ms = call_ms = plain_ms = first_ms = worst = 0.0
+    parts = []
     for i, (pv,) in enumerate(calls):
         pv = pv.to(dev)
         got = chisq.fisher_combine(pv)
         want = chisq.fisher_combine_plain(pv)
+        first = testing.fisher_combine_first_design(pv)
         torch.cuda.synchronize()
         if not torch.equal(got == -1.0, want == -1.0):
             raise AssertionError(f"fisher_combine, Fisher path call {i}: "
                                  f"SKIP lanes differ")
+        if not torch.equal(got, first):
+            raise AssertionError(f"fisher_combine, Fisher path call {i}: "
+                                 f"differs from the first design")
         if not _close(got, want, rtol=FISHER_RTOL, atol=0.0):
             raise AssertionError(f"fisher_combine, Fisher path call {i}: "
                                  f"outside rtol {FISHER_RTOL}")
@@ -816,21 +927,24 @@ def k3_fisher_phase(calls, entry):
                "ms": _median_ms(lambda: chisq.fisher_combine(pv)),
                "call_ms": _median_ms(lambda: chisq.fisher_combine(pv),
                                      busy=False),
+               "first_design_ms": _median_ms(
+                   lambda: testing.fisher_combine_first_design(pv)),
                "plain_ms": _median_ms(
                    lambda: chisq.fisher_combine_plain(pv), n=5),
-               "bound_ms": _bound_ms(_fisher_bytes(r, n))}
+               **_fisher_bound(pv)}
+        parts.append(res)
         ms += res["ms"]
         call_ms += res["call_ms"]
         plain_ms += res["plain_ms"]
-        nbytes += _fisher_bytes(r, n)
+        first_ms += res["first_design_ms"]
         worst = max(worst, err)
         say("kernels", kernel="fisher_combine",
             inputs=f"Fisher path call {i}", **res)
-        del pv, got, want
+        del pv, got, want, first
     torch.cuda.empty_cache()
-    # its FP64 operations are data-dependent series, not counted
     entry.update(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                 bound_ms=_bound_ms(nbytes), bound_by="bytes",
+                 first_design_ms=first_ms,
+                 **_sum_bounds(parts),
                  max_abs_err=max(entry["max_abs_err"], worst),
                  mode=f"sum over the Fisher path's {len(calls)} calls, its "
                       f"own inputs")
@@ -881,10 +995,17 @@ def main() -> int:
     main_counts = main_path(bam_a)
     calls = main_kernel_inputs(bam_a)
     k1_main_phase(calls["coverage_scan"], entries[0])
-    k2_main_phase(calls["tile_stats"], entries[1])
+    k2 = k2_path_phase(calls["tile_stats"], "main")
+    entries[1].update(k2, max_abs_err=max(entries[1]["max_abs_err"],
+                                          k2["max_abs_err"]))
     entries.append(peaks_phase(calls["peak_reduce"]))
     del calls
     bam_b = synth_bam("b")
+    control_path(bam_a, bam_b)
+    k2 = k2_path_phase(control_kernel_inputs(bam_a, bam_b), "control")
+    entries[1]["control_path"] = k2
+    entries[1]["max_abs_err"] = max(entries[1]["max_abs_err"],
+                                    k2["max_abs_err"])
     fisher_counts = fisher_path(bam_a, bam_b)
     k3_fisher_phase(fisher_kernel_inputs(bam_a, bam_b), entries[2])
     logs_path(synth_bam("log"))

@@ -13,13 +13,36 @@
 // FLT_MAX.  The JAX package runs them in float32 only because the TPU
 // has no float64 units; the H100 has them.
 //
-// Bound: float64 arithmetic and the divergent trip counts of the series
-// loops (each lane stops at its own convergence point, as the
-// reference's loops do), not memory: R * 4 B in and 4 B out per lane.
-// One thread per interval, grid-stride, coalesced loads of each
-// replicate row; the stirlerr table sits in __constant__ memory.  Build
-// without FMA contraction (kernels.py) so each operation rounds as the
-// exact engine's numpy does.
+// Bound: float64 operations (a lane with a chi-squared tail runs about
+// 290, libm calls counted at their SASS length), above the R * 4 B in
+// and 4 B out per lane.  The first design (csrc/reference/
+// fisher_first.cu: one lane per thread) ran at about a quarter of that
+// bound.  A warp runs pgamma for all 32 of its lanes if one of them
+// needs it, and on the Fisher path about 40% of the lanes (one live
+// value, or a zero total) need none.  This design:
+//   * persistent warps (the grid is sized from the SM count and the
+//     occupancy the kernel reaches) walk the lanes 32 at a time, with
+//     the next 32 lanes' values (2 replicates in registers, the rest
+//     loaded in turn) loaded before the current ones are combined;
+//   * a lane that needs the chi-squared tail goes to a per-warp queue
+//     in shared memory (its total, live count and index; ballot and
+//     popc), the others are written at once; once 32 are queued the
+//     warp runs pgamma on them together, so no lane idles through the
+//     series beside one that needed none.
+// The queue's own work is not free, so it pays where many lanes need
+// no tail (the Fisher path's two replicates) and not where nearly all
+// do (three replicates of random values).  Tried on the card and
+// dropped: 128 lanes per warp sorted by pgamma path into shared-memory
+// lists, with lgamma and stirlerr once per live count per block
+// (registers and the block's barriers cost more than the sorting
+// saved); a global table of computed results keyed by the lane's total
+// (lookups and inserts in device memory cost more than the series);
+// three blocks per SM (40 registers, which spill); the lanes' loads two
+// steps ahead in place of one (no faster).  Each lane's operations and
+// their order are the first design's (the device functions below are
+// its own): the output equals it bit for bit.  The stirlerr table sits
+// in __constant__ memory.  Build without FMA contraction (kernels.py)
+// so each operation rounds as the exact engine's numpy does.
 #include <cfloat>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -27,7 +50,7 @@
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 512;
 constexpr double LN2 = 0.693147180559945309417232121458176568;
 constexpr double LN10 = 2.302585092994045684017991454684364208;
 constexpr double LOG10E = 0.434294481903251827651128918916605082;
@@ -136,33 +159,87 @@ __device__ double pgamma(double x, double alph) {
   return pd_lower_series(x, alph - 1) + d;
 }
 
+constexpr int WARPS = THREADS / 32;
+constexpr int QCAP = 64;                    // queue entries per warp
+constexpr int REG_R = 2;                    // replicates prefetched
+constexpr int MAX_R = 200;
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+struct Queue {
+  double total[WARPS][QCAP];
+  int64_t idx[WARPS][QCAP];
+  uint8_t live[WARPS][QCAP];
+};
+
+// the queue's first k entries (k <= 32), one a lane
+__device__ __forceinline__ void run_queue(Queue& q, int w, int lane, int qh,
+                                          int k, float* __restrict__ out) {
+  __syncwarp();
+  if (lane < k) {
+    const int s = (qh + lane) & (QCAP - 1);
+    const double total = q.total[w][s];
+    const int live = q.live[w][s];
+    const double x = 2.0 * total / LOG10E;
+    const double p = -pgamma(x / 2.0, (2.0 * live) / 2.0) / LN10;
+    out[q.idx[w][s]] = p > (double)FLT_MAX ? FLT_MAX : (float)p;
+  }
+  __syncwarp();  // the entries may be queued over now
+}
+
 __global__ void __launch_bounds__(THREADS)
 fisher_combine_kernel(const float* __restrict__ pv, int r, int64_t n,
                       float* __restrict__ out) {
-  const int64_t stride = (int64_t)gridDim.x * THREADS;
-  for (int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x; i < n;
-       i += stride) {
+  __shared__ Queue q;
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const unsigned lt_mask = (1u << lane) - 1u;
+  const int64_t step = (int64_t)gridDim.x * THREADS;
+  int64_t base = ((int64_t)blockIdx.x * WARPS + w) * 32;
+  int qh = 0, qn = 0;  // the warp's queue: first entry, entries
+  float v[REG_R];
+#pragma unroll
+  for (int k = 0; k < REG_R; ++k)
+    if (k < r && base + lane < n) v[k] = pv[(int64_t)k * n + base + lane];
+  for (; base < n; base += step) {
+    const int64_t i = base + lane;
+    const bool in = i < n;
     double total = 0.0;
     int live = 0;
-    for (int k = 0; k < r; ++k) {
-      const float v = pv[(int64_t)k * n + i];
-      if (v != -1.0f) {
-        total = total + (double)v;
+#pragma unroll
+    for (int k = 0; k < REG_R; ++k) {
+      if (in && k < r && v[k] != -1.0f) {
+        total = total + (double)v[k];
         ++live;
       }
     }
-    float res;
-    if (live == 0) {
-      res = -1.0f;
-    } else if (live == 1 || total == 0.0) {
-      res = (float)total;
-    } else {
-      const double x = 2.0 * total / LOG10E;
-      const double p = -pgamma(x / 2.0, (2.0 * live) / 2.0) / LN10;
-      res = p > (double)FLT_MAX ? FLT_MAX : (float)p;
+    for (int k = REG_R; k < r; ++k) {
+      const float vk = in ? pv[(int64_t)k * n + i] : -1.0f;
+      if (vk != -1.0f) {
+        total = total + (double)vk;
+        ++live;
+      }
     }
-    out[i] = res;
+    const int64_t j = i + step;  // the next lanes' loads go out now
+#pragma unroll
+    for (int k = 0; k < REG_R; ++k)
+      if (k < r && j < n) v[k] = pv[(int64_t)k * n + j];
+    const bool tail = in && live >= 2 && total != 0.0;
+    if (in && !tail) out[i] = live == 0 ? -1.0f : (float)total;
+    const unsigned b = __ballot_sync(FULL_MASK, tail);
+    if (tail) {
+      const int s = (qh + qn + __popc(b & lt_mask)) & (QCAP - 1);
+      q.total[w][s] = total;
+      q.live[w][s] = (uint8_t)live;
+      q.idx[w][s] = i;
+    }
+    qn += __popc(b);
+    if (qn >= 32) {
+      run_queue(q, w, lane, qh, 32, out);
+      qh = (qh + 32) & (QCAP - 1);
+      qn -= 32;
+    }
   }
+  if (qn > 0) run_queue(q, w, lane, qh, qn, out);
 }
 
 }  // namespace
@@ -172,9 +249,22 @@ fisher_combine_kernel(const float* __restrict__ pv, int r, int64_t n,
 extern "C" int fisher_combine_launch(const float* pv, int r, int64_t n,
                                      float* out, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  if (r < 1 || r > 200) return (int)cudaErrorInvalidValue;
+  if (r < 1 || r > MAX_R) return (int)cudaErrorInvalidValue;
+  static int grid_cap = 0;
+  if (grid_cap == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, fisher_combine_kernel, THREADS, 0);
+    if (err != cudaSuccess) return (int)err;
+    grid_cap = sms * (per_sm > 0 ? per_sm : 1);
+  }
   int64_t blocks = (n + THREADS - 1) / THREADS;
-  if (blocks > 132 * 64) blocks = 132 * 64;  // grid-stride beyond this
+  if (blocks > grid_cap) blocks = grid_cap;
   fisher_combine_kernel<<<(unsigned)blocks, THREADS, 0,
                           (cudaStream_t)stream>>>(pv, r, n, out);
   return (int)cudaGetLastError();

@@ -18,7 +18,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "pval.cuh"
+#include "pval_first.cuh"
 
 namespace {
 

@@ -12,7 +12,8 @@ package.
 ``csrc/reference/*.cu`` holds earlier designs of the kernels, which the
 card tests and chip_smoke.py hold the current ones to; they build into
 a library of their own (``reference_library()``) that the port never
-loads.
+loads.  They include ``csrc/reference/pval_first.cuh``, a frozen copy
+of the p-value header, not ``csrc/pval.cuh``.
 
 ``LAUNCHES`` counts, per kernel, the calls of its wrapper that
 launched it on the card (the wrappers in ``ops/scan.py``,
@@ -62,7 +63,9 @@ def reset_launches() -> None:
 
 
 def _sources(src_dir: Path):
-    return sorted(src_dir.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+    """The sources of a library and every header they may include."""
+    cuhs = set(CSRC.glob("*.cuh")) | set(src_dir.glob("*.cuh"))
+    return sorted(src_dir.glob("*.cu")), sorted(cuhs)
 
 
 def _nvcc() -> str:
@@ -135,8 +138,10 @@ def library() -> ctypes.CDLL:
         lib.coverage_scan_launch.restype = ctypes.c_int
         lib.coverage_scan_scratch.restype = i64
         lib.coverage_scan_scratch.argtypes = [i64, ctypes.c_int]
-        lib.tile_stats_launch.argtypes = [p, p, p, f32, f32, p, i64, p]
+        lib.tile_stats_launch.argtypes = [p, p, p, f32, f32, p, i64, p, p]
         lib.tile_stats_launch.restype = ctypes.c_int
+        lib.tile_stats_scratch_bytes.restype = i64
+        lib.tile_stats_scratch_bytes.argtypes = []
         lib.fisher_combine_launch.argtypes = [p, ctypes.c_int, i64, p, p]
         lib.fisher_combine_launch.restype = ctypes.c_int
         lib.peak_reduce_launch.argtypes = [p, p, p, p, p, p, p, p, i64,
@@ -164,6 +169,12 @@ def reference_library() -> ctypes.CDLL:
         lib.coverage_scan_three_pass_launch.restype = ctypes.c_int
         lib.coverage_scan_three_pass_tile.restype = i64
         lib.coverage_scan_three_pass_tile.argtypes = []
+        lib.tile_stats_first_launch.argtypes = [p, p, p, f32, f32, p, i64,
+                                                p]
+        lib.tile_stats_first_launch.restype = ctypes.c_int
+        lib.fisher_combine_first_launch.argtypes = [p, ctypes.c_int, i64, p,
+                                                    p]
+        lib.fisher_combine_first_launch.restype = ctypes.c_int
         _ref_lib = lib
     return _ref_lib
 

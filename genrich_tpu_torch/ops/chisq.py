@@ -42,13 +42,18 @@ _SFERR = np.array([
 _S = (1 / 12., 1 / 360., 1 / 1260., 1 / 1680., 1 / 1188.)
 
 
+def _tally(trips, name, n_it):
+    if trips is not None:
+        trips[name] = n_it
+
+
 def _log1_exp(x):
     """R_Log1_Exp: log(1 - exp(x)) for x <= 0."""
     return torch.where(x > -_M_LN2, torch.log(-torch.expm1(x)),
                        torch.log1p(-torch.exp(x)))
 
 
-def _bd0(x, np_):
+def _bd0(x, np_, trips=None):
     fallback = x * torch.log(x / np_) + np_ - x
     near = torch.abs(x - np_) < 0.1 * (x + np_)
     v = torch.where(near, (x - np_) / (x + np_), torch.zeros_like(x))
@@ -57,13 +62,16 @@ def _bd0(x, np_):
     ej = 2 * x * v
     v2 = v * v
     active = near & ~tiny
+    n_it = torch.zeros_like(x, dtype=torch.int64)
     j = 1
     while j < 1000 and bool(active.any()):
+        n_it = n_it + active
         ej = torch.where(active, ej * v2, ej)
         s1 = torch.where(active, s + ej / (2 * j + 1), s)
         active = active & (s1 != s)
         s = s1
         j += 1
+    _tally(trips, "bd0", n_it)
     return torch.where(near, s, fallback)
 
 
@@ -80,60 +88,73 @@ def _stirlerr(n):
                                    torch.where(n > 15.0, small, tab)))
 
 
-def _dpois(x, lam):
+def _dpois(x, lam, trips=None):
     return (-0.5 * torch.log(2.0 * math.pi * x) - _stirlerr(x)
-            - _bd0(x, lam))
+            - _bd0(x, lam, trips))
 
 
-def _pd_upper_series(x, alph):
+def _pd_upper_series(x, alph, trips=None):
     eps = torch.finfo(x.dtype).eps
     a = alph
     term = x / alph
     total = term
     active = x == x
+    n_it = torch.zeros_like(x, dtype=torch.int64)
     while bool(active.any()):
+        n_it = n_it + active
         a = torch.where(active, a + 1, a)
         term = torch.where(active, term * x / a, term)
         total = torch.where(active, total + term, total)
         active = active & (term > total * eps)
+    _tally(trips, "pd_upper_series", n_it)
     return torch.log(total)
 
 
-def _pd_lower_series(lam, y):
+def _pd_lower_series(lam, y, trips=None):
     eps = torch.finfo(lam.dtype).eps
     term = torch.ones_like(lam)
     total = torch.zeros_like(lam)
     active = y >= 1
+    n_it = torch.zeros_like(lam, dtype=torch.int64)
     while bool(active.any()):
+        n_it = n_it + active
         term = torch.where(active, term * y / lam, term)
         total = torch.where(active, total + term, total)
         y = torch.where(active, y - 1, y)
         active = active & (y >= 1) & (term > total * eps)
+    _tally(trips, "pd_lower_series", n_it)
     return torch.log1p(total)
 
 
-def _pgamma_smallx(x, alph):
+def _pgamma_smallx(x, alph, trips=None):
     eps = torch.finfo(x.dtype).eps
     n = torch.zeros_like(x)
     c = alph + 0.0
     total = torch.zeros_like(x)
     active = x == x
+    n_it = torch.zeros_like(x, dtype=torch.int64)
     while bool(active.any()):
+        n_it = n_it + active
         n = torch.where(active, n + 1, n)
         c = torch.where(active, c * -x / n, c)
         term = torch.where(active, c / (alph + n), torch.zeros_like(x))
         total = torch.where(active, total + term, total)
         active = active & (torch.abs(term) > eps * torch.abs(total))
+    _tally(trips, "pgamma_smallx", n_it)
     lf2 = alph * torch.log(x) - torch.lgamma(alph + 1)
     return _log1_exp(torch.log1p(total) + lf2)
 
 
-def pgamma(x: torch.Tensor, alph) -> torch.Tensor:
+def pgamma(x: torch.Tensor, alph, trips=None) -> torch.Tensor:
     """log upper-tail gamma CDF; alph integral in [2, 200].
 
     Each series gets its own lanes' x and, on the other lanes, a value
     that converges at once (the JAX twin feeds every lane to every
-    series and selects; the selected lanes see the same values).
+    series and selects; the selected lanes see the same values).  With
+    a dict ``trips``, each series' loop stores there, under its name,
+    the number of times its body ran for each lane (``bd0`` for the
+    lanes that are not small x; ``testing.fisher_combine_opcount``
+    masks each by the lanes that take it).
     """
     alph = torch.broadcast_to(torch.as_tensor(alph, dtype=x.dtype,
                                               device=x.device), x.shape)
@@ -141,14 +162,14 @@ def pgamma(x: torch.Tensor, alph) -> torch.Tensor:
     small_lane = x < 1
     upper_lane = ~small_lane & (x <= alph - 1)
     half, one = torch.full_like(x, 0.5), torch.ones_like(x)
-    small = _pgamma_smallx(torch.where(small_lane, xs, half), alph)
+    small = _pgamma_smallx(torch.where(small_lane, xs, half), alph, trips)
     xm = torch.where(small_lane, torch.full_like(x, 2.0), xs)
-    d = _dpois(alph - 1, xm)
+    d = _dpois(alph - 1, xm, trips)
     up = _log1_exp(_pd_upper_series(torch.where(upper_lane, xm, one),
-                                    alph) + d)
+                                    alph, trips) + d)
     lo = _pd_lower_series(xm, torch.where(small_lane | upper_lane,
                                           torch.zeros_like(x),
-                                          alph - 1)) + d
+                                          alph - 1), trips) + d
     return torch.where(small_lane, small, torch.where(upper_lane, up, lo))
 
 

@@ -115,9 +115,14 @@ def _tile_stats_cuda(expt_val, ctrl_raw, excluded, factor, lam):
 
     Replaces the elementwise XLA program of pipeline_jax.tile_stats
     (:164-173).  Bound by device-memory bandwidth (9 B in, 4 B out per
-    row); one thread per row with coalesced loads, and the p-value math
-    (csrc/pval.cuh) evaluates only the branch each row takes, where the
-    plain version evaluates every branch and selects.
+    row) where the arithmetic is read from tables: a first launch
+    evaluates, for each integral coverage value below the table's size,
+    the p-value of that signal against lambda and the log-normal
+    parameters of that raw control; the second walks the rows and runs
+    the p-value math (csrc/pval.cuh) only for values beyond the tables
+    (see the source's header).  The math evaluates only the branch each
+    row takes, where the plain version evaluates every branch and
+    selects.
     """
     expt_val = expt_val.contiguous()
     ctrl_raw = ctrl_raw.contiguous()
@@ -126,10 +131,13 @@ def _tile_stats_cuda(expt_val, ctrl_raw, excluded, factor, lam):
     with torch.cuda.device(expt_val.device):
         lib = kernels.library()
         pval = torch.empty(m, dtype=torch.float32, device=expt_val.device)
+        tables = torch.empty(lib.tile_stats_scratch_bytes(),
+                             dtype=torch.uint8, device=expt_val.device)
         rc = lib.tile_stats_launch(
             kernels.ptr(expt_val), kernels.ptr(ctrl_raw), kernels.ptr(ex),
             float(np.float32(factor)), float(np.float32(lam)),
-            kernels.ptr(pval), m, kernels.stream_of(expt_val))
+            kernels.ptr(pval), m, kernels.ptr(tables),
+            kernels.stream_of(expt_val))
         kernels.check(rc, "tile_stats")
     kernels.LAUNCHES["tile_stats"] += 1
     return pval

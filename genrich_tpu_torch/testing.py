@@ -5,9 +5,17 @@ peaks, and ``peak_row_columns`` the same rows as ``peak_reduce``'s
 int32/float32 columns; ``auc_rowwise`` is the exact engine's AUC on the
 host (a float32 sum in row order); ``check_log`` holds a port's
 ``-f``/``-k`` log to the exact engine's.  numpy only, except
-``peak_reduce_first_design`` and ``coverage_scan_first_design``, which
-launch the first designs of kernels K4 and K1 (``csrc/reference/``) on
-the card so that the current ones can be held to them.
+the ``*_first_design`` helpers, which launch the first designs of
+kernels K1-K4 (``csrc/reference/``) on the card so that the current
+ones can be held to them, and the operation counters.
+
+``calc_pval_opcount``, ``tile_stats_opcount``, ``coverage_scan_opcount``
+and ``fisher_combine_opcount`` tally, on a call's own inputs, the
+branch each row or lane of kernels K1 (lambda mode), K2 and K3 takes and
+the trip count of each series, and turn the tally into float
+operations: each operation written in the CUDA source counts once, each
+libm call or IEEE division ``LIBM_OPS[name]``.  ``bound`` turns bytes
+and operations into the least time the card could take.
 """
 
 from __future__ import annotations
@@ -111,6 +119,46 @@ def coverage_scan_first_design(packed, groups, carry, lam=None):
     return vals, (pval if lam is not None else None)
 
 
+def tile_stats_first_design(expt_val, ctrl_raw, excluded, factor, lam):
+    """Kernel K2's first design (one row per thread) on CUDA tensors,
+    with ``tile_stats``'s arguments and output.  Not counted in
+    ``kernels.LAUNCHES``."""
+    import torch
+
+    from . import kernels
+    args = [expt_val.contiguous(), ctrl_raw.contiguous(),
+            excluded.contiguous().view(torch.uint8)]
+    m = expt_val.shape[0]
+    with torch.cuda.device(expt_val.device):
+        lib = kernels.reference_library()
+        pval = torch.empty(m, dtype=torch.float32, device=expt_val.device)
+        rc = lib.tile_stats_first_launch(
+            *(kernels.ptr(t) for t in args), float(F32(factor)),
+            float(F32(lam)), kernels.ptr(pval), m,
+            kernels.stream_of(expt_val))
+        kernels.check(rc, "tile_stats_first")
+    return pval
+
+
+def fisher_combine_first_design(pvals):
+    """Kernel K3's first design (one lane per thread) on a CUDA f32 [R, N]
+    tensor, with ``fisher_combine``'s output.  Not counted in
+    ``kernels.LAUNCHES``."""
+    import torch
+
+    from . import kernels
+    pvals = pvals.contiguous()
+    r, n = pvals.shape
+    with torch.cuda.device(pvals.device):
+        lib = kernels.reference_library()
+        out = torch.empty(n, dtype=torch.float32, device=pvals.device)
+        rc = lib.fisher_combine_first_launch(kernels.ptr(pvals), r, n,
+                                             kernels.ptr(out),
+                                             kernels.stream_of(pvals))
+        kernels.check(rc, "fisher_combine_first")
+    return out
+
+
 def auc_rowwise(starts, ends, stat, sig, first, last, min_pq):
     """Each candidate's AUC as updatePeak adds it (Genrich.c:948-964,
     ``genrich_tpu/engine/peaks.py:107-131``): float32 (len * (stat -
@@ -166,3 +214,287 @@ def check_log(exact_log, port_log, cols=(3, 4, 5)):
         raise AssertionError(f"covered bp differ: {span(fe)} {span(ff)}")
     return {"rows_exact": len(fe), "rows_port": len(ff),
             "worst_rel_diff": worst, "bp": span(ff)}
+
+
+# --- operation counts and bounds ------------------------------------------
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
+FP32_OPS_PER_S = 67e12      # H100 SXM float32, outside the tensor cores
+FP64_OPS_PER_S = 34e12      # H100 SXM float64, outside the tensor cores
+
+# (float32, float64) operations per call, an FMA counted twice: the SASS
+# of probe kernels built with the port's nvcc flags, from entry to first
+# EXIT, less a copy kernel's (``python -m genrich_tpu_torch.sass_cost``
+# with CUDA 12.8's nvcc and cuobjdump for sm_90a).
+LIBM_OPS = {
+    "logf": (32, 0), "log10f": (33, 0), "expf": (11, 0), "log1pf": (31, 0),
+    "sqrtf": (7, 0), "fdiv": (12, 0),
+    "log": (3, 47), "log1p": (9, 86), "expm1": (9, 36), "exp": (4, 32),
+    "lgamma": (10, 97), "ddiv": (4, 16)}
+
+
+def bound(nbytes, fp32_ops=0, fp64_ops=0):
+    """The least time the card could take for work that moves ``nbytes``
+    and runs these operations: the larger of the bytes over the memory
+    rate and the operations over their unit's peak rate (the float32
+    and float64 units run side by side).  Returns (ms, "bytes" or
+    "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(fp32_ops / FP32_OPS_PER_S, fp64_ops / FP64_OPS_PER_S)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+class _Ops:
+    """float32 and float64 operations, summed over pieces of code."""
+
+    def __init__(self):
+        self.fp32 = 0
+        self.fp64 = 0
+
+    def add(self, n, fp32=0, fp64=0, **libm):
+        """``n`` times: ``fp32``/``fp64`` written operations and the
+        libm calls ``name=calls``."""
+        n = int(n)
+        self.fp32 += n * fp32
+        self.fp64 += n * fp64
+        for name, calls in libm.items():
+            a, b = LIBM_OPS[name]
+            self.fp32 += n * calls * a
+            self.fp64 += n * calls * b
+
+
+# calc_pval (csrc/pval.cuh), float32 operations written in each piece:
+#   early returns: ctrl == -1 (1); ctrl == 0 and expt == 0 (3 in all)
+#   control's log-normal parameters: fmaxf, 10 *, mu2, sd2, ctrl > 7 (5)
+#     + log10f; ctrl > 7: sd2 + mu2 (1) + 2 sqrtf, 2 fdiv, logf, log1pf;
+#     else logf(mu) - LOGSQRT (1) + logf
+#   x: fmaxf, - meanlog (2) + logf, fdiv;  p: neg, fminf (2) + fdiv
+#   pnorm_upper_log: fabsf, y <= a (2), then
+#     A: xsq, xnum, 3 x 4 recurrence, y > eps/2, x * (.. + ..), (.. + ..)
+#        (19) + fdiv; tiny |x|: x * c instead (17); logf(0.5 - t) (1) + logf
+#     B: y <= sqrt32, xnum, 7 x 4, 2 adds, x <= 0 (33) + fdiv + do_del
+#     C: 2 compares, x * x, fmaxf, xnum, 4 x 4, 3, 2, x <= 0 (27)
+#        + 3 fdiv + do_del;  |x| = inf: 2 compares (2)
+#   do_del: y * 16, truncf, / 16, d (6), then ret: neg, mul, sub, / 2,
+#     * temp, neg (6) + expf + log1pf; else neg, mul, sub, / 2, + (5) + logf
+def calc_pval_opcount(expt, ctrl, lam=None):
+    """Tally of ``calc_pval`` over rows: float32 tensors ``expt`` and
+    ``ctrl`` (SKIP -1 for an excluded row).  Rows whose ctrl equals
+    ``lam`` share one evaluation of the control's log-normal parameters
+    (it depends on lambda alone).  Returns {"rows", "branches",
+    "fp32_ops"}."""
+    import torch
+    f = torch.float32
+    expt, ctrl = expt.to(f), ctrl.to(f)
+    skip = ctrl == -1.0
+    czero = ~skip & (ctrl == 0.0)
+    ezero = ~skip & ~czero & (expt == 0.0)
+    main = ~(skip | czero | ezero)
+    at_lam = main & (ctrl == float(F32(lam))) if lam is not None \
+        else torch.zeros_like(main)
+    own = main & ~at_lam
+    mu = torch.clamp_min(ctrl, float(F32(1e-30)))
+    sd = 10.0 * torch.log10(mu)
+    mu2, sd2 = mu * mu, sd * sd
+    big = ctrl > 7.0
+    meanlog = torch.where(big, torch.log(mu2 / torch.sqrt(sd2 + mu2)),
+                          torch.log(mu) - float(F32(0.445999019652555)))
+    sdlog = torch.where(big, torch.sqrt(torch.log1p(sd2 / mu2)),
+                        torch.full_like(mu, float(F32(0.944456478248262))))
+    x = (torch.log(torch.clamp_min(expt, float(F32(1e-30)))) - meanlog) \
+        / sdlog
+    y = torch.abs(x)
+    a = main & (y <= float(F32(0.67448975)))
+    tiny = a & ~(y > float(np.finfo(F32).eps) * 0.5)
+    b = main & ~a & (y <= float(F32(5.656854249492381)))
+    c = main & ~a & ~b & (y < float(np.finfo(F32).max))
+    ret = (b | c) & (x <= 0.0)
+    br = {"skip": skip, "ctrl_zero": czero, "expt_zero": ezero,
+          "main": main, "at_lambda": at_lam, "own_big": own & big,
+          "own_small": own & ~big, "A": a & ~tiny, "A_tiny": tiny, "B": b,
+          "C": c, "inf": main & ~a & ~b & ~c, "do_del_ret": ret,
+          "do_del_log": (b | c) & ~ret}
+    n = {k: int(v.sum()) for k, v in br.items()}
+    ops = _Ops()
+    ops.add(n["skip"], 1)
+    ops.add(n["ctrl_zero"] + n["expt_zero"] + n["main"], 3)
+    lam_big = lam is not None and float(F32(lam)) > 7.0
+    for k, once in (("own_big", 0), ("own_small", 0), ("at_lambda", 1)):
+        rows = (1 if n[k] else 0) if once else n[k]
+        is_big = lam_big if once else k == "own_big"
+        ops.add(rows, 5, log10f=1)
+        if is_big:
+            ops.add(rows, 1, sqrtf=2, fdiv=2, logf=1, log1pf=1)
+        else:
+            ops.add(rows, 1, logf=1)
+    ops.add(n["main"], 2 + 2 + 2, logf=1, fdiv=2)    # x, p, pnorm entry
+    ops.add(n["A"], 19 + 1, fdiv=1, logf=1)
+    ops.add(n["A_tiny"], 17 + 1, logf=1)
+    ops.add(n["B"], 33, fdiv=1)
+    ops.add(n["C"], 27, fdiv=3)
+    ops.add(n["inf"], 2)
+    ops.add(n["do_del_ret"], 6 + 6, expf=1, log1pf=1)
+    ops.add(n["do_del_log"], 6 + 5, logf=1)
+    return {"rows": int(expt.numel()), "branches": n, "fp32_ops": ops.fp32}
+
+
+# integral values with an entry in K2's tables (csrc/stats.cu TABLE)
+STATS_TABLE = 8192
+
+
+def _in_table(v):
+    """Rows whose value ``v`` (float32) has a table entry."""
+    import torch
+    return (v >= 1.0) & (v < STATS_TABLE) & (torch.trunc(v) == v)
+
+
+def tile_stats_opcount(expt, ctrl_raw, excluded, factor, lam):
+    """Tally of kernel K2 (csrc/stats.cu) on its arguments: per live
+    row factor * ctrl_raw and fmaxf with lambda (2), then calc_pval.
+    The operations are calc_pval's, row by row; the branches add
+    ``table_p`` and ``table_params``, the rows whose p-value (a signal
+    against lambda) or log-normal parameters (a control of its own) K2
+    reads from its tables instead."""
+    import torch
+    factor, lam = float(F32(factor)), float(F32(lam))
+    cr = ctrl_raw.to(torch.float32)
+    ctrl = torch.clamp_min(factor * cr, lam)
+    ctrl = torch.where(excluded, torch.full_like(ctrl, -1.0), ctrl)
+    ev = torch.where(excluded, torch.zeros_like(ctrl),
+                     expt.to(torch.float32))
+    res = calc_pval_opcount(ev, ctrl, lam)
+    res["fp32_ops"] += 2 * int((~excluded).sum())
+    main = (ctrl != -1.0) & (ctrl != 0.0) & (ev != 0.0)
+    at_lam = main & (ctrl == lam)
+    res["branches"].update(
+        table_p=int((at_lam & _in_table(ev)).sum()),
+        table_params=int((main & ~at_lam & _in_table(cr)).sum()))
+    return res
+
+
+def coverage_scan_opcount(m, groups, coverage=None, lam=None):
+    """Tally of kernel K1 (csrc/scan.cu): canon_value's int-to-float
+    conversions, * 0.125 and three adds (6 per group and row) and, in
+    lambda mode, calc_pval of the coverage against lambda."""
+    import torch
+    res = {"rows": int(m), "fp32_ops": 6 * groups * int(m)}
+    if lam is not None:
+        c = calc_pval_opcount(coverage, torch.full_like(coverage, float(
+            F32(lam))), lam)
+        res.update(branches=c["branches"],
+                   fp32_ops=res["fp32_ops"] + c["fp32_ops"])
+    return res
+
+
+_M_LOG10E = 0.434294481903251827651128918916605082
+_M_LN2 = 0.693147180559945309417232121458176568
+
+
+def _stirlerr_ops(ops, n):
+    """stirlerr(n) of fisher.cu: nn and the compares, then a table entry
+    (n <= 15) or 3-5 divisions and 2-4 subtractions."""
+    if n > 80:
+        ops.add(1, fp64=1 + 1 + 2, ddiv=3)
+    elif n > 35:
+        ops.add(1, fp64=1 + 2 + 3, ddiv=4)
+    elif n > 15:
+        ops.add(1, fp64=1 + 3 + 4, ddiv=5)
+    else:
+        ops.add(1, fp64=1 + 3 + 1)
+
+
+# fisher.cu, operations written in each piece (float64 unless noted):
+#   per replicate: v != SKIP (1 float32); per live value: cvt, + (2)
+#   live >= 2: total == 0 (1); one live value or a zero total: cvt (1)
+#   combined lanes: 2 * total, x / 2, alph (cvt, *, / 2), neg, > FLT_MAX,
+#     cvt, x < 1 (9) + 2 ddiv
+#   pgamma_smallx: per term n + 1, neg, *, alph + n, +, 2 fabs, *, > (9)
+#     + 2 ddiv; then alph * log - lgamma (2) + log, log1p(..) + (1)
+#     + log1p, log1_exp
+#   log1_exp: > -ln2, neg (2) + expm1 + log, or + exp + log1p
+#   dpois: alph - 1, 2 pi x, * -0.5, 2 subtractions (5) + log; bd0:
+#     |x - np| < 0.1 (x + np) (5); near: v, s, |s| < DBL_MIN (6) + ddiv,
+#     ej, v2 (3), per term * v2, cvt, +, == (4) + ddiv; far: (3) + ddiv
+#     + log;  x <= alph - 1 (2)
+#   pd_upper_series: ddiv; per term a + 1, *, +, *, > (5) + ddiv; log;
+#     then + d (1), log1_exp
+#   pd_lower_series: alph - 1, y >= 1 (2); per term *, +, - 1, >= 1, *,
+#     > (6) + ddiv; log1p; then + d (1)
+#   once per live count: lgamma(alph + 1) (1 + lgamma), stirlerr(alph-1)
+def fisher_combine_opcount(pv):
+    """Tally of kernel K3 (csrc/fisher.cu) on f32 [R, N] replicate rows:
+    lanes per path, each series' trip counts (from the plain version's
+    masked loops, ``ops.chisq.pgamma(..., trips=)``) and float32 and
+    float64 operations.  What depends only on a lane's live count
+    (``lgamma(live + 1)``, ``stirlerr(live - 1)``) counts once per live
+    count.  Returns {"lanes", "paths", "trips", "fp32_ops",
+    "fp64_ops"}."""
+    import torch
+
+    from .ops import chisq
+    r = pv.shape[0]
+    live = pv != -1.0
+    n_live = live.sum(dim=0)
+    total = torch.zeros(pv.shape[1], dtype=torch.float64, device=pv.device)
+    for k in range(r):
+        total = total + torch.where(live[k], pv[k].double(),
+                                    torch.zeros_like(total))
+    comp = (n_live >= 2) & (total != 0.0)
+    trivial = ((n_live == 1) | ((n_live >= 2) & (total == 0.0)))
+    xg = (2.0 * total[comp] / _M_LOG10E) / 2.0
+    alph = n_live[comp].to(torch.float64)
+    trips = {}
+    res = chisq.pgamma(xg, alph, trips=trips)
+    small = xg < 1
+    upper = ~small & (xg <= alph - 1)
+    lower = ~small & ~upper
+    a, npx = alph - 1, xg
+    near = ~small & (torch.abs(a - npx) < 0.1 * (a + npx))
+    v = torch.where(near, (a - npx) / (a + npx), torch.zeros_like(a))
+    tiny = near & (torch.abs((a - npx) * v) < torch.finfo(torch.float64).tiny)
+    expm1_br = res < -_M_LN2          # log1_exp's log(-expm1) branch
+    t_small = trips["pgamma_smallx"][small]
+    t_up = trips["pd_upper_series"][upper]
+    t_lo = trips["pd_lower_series"][lower]
+    t_bd0 = trips["bd0"][near & ~tiny]
+    ops = _Ops()
+    ops.add(pv.shape[1] * r, fp32=1)
+    ops.add(int(live.sum()), fp64=2)
+    ops.add(int((n_live >= 2).sum()), fp64=1)
+    ops.add(int(trivial.sum()), fp64=1)
+    ops.add(int(comp.sum()), fp64=9, ddiv=2)
+    ops.add(int(t_small.sum()), fp64=9, ddiv=2)
+    ops.add(int(small.sum()), fp64=2 + 1, log=1, log1p=1)
+    for br in (small, upper):
+        ops.add(int((br & expm1_br).sum()), fp64=2, expm1=1, log=1)
+        ops.add(int((br & ~expm1_br).sum()), fp64=2, exp=1, log1p=1)
+    ops.add(int((~small).sum()), fp64=5 + 5 + 2, log=1)
+    ops.add(int(near.sum()), fp64=6, ddiv=1)
+    ops.add(int((near & ~tiny).sum()), fp64=3)
+    ops.add(int(t_bd0.sum()), fp64=4, ddiv=1)
+    ops.add(int((~small & ~near).sum()), fp64=3, ddiv=1, log=1)
+    ops.add(int(upper.sum()), fp64=1, ddiv=1, log=1)
+    ops.add(int(t_up.sum()), fp64=5, ddiv=1)
+    ops.add(int(lower.sum()), fp64=2 + 1, log1p=1)
+    ops.add(int(t_lo.sum()), fp64=6, ddiv=1)
+    for k in torch.unique(alph[small]).tolist():
+        ops.add(1, fp64=1, lgamma=1)
+    for k in torch.unique(alph[~small]).tolist():
+        _stirlerr_ops(ops, k - 1)
+
+    def stats(t):
+        return {"lanes": int(t.numel()), "sum": int(t.sum()),
+                "max": int(t.max()) if t.numel() else 0}
+    return {"lanes": int(pv.shape[1]),
+            "paths": {"skip": int((n_live == 0).sum()),
+                      "trivial": int(trivial.sum()),
+                      "small_x": int(small.sum()),
+                      "upper": int(upper.sum()), "lower": int(lower.sum()),
+                      "bd0_series": int((near & ~tiny).sum()),
+                      "log1_exp_expm1": int((expm1_br & (small | upper))
+                                            .sum())},
+            "trips": {"pgamma_smallx": stats(t_small),
+                      "pd_upper_series": stats(t_up),
+                      "pd_lower_series": stats(t_lo), "bd0": stats(t_bd0)},
+            "fp32_ops": ops.fp32, "fp64_ops": ops.fp64}

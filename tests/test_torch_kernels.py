@@ -9,8 +9,8 @@ combination (K3) rtol 1e-6 against the float64 plain version, SKIP
 lanes identical; peak reduction (K4) summit fields exact, AUC rtol 1e-5
 against the plain version (a float32 sum in row order against a
 float64 prefix difference) and bitwise against the exact engine's
-row-order float32 sum (``testing.auc_rowwise``).  K1 and K4 are also
-held bitwise to their first designs (``csrc/reference``), K4 on all six
+row-order float32 sum (``testing.auc_rowwise``).  K1-K4 are also held
+bitwise to their first designs (``csrc/reference``), K4 on all six
 outputs of every candidate.
 """
 
@@ -80,13 +80,19 @@ def test_coverage_scan_unaligned_input_and_large_carry(cuda):
 
 @pytest.mark.parametrize("m", [4096, 3 * 2048 + 77, 40 * 4096 + 9])
 def test_coverage_scan_lambda_mode(cuda, m):
+    """The lambda mode against its plain version, and bitwise against
+    its first design, which csrc/reference/pval_first.cuh keeps on the
+    p-value code it was built with."""
     packed = _packed(4, m, 1).to(cuda)
     vals, pval = scan.coverage_pval_fused(packed, 2.5)
     torch.cuda.synchronize()
-    ref_v, ref_p = scan.coverage_scan_plain(
-        packed, 1, torch.zeros(4, dtype=torch.int32, device=cuda), 2.5)
+    zero = torch.zeros(4, dtype=torch.int32, device=cuda)
+    ref_v, ref_p = scan.coverage_scan_plain(packed, 1, zero, 2.5)
     assert torch.equal(vals, ref_v[0])
     torch.testing.assert_close(pval, ref_p, rtol=1e-5, atol=1e-5)
+    first_v, first_p = testing.coverage_scan_first_design(packed, 1, zero,
+                                                          2.5)
+    assert torch.equal(vals, first_v[0]) and torch.equal(pval, first_p)
 
 
 def test_tile_stats_kernel(cuda):
@@ -107,6 +113,85 @@ def test_tile_stats_kernel(cuda):
                                rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(pv.cpu(), pipeline.tile_stats(
         ev, cr, ex, 1.37, 0.61), rtol=1e-5, atol=1e-5)
+
+
+def _counts(rng, m):
+    """Integral coverage as K1 makes it: mostly small counts, a tail
+    past the 8,192 values that K2's tables hold, a few half counts."""
+    v = np.floor(rng.exponential(40.0, m))
+    tail = rng.rand(m) < 0.03
+    v[tail] = rng.randint(7000, 12000, int(tail.sum()))
+    v[rng.rand(m) < 0.01] += 0.5
+    return v.astype(np.float32)
+
+
+def _stats_rows(seed, m, ctrl="mixed", ex_frac=0.05):
+    """K2 inputs of ``m`` rows (numpy, then tensors): a fifth zero
+    signal; control all zero (every row at lambda) or mixed (a third
+    zero, the rest spread across lambda and 7, where the log-normal
+    parameters change form); with ``ctrl`` "counts" or "counts_zero",
+    integral signal (and control) from ``_counts`` instead;
+    ``ex_frac`` of the rows excluded."""
+    rng = np.random.RandomState(seed)
+    if ctrl.startswith("counts"):
+        ev = _counts(rng, m)
+    else:
+        ev = rng.uniform(0, 60, m).astype(np.float32)
+        centre = rng.rand(m) < 0.05      # near lambda: pnorm's centre
+        ev[centre] = rng.uniform(0.02, 0.3, int(centre.sum()))
+    ev[rng.rand(m) < 0.2] = 0.0
+    cr = np.zeros(m, np.float32)
+    if ctrl == "mixed":
+        cr = rng.uniform(0, 20, m).astype(np.float32)
+    elif ctrl == "counts":
+        cr = _counts(rng, m)
+    cr[rng.rand(m) < 0.3] = 0.0
+    ex = rng.rand(m) < ex_frac
+    return [torch.from_numpy(a) for a in (ev, cr, ex)]
+
+
+@pytest.mark.parametrize("m,ctrl,ex_frac,lam", [
+    (1, "mixed", 0.05, 0.61), (3, "mixed", 0.05, 0.61),
+    (127, "mixed", 0.0, 0.61), (129, "zero", 0.05, 0.61),
+    (100_003, "mixed", 0.05, 0.61), (100_003, "zero", 0.05, 0.61),
+    (100_003, "mixed", 0.05, 0.0), (1_000_001, "mixed", 0.02, 0.61),
+    (4099, "mixed", 1.0, 0.61), (200_003, "counts", 0.05, 2.5),
+    (200_003, "counts_zero", 0.05, 2.5), (200_003, "counts", 0.0, 9.5),
+    (200_003, "counts", 0.05, 0.0)])
+def test_tile_stats_kernel_matches_first_design(cuda, m, ctrl, ex_frac,
+                                                lam):
+    """K2 bitwise equal to its first design (csrc/reference/
+    stats_first.cu): ragged sizes, every row at lambda (no control) or a
+    control that varies from row to row, a zero lambda (zero control
+    rows), every row excluded; integral coverage that K2 reads from its
+    tables, up to and past their last entry, with lambda under and over
+    7 (where the log-normal parameters change form)."""
+    args = [t.to(cuda) for t in _stats_rows(m, m, ctrl, ex_frac)]
+    kernels.reset_launches()
+    got = pipeline.tile_stats(*args, 1.37, lam)
+    want = testing.tile_stats_first_design(*args, 1.37, lam)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["tile_stats"] == 1
+    assert torch.equal(got, want)
+    if ex_frac == 1.0:
+        assert bool((got == -1.0).all())
+
+
+@pytest.mark.parametrize("offsets", [(1, 0, 0), (0, 1, 0), (0, 0, 1),
+                                     (1, 2, 3), (3, 3, 3), (2, 0, 2)])
+def test_tile_stats_kernel_unaligned_inputs(cuda, offsets):
+    """Views that start off a 16-byte boundary, each input by its own
+    number of rows (the control row of coverage_scan's [2, M] output
+    for odd M is such a view): bitwise equal to the first design."""
+    m = 300_007
+    rows = _stats_rows(7, m + 3)
+    args = [t.to(cuda)[o:o + m] for t, o in zip(rows, offsets)]
+    assert any(a.data_ptr() % 16 for a in args)
+    got = pipeline.tile_stats(*args, 1.37, 2.5)
+    want = testing.tile_stats_first_design(*args, 1.37, 2.5)
+    assert torch.equal(got, want)
+    torch.testing.assert_close(got, pipeline.tile_stats_plain(
+        *args, 1.37, 2.5), rtol=1e-5, atol=1e-5)
 
 
 def test_tile_coverage_on_card_matches_cpu(cuda):
@@ -178,6 +263,48 @@ def test_fisher_combine_kernel(cuda, r, n):
     torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
     torch.testing.assert_close(got.cpu(), chisq.fisher_combine(pv.cpu()),
                                rtol=1e-6, atol=0.0)
+
+
+def _fisher_paths(seed, r, n):
+    """``_fisher_rows`` with lanes forced down each path of pgamma:
+    small x (a total under 1 / ln 10), the upper series (x <= live - 1),
+    the lower series, each with and without bd0's series (x within 10%
+    of live - 1), and exact boundaries x = 1 and x = live - 1."""
+    pv = _fisher_rows(seed, r, n).numpy()
+    rng = np.random.RandomState(seed + 1)
+    ln10 = np.log(10.0)
+    live = r
+    targets = [rng.uniform(0.01, 0.99, 200),                  # small x
+               rng.uniform(1.0, max(live - 1, 1.0), 200),      # upper
+               np.full(20, 1.0), np.full(20, float(live - 1)),  # edges
+               (live - 1) * rng.uniform(0.92, 1.08, 200),      # bd0 series
+               rng.uniform(live, live + 40, 200)]              # lower
+    x = np.concatenate(targets)
+    k = len(x)
+    # total = x / ln 10, split evenly over the r live replicates
+    pv[:, 100:100 + k] = (x / ln10 / r).astype(np.float32)
+    return torch.from_numpy(pv)
+
+
+@pytest.mark.parametrize("r,n", [(1, 5000), (2, 5000), (3, 100_003),
+                                 (5, 4099), (2, 1), (3, 1200)])
+def test_fisher_combine_kernel_matches_first_design(cuda, r, n):
+    """K3 bitwise equal to its first design (csrc/reference/
+    fisher_first.cu) on lanes built to take each pgamma path."""
+    pv = _fisher_paths(r + n, r, max(n, 1200))[:, :n].contiguous().to(cuda)
+    kernels.reset_launches()
+    got = chisq.fisher_combine(pv)
+    want = testing.fisher_combine_first_design(pv)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fisher_combine"] == 1
+    assert torch.equal(got, want)
+    if n >= 1200 and r >= 3:
+        paths = testing.fisher_combine_opcount(pv)["paths"]
+        assert paths["small_x"] and paths["upper"] and paths["lower"]
+        assert paths["bd0_series"]
+    plain = chisq.fisher_combine_plain(pv)
+    assert torch.equal(got == -1.0, plain == -1.0)
+    torch.testing.assert_close(got, plain, rtol=1e-6, atol=0.0)
 
 
 def test_merge_fisher_on_card_matches_cpu(cuda):
