@@ -22,7 +22,7 @@ non-zero, and the result line is printed only when every phase passed:
    fisher_combine (K3, R = 2 and 3, 2^23 lanes and a ragged size, 10%
    SKIP) rtol 1e-6 against the float64 plain version with SKIP lanes
    identical and bitwise to its first design; median times with CUDA
-   events.  The BAMs of phases 4-7 are synthesised by
+   events.  The BAMs of phases 4-10 are synthesised by
    scripts/perf_synth.py into the git-ignored .bench_cache/ when
    missing.
 4. Main path: the 2M-pair ATAC BAM on the 2.75 Gbp human-scale genome
@@ -35,7 +35,9 @@ non-zero, and the result line is printed only when every phase passed:
    worst_unmatched_margin <= 0.02), cold and warm narrowPeak
    byte-identical.  One more run keeps the inputs of the main path's
    own K1, K2 and K4 calls.  K1 on them: bitwise to its plain version
-   and its first design, one kernel launch per call (torch.profiler),
+   and its first design (a call whose carry is zero also with a
+   non-zero one), one kernel launch per call (the call captured into a
+   CUDA graph, whose kernel nodes are counted),
    times; K2 on them against its plain version (rtol = atol = 1e-5)
    and its first design (bitwise), times, and the rows it read from
    its tables (branches ``table_p`` and ``table_params``).  K4 on them and on 2^23
@@ -53,10 +55,38 @@ non-zero, and the result line is printed only when every phase passed:
    launched 6 times, K3 3 times, K4 at least 3 times per run.  One
    more run keeps the inputs of its K3 calls: K3 on them against its
    float64 plain version and its first design (bitwise), times.
-7. Logs (depth cut to a 200,000-pair BAM: every log row is text on
+7. Sharded main path: the main path's BAM and flags with ``--engine
+   sharded`` under a one-rank NCCL process group (MASTER_ADDR,
+   MASTER_PORT, RANK=0, WORLD_SIZE=1 set for the phase, so the
+   collectives run through NCCL on the card), cold and warm, against
+   phase 4's exact file.  Prints the grid (2^28-bp tiles, 5 per
+   chromosome), the merged peaks that straddle a tile boundary and the
+   chromosomes the host peak caller finished.  Checks: K1, K2 and K4
+   launched in each run, the row rule, cold == warm bytes.  One more
+   run keeps the inputs of its K1, K2 and K4 calls.  K1 (one call per
+   tile, each from its carry): bitwise to its plain version and its
+   first design, one kernel per call, times; every carry of this BAM is
+   zero (all its weights are whole), so each call is held once more
+   with a non-zero carry.  K2 (one call per chromosome over its tiles
+   flattened, padding rows included) as on the main path's calls.  K4
+   (one call per tile, the tiles past a chromosome's end among them) as
+   on the main path's calls.
+8. Sharded Fisher: ``-t A,B --engine sharded`` under the same group,
+   cold and warm, against phase 6's exact file by the same rule; K3
+   launched; cold == warm.  One more run keeps the inputs of its K3
+   calls (one per tile, RLEs padded with (limit, SKIP) rows): K3 on
+   them as on the Fisher path's calls.
+9. Serve: a child ``python -m genrich_tpu_torch --serve --device cuda``
+   fed ``--engine jax`` twice, ``--engine sharded`` twice, a bogus line,
+   ``--engine jax`` again, on the main path's BAM and flags.  Statuses
+   OK OK OK OK ERR OK; each engine's warm file equals its cold one and
+   the in-process run of the same engine (phases 4 and 7); every OK
+   line's JSON has ingest_s, upload_bytes, dispatch_n and fetch_s; the
+   walls, cold beside warm.
+10. Logs (depth cut to a 200,000-pair BAM: every log row is text on
    both sides): ``-f f.log -k k.log`` with the same flags, port against
    exact by ``testing.check_log``.
-8. The last lines: the kernels JSON, the nvidia-smi line and {"ok":
+11. The last lines: the kernels JSON, the nvidia-smi line and {"ok":
    true, "device": {...}}; neither jax nor genrich_tpu is ever imported
    in this process.  Each kernel's bound is the larger of its bytes
    (each input read once, each output written once) over 3.35 TB/s and
@@ -64,16 +94,19 @@ non-zero, and the result line is printed only when every phase passed:
    TFLOP/s float64), the operations counted on the same inputs by
    ``testing``'s counters (``bound_by`` says which term binds; the
    entry carries ``bytes``, ``fp32_ops`` and ``fp64_ops``); its
-   ``launches`` are those of the main path (the Fisher path's for K3).
+   ``launches`` are those of the main path (the Fisher path's for K3),
+   and ``launches_by_path`` gives every path's.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import socket
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 
 import numpy as np
 
@@ -89,6 +122,7 @@ M_MAIN = 1 << 23
 M_RAGGED = (1 << 23) - 12_345
 TOL = 1e-5
 FISHER_RTOL = 1e-6
+CARRY8 = [5, 1, 2, 3, 7, 0, 1, 4]   # a carry into K1's scan (G=2)
 PEAKS_K4 = 30_000
 DEV = "cuda"
 SM_CLOCK_HZ = 1.98e9           # H100 SXM boost clock (data sheet)
@@ -264,8 +298,7 @@ def scan_stats_phase():
         d = torch.from_numpy(np.stack(cols, -1).astype(np.int32)).to(dev)
         packed = pileup.pack_deltas(d)
         del d
-        carry = torch.tensor([5, 1, 2, 3, 7, 0, 1, 4], dtype=torch.int32,
-                             device=dev)
+        carry = torch.tensor(CARRY8, dtype=torch.int32, device=dev)
         # K1, main-path mode: two groups, coverage only
         vals, _ = scan.coverage_scan(packed, 2, carry)
         ref, _ = scan.coverage_scan_plain(packed, 2, carry)
@@ -381,48 +414,99 @@ def scan_stats_phase():
     ]
 
 
+def _cu(rc, what):
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA driver error {rc}")
+
+
 def _kernel_launches(fn):
-    """Names of the device kernels (memsets and copies aside) that one
-    call of ``fn`` runs, from torch.profiler's device events."""
+    """Names of the kernels (memsets and copies aside) that one call of
+    ``fn`` launches: the call is captured into a CUDA graph, not run,
+    and the graph's kernel nodes are read with the driver API.
+    torch.profiler cannot be trusted with this count on the H100 host:
+    after the smoke's end-to-end runs it often recorded a call's launch
+    but not the kernel's device record (PERF.md, section 7)."""
+    import ctypes
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    cu = ctypes.CDLL("libcuda.so.1")
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with torch.cuda.graph(graph):
         fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    return [n for n in names if not n.startswith(("Memset", "Memcpy"))]
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    _cu(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    _cu(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int()
+        _cu(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+            "cuGraphNodeGetType")
+        if kind.value != 0:                  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        # CUDA_KERNEL_NODE_PARAMS_v2: func at word 0, kern at word 7
+        params = (ctypes.c_void_p * 16)()
+        _cu(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), params),
+            "cuGraphKernelNodeGetParams_v2")
+        name = ctypes.c_char_p()
+        if params[0]:
+            _cu(cu.cuFuncGetName(ctypes.byref(name),
+                                 ctypes.c_void_p(params[0])), "cuFuncGetName")
+        else:
+            _cu(cu.cuKernelGetName(ctypes.byref(name),
+                                   ctypes.c_void_p(params[7])),
+                "cuKernelGetName")
+        names.append(name.value.decode())
+    graph.reset()
+    return names
 
 
-def k1_main_phase(calls, entry):
-    """K1 on the inputs of the main path's own calls (host copies of
+def _k1_bitwise(packed, groups, carry, lam):
+    """K1 against its plain version and its first design, bitwise on
+    the coverage; returns K1's output."""
+    import torch
+    from genrich_tpu_torch import testing
+    from genrich_tpu_torch.ops import scan
+    got = scan.coverage_scan(packed, groups, carry, lam)
+    want = scan.coverage_scan_plain(packed, groups, carry, lam)
+    first = testing.coverage_scan_first_design(packed, groups, carry, lam)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[0], first[0])):
+        return None
+    return got
+
+
+def k1_path_phase(calls, path):
+    """K1 on the inputs of a path's own calls (host copies of
     coverage_scan's arguments): bitwise to its plain version and its
-    first design, one kernel per call; completes ``entry``."""
+    first design, and one kernel per call (``_kernel_launches``);
+    returns the sums over the calls.  A call
+    whose carry is zero is held once more with CARRY8 (its first
+    4 * groups entries) as its carry, so the carried scan is held on
+    the path's own rows."""
     import torch
     from genrich_tpu_torch import testing
     from genrich_tpu_torch.ops import scan
     dev = torch.device(DEV)
     ms = call_ms = first_ms = plain_ms = 0.0
+    nonzero = 0
     parts = []
     for i, call in enumerate(calls):
         packed, groups, carry, lam = (list(call) + [None, None])[:4]
         packed, carry = packed.to(dev), carry.to(dev)
-        got = scan.coverage_scan(packed, groups, carry, lam)
-        want = scan.coverage_scan_plain(packed, groups, carry, lam)
-        first = testing.coverage_scan_first_design(packed, groups, carry,
-                                                   lam)
-        torch.cuda.synchronize()
-        if not (torch.equal(got[0], want[0])
-                and torch.equal(got[0], first[0])):
-            raise AssertionError(f"coverage_scan, main path call {i}: "
+        got = _k1_bitwise(packed, groups, carry, lam)
+        alt = carry if bool((carry != 0).any()) else torch.tensor(
+            CARRY8[:4 * groups], dtype=torch.int32, device=dev)
+        if got is None or _k1_bitwise(packed, groups, alt, lam) is None:
+            raise AssertionError(f"coverage_scan, {path} path call {i}: "
                                  f"not bitwise")
-        ran = _kernel_launches(lambda: scan.coverage_scan(packed, groups,
-                                                          carry, lam))
-        if len(ran) != 1:
-            raise AssertionError(f"coverage_scan, main path call {i}: "
+        ran = _kernel_launches(lambda: scan.coverage_scan(
+            packed, groups, carry, lam))
+        if len(ran) != 1 or "coverage_scan_kernel" not in ran[0]:
+            raise AssertionError(f"coverage_scan, {path} path call {i}: "
                                  f"{len(ran)} kernels: {ran}")
+        nonzero += bool((carry != 0).any())
         m = packed.shape[0]
         parts.append(_bound(_scan_bytes(m, groups, lam),
                             testing.coverage_scan_opcount(
@@ -442,13 +526,15 @@ def k1_main_phase(calls, entry):
         first_ms += res["first_design_ms"]
         plain_ms += res["plain_ms"]
         say("kernels", kernel="coverage_scan",
-            inputs=f"main path call {i}", **res)
-        del packed, carry, got, want, first
+            inputs=f"{path} path call {i}",
+            carry=[int(x) for x in carry.tolist()], **res)
+        del packed, carry, got
     torch.cuda.empty_cache()
-    entry.update(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                 first_design_ms=first_ms, **_sum_bounds(parts),
-                 mode=f"sum over the main path's {len(calls)} calls, its "
-                      f"own inputs; one kernel launch per call")
+    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                first_design_ms=first_ms, **_sum_bounds(parts),
+                max_abs_err=0.0, calls_with_nonzero_carry=nonzero,
+                mode=f"sum over the {path} path's {len(calls)} calls, its "
+                     f"own inputs; one kernel launch per call")
 
 
 def fisher_phase():
@@ -559,7 +645,8 @@ def _hold_k4(args, min_pq):
                                  f"first design")
     auc, plain_auc = got[0][ex], want[0][ex]
     a_err = (auc - plain_auc).abs()
-    rel = float((a_err / plain_auc.abs().clamp_min(1e-30)).max())
+    rel = float((a_err / plain_auc.abs().clamp_min(1e-30)).max()) \
+        if a_err.numel() else 0.0
     if not _close(auc, plain_auc, rtol=TOL, atol=0.0):
         raise AssertionError(f"peak_reduce: AUC max rel err {rel} "
                              f"against the plain version")
@@ -571,28 +658,29 @@ def _hold_k4(args, min_pq):
         raise AssertionError(f"peak_reduce: AUC of {n_diff} peaks is not "
                              f"the row-order float32 sum")
     rows = (last - first + 1)[ex]
+    some = rows.numel() > 0          # a tile past the chromosome has none
     return {"peaks": int(ex.sum()), "candidates": int(first.shape[0]),
             "first_design_bitwise": True,
-            "rows_per_peak_median": float(rows.double().median()),
-            "rows_per_peak_max": int(rows.max()),
-            "auc_max_abs_err": float(a_err.max()),
+            "rows_per_peak_median": float(rows.double().median())
+            if some else 0.0,
+            "rows_per_peak_max": int(rows.max()) if some else 0,
+            "auc_max_abs_err": float(a_err.max()) if some else 0.0,
             "auc_max_rel_err": rel,
             "plain_auc_differs_bitwise": int((plain_auc.cpu().numpy()
                                               != ref).sum())}
 
 
-def peaks_phase(main_calls):
-    """K4 on the inputs of the main path's own calls (``main_calls``,
-    host copies) and on 2^23 synthetic rows holding about 30,000 short
-    peaks; returns a JSON entry whose times are the main path's."""
+def k4_path_phase(calls, path):
+    """K4 on the inputs of a path's own calls (host copies of
+    peak_reduce's arguments), held by ``_hold_k4``; returns the sums
+    over the calls."""
     import torch
-    from genrich_tpu_torch import testing
     from genrich_tpu_torch.ops import peaks
     dev = torch.device(DEV)
     ms = call_ms = plain_ms = first_ms = first_call_ms = 0.0
     nbytes = chain_ms = 0.0
     worst_err = worst_rel = 0.0
-    for i, call in enumerate(main_calls):
+    for i, call in enumerate(calls):
         args = [a.to(dev) if torch.is_tensor(a) else a for a in call]
         res = _hold_k4(args, call[-1])
         res.update(rows=int(args[0].shape[0]),
@@ -617,9 +705,30 @@ def peaks_phase(main_calls):
         chain_ms += res["add_chain_floor_ms"]
         worst_err = max(worst_err, res["auc_max_abs_err"])
         worst_rel = max(worst_rel, res["auc_max_rel_err"])
-        say("kernels", kernel="peak_reduce", inputs=f"main path call {i}",
+        say("kernels", kernel="peak_reduce", inputs=f"{path} path call {i}",
             **res)
         del args
+    torch.cuda.empty_cache()
+    return {"max_abs_err": worst_err, "auc_max_rel_err": worst_rel,
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "first_design_ms": first_ms,
+            "first_design_call_ms": first_call_ms,
+            "bound_ms": _bound_ms(nbytes), "bound_by": "bytes",
+            "add_chain_floor_ms": chain_ms,
+            "mode": f"sum over the {path} path's {len(calls)} calls, its "
+                    f"own inputs; AUC bitwise to the row-order sum, all "
+                    f"outputs bitwise to the first design"}
+
+
+def peaks_phase(main_calls):
+    """K4 on the inputs of the main path's own calls (``main_calls``,
+    host copies) and on 2^23 synthetic rows holding about 30,000 short
+    peaks; returns a JSON entry whose times are the main path's."""
+    import torch
+    from genrich_tpu_torch import testing
+    from genrich_tpu_torch.ops import peaks
+    dev = torch.device(DEV)
+    main = k4_path_phase(main_calls, "main")
     min_pq = 2.0
     rows = [torch.from_numpy(a).to(dev) for a in testing.peak_row_columns(
         np.random.RandomState(2), M_MAIN, PEAKS_K4, region_rows=(3, 200),
@@ -643,17 +752,10 @@ def peaks_phase(main_calls):
     return {"name": "peak_reduce", "route": "cuda",
             "source": "genrich_tpu_torch/csrc/peaks.cu",
             "replaces": "genrich_tpu/ops/peaks_jax.py:85",
-            "launches": 0,
-            "max_abs_err": max(worst_err, syn["auc_max_abs_err"]),
-            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-            "first_design_ms": first_ms,
-            "first_design_call_ms": first_call_ms,
-            "bound_ms": _bound_ms(nbytes), "bound_by": "bytes",
-            "add_chain_floor_ms": chain_ms, "library_ms": None,
-            "mode": f"sum over the main path's {len(main_calls)} calls, "
-                    f"its own inputs; AUC bitwise to the row-order sum, "
-                    f"all outputs bitwise to the first design",
-            "auc_max_rel_err": max(worst_rel, syn["auc_max_rel_err"]),
+            "launches": 0, "library_ms": None, **main,
+            "max_abs_err": max(main["max_abs_err"], syn["auc_max_abs_err"]),
+            "auc_max_rel_err": max(main["auc_max_rel_err"],
+                                   syn["auc_max_rel_err"]),
             "synthetic": {k: syn[k] for k in (
                 "rows", "peaks", "ms", "call_ms", "first_design_ms",
                 "first_design_call_ms", "plain_ms", "bound_ms")}}
@@ -734,18 +836,20 @@ def run_port(label: str, args):
     return wall, counts, perf, torch.cuda.max_memory_allocated()
 
 
-def peak_runs(name: str, ts, need, extra=()) -> dict:
-    """Exact once, then the port cold and warm on ``-t ts`` and the
-    flags ``extra``; checks the rows, the launch counts (``need(counts)``
-    returns a fault or None) and that cold and warm wrote the same bytes.
-    Returns the counts of the warm run."""
+def peak_runs(name: str, ts, need, extra=(), ref=None):
+    """Exact once (unless ``ref`` names the exact engine's file of an
+    earlier phase on the same input), then the port cold and warm on
+    ``-t ts`` and the flags ``extra``; checks the rows, the launch counts
+    (``need(counts)`` returns a fault or None) and that cold and warm
+    wrote the same bytes.  Returns the counts and perf of the warm run."""
     from bench_e2e import _verify_rows
     run_dir = os.path.join(WORK, "chip_smoke")
     os.makedirs(run_dir, exist_ok=True)
-    ref_np = os.path.join(run_dir, f"{name}_exact.np")
-    wall = run_exact(name, ["-t", ts, "-o", ref_np, *extra] + FLAGS)
-    say(f"{name}_exact", wall_s=wall, peaks=sum(1 for _ in open(ref_np)),
-        ingest="native")
+    ref_np = os.path.join(run_dir, f"{ref or name}_exact.np")
+    if ref is None:
+        wall = run_exact(name, ["-t", ts, "-o", ref_np, *extra] + FLAGS)
+        say(f"{name}_exact", wall_s=wall,
+            peaks=sum(1 for _ in open(ref_np)), ingest="native")
     counts = {}
     for label in ("cold", "warm"):
         out_np = os.path.join(run_dir, f"{name}_port_{label}.np")
@@ -774,7 +878,7 @@ def peak_runs(name: str, ts, need, extra=()) -> dict:
         first_differences=diff[:3])
     if cold != warm:
         raise AssertionError(f"{name}: cold and warm outputs differ")
-    return counts
+    return counts, perf
 
 
 def _need_main(c):
@@ -783,14 +887,19 @@ def _need_main(c):
     return f"kernels not launched: {missing}" if missing else None
 
 
+def _need_every(c):
+    missing = [k for k, n in c.items() if n <= 0]
+    return f"kernels not launched: {missing}" if missing else None
+
+
 def main_path(bam):
-    return peak_runs("main", bam, _need_main)
+    return peak_runs("main", bam, _need_main)[0]
 
 
 def control_path(bam_t, bam_c):
     """``-t bam_t -c bam_c``: the one run where K2 meets a control that
     varies from row to row."""
-    return peak_runs("control", bam_t, _need_main, ["-c", bam_c])
+    return peak_runs("control", bam_t, _need_main, ["-c", bam_c])[0]
 
 
 def kernel_inputs(label, ts, targets, extra=()):
@@ -896,10 +1005,10 @@ def k2_path_phase(calls, path):
                      f"own inputs")
 
 
-def k3_fisher_phase(calls, entry):
-    """K3 on the inputs of the Fisher path's own calls, against its
-    float64 plain version (rtol 1e-6, SKIP lanes identical) and its first
-    design (bitwise); completes ``entry``."""
+def k3_path_phase(calls, path):
+    """K3 on the inputs of a path's own calls, against its float64 plain
+    version (rtol 1e-6, SKIP lanes identical) and its first design
+    (bitwise); returns the sums over the calls."""
     import torch
     from genrich_tpu_torch import testing
     from genrich_tpu_torch.ops import chisq
@@ -913,13 +1022,13 @@ def k3_fisher_phase(calls, entry):
         first = testing.fisher_combine_first_design(pv)
         torch.cuda.synchronize()
         if not torch.equal(got == -1.0, want == -1.0):
-            raise AssertionError(f"fisher_combine, Fisher path call {i}: "
+            raise AssertionError(f"fisher_combine, {path} path call {i}: "
                                  f"SKIP lanes differ")
         if not torch.equal(got, first):
-            raise AssertionError(f"fisher_combine, Fisher path call {i}: "
+            raise AssertionError(f"fisher_combine, {path} path call {i}: "
                                  f"differs from the first design")
         if not _close(got, want, rtol=FISHER_RTOL, atol=0.0):
-            raise AssertionError(f"fisher_combine, Fisher path call {i}: "
+            raise AssertionError(f"fisher_combine, {path} path call {i}: "
                                  f"outside rtol {FISHER_RTOL}")
         r, n = pv.shape
         err = float((got - want).abs().max())
@@ -939,15 +1048,14 @@ def k3_fisher_phase(calls, entry):
         first_ms += res["first_design_ms"]
         worst = max(worst, err)
         say("kernels", kernel="fisher_combine",
-            inputs=f"Fisher path call {i}", **res)
+            inputs=f"{path} path call {i}", **res)
         del pv, got, want, first
     torch.cuda.empty_cache()
-    entry.update(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                 first_design_ms=first_ms,
-                 **_sum_bounds(parts),
-                 max_abs_err=max(entry["max_abs_err"], worst),
-                 mode=f"sum over the Fisher path's {len(calls)} calls, its "
-                      f"own inputs")
+    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                first_design_ms=first_ms, **_sum_bounds(parts),
+                max_abs_err=worst,
+                mode=f"sum over the {path} path's {len(calls)} calls, its "
+                     f"own inputs")
 
 
 def fisher_path(bam_a, bam_b):
@@ -957,7 +1065,152 @@ def fisher_path(bam_a, bam_b):
         if bad or c["peak_reduce"] < 3:
             return (f"launches differ from {want} and peak_reduce >= 3")
         return None
-    return peak_runs("fisher", f"{bam_a},{bam_b}", need)
+    return peak_runs("fisher", f"{bam_a},{bam_b}", need)[0]
+
+
+NCCL_ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
+
+
+@contextmanager
+def one_rank_nccl():
+    """The environment of a one-rank process group for the phase: the
+    sharded engine joins it with NCCL on the card; it is destroyed
+    after."""
+    import torch.distributed as dist
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK="0", WORLD_SIZE="1")
+    try:
+        yield
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in NCCL_ENV:
+            os.environ.pop(k, None)
+
+
+def _need_nccl():
+    import torch.distributed as dist
+    if not dist.is_initialized() or dist.get_backend() != "nccl" \
+            or dist.get_world_size() != 1:
+        raise AssertionError("the sharded engine did not join a one-rank "
+                             "NCCL process group")
+    return dist.get_backend()
+
+
+def sharded_path(bam):
+    """``--engine sharded`` on the main path under one-rank NCCL against
+    the main path's exact file, then K1, K2 and K4 on the inputs of its
+    own calls: K1 once per tile from its carry, K2 once per chromosome
+    over its [t, M] tiles flattened (padding rows included), K4 once per
+    tile (the tiles past a chromosome's end, whose limit is 0, among
+    them).  Returns the warm run's counts and the sums of each kernel."""
+    from genrich_tpu_torch.ops import peaks, pipeline
+    from genrich_tpu_torch.parallel import mesh
+    with one_rank_nccl():
+        counts, perf = peak_runs("sharded", bam, _need_main,
+                                 ["--engine", "sharded"], ref="main")
+        backend = _need_nccl()
+        calls = kernel_inputs("sharded", bam, [(pipeline, "coverage_scan"),
+                                               (mesh, "tile_stats"),
+                                               (peaks, "peak_reduce")],
+                              ["--engine", "sharded"])
+    grid = (perf["grid_tile_len"], perf["grid_tiles"])
+    say("sharded_grid", backend=backend, tile_len=grid[0],
+        tiles_per_chrom=grid[1], k1_calls=len(calls["coverage_scan"]),
+        k2_calls=len(calls["tile_stats"]),
+        k4_calls=len(calls["peak_reduce"]),
+        straddling_peaks=perf["straddling_peaks"],
+        host_peak_chroms=perf["host_peak_chroms"])
+    if grid != (1 << 28, 5):
+        raise AssertionError(f"sharded grid {grid}, not 5 tiles of 2^28 bp")
+    sums = {"coverage_scan": k1_path_phase(calls["coverage_scan"],
+                                           "sharded"),
+            "tile_stats": k2_path_phase(calls["tile_stats"], "sharded"),
+            "peak_reduce": k4_path_phase(calls["peak_reduce"], "sharded")}
+    return counts, sums
+
+
+def sharded_fisher_path(bam_a, bam_b):
+    """``-t A,B --engine sharded`` under one-rank NCCL, against the
+    Fisher path's exact file, then K3 on the inputs of its own calls (one
+    per tile, on RLEs padded with (limit, SKIP) rows).  Returns the warm
+    run's counts and K3's sums."""
+    from genrich_tpu_torch.ops import compact
+    with one_rank_nccl():
+        counts, perf = peak_runs("sharded_fisher", f"{bam_a},{bam_b}",
+                                 _need_every, ["--engine", "sharded"],
+                                 ref="fisher")
+        _need_nccl()
+        calls = kernel_inputs("sharded_fisher", f"{bam_a},{bam_b}",
+                              [(compact, "fisher_combine")],
+                              ["--engine", "sharded"])["fisher_combine"]
+    say("sharded_fisher_grid", straddling_peaks=perf["straddling_peaks"],
+        host_peak_chroms=perf["host_peak_chroms"], k3_calls=len(calls))
+    return counts, k3_path_phase(calls, "sharded_fisher")
+
+
+SERVE_LINES = [("jax_cold", "jax"), ("jax_warm", "jax"),
+               ("sharded_cold", "sharded"), ("sharded_warm", "sharded"),
+               ("bogus", None), ("jax_again", "jax")]
+
+
+def serve_phase(bam):
+    """A serve child on the main path: statuses, warm bytes against cold
+    and against the in-process runs of the same engine, the OK lines'
+    JSON, and the walls."""
+    run_dir = os.path.join(WORK, "chip_smoke", "serve")
+    os.makedirs(run_dir, exist_ok=True)
+    lines = []
+    for label, engine in SERVE_LINES:
+        out = os.path.join(run_dir, f"{label}.np")
+        lines.append("bogus --flags" if engine is None else " ".join(
+            ["-t", bam, "-o", out] + FLAGS + ["--engine", engine]))
+    env = {k: v for k, v in os.environ.items() if k not in NCCL_ENV}
+    env["PYTHONPATH"] = REPO
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "genrich_tpu_torch", "--serve",
+                        "--device", DEV], input="\n".join(lines) + "\nEXIT\n",
+                       capture_output=True, text=True, env=env, cwd=REPO,
+                       timeout=600)
+    child_s = time.perf_counter() - t0
+    out = r.stdout.splitlines()
+    if r.returncode != 0 or out[:1] != ["READY"]:
+        raise AssertionError(f"serve exit code {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    statuses = [ln.split()[0] for ln in out[1:]]
+    if statuses != ["OK", "OK", "OK", "OK", "ERR", "OK"]:
+        raise AssertionError(f"serve statuses {statuses}: "
+                             f"{r.stderr[-2000:]}")
+    walls, perfs = {}, {}
+    for (label, engine), ln in zip(SERVE_LINES, out[1:]):
+        parts = ln.split(None, 2)
+        walls[label] = float(parts[1])
+        if engine is None:
+            continue
+        perfs[label] = json.loads(parts[2])
+        missing = [k for k in ("ingest_s", "upload_bytes", "dispatch_n",
+                               "fetch_s") if k not in perfs[label]]
+        if missing:
+            raise AssertionError(f"serve {label}: OK line lacks {missing}")
+
+    def read(path):
+        return open(path, "rb").read()
+    same = {}
+    for engine, in_process in (("jax", "main"), ("sharded", "sharded")):
+        files = [read(os.path.join(run_dir, f"{label}.np"))
+                 for label, e in SERVE_LINES if e == engine]
+        ref = read(os.path.join(WORK, "chip_smoke",
+                                f"{in_process}_port_cold.np"))
+        same[engine] = all(f == files[0] for f in files) and files[0] == ref
+        if not same[engine]:
+            raise AssertionError(f"serve --engine {engine}: files differ "
+                                 f"from each other or the in-process run")
+    say("serve", statuses=statuses, child_s=child_s, walls_s=walls,
+        equal_to_in_process=same,
+        warm_perf={k: perfs[k] for k in ("jax_warm", "sharded_warm")})
 
 
 def logs_path(bam):
@@ -994,7 +1247,7 @@ def main() -> int:
     bam_a = synth_bam("a")
     main_counts = main_path(bam_a)
     calls = main_kernel_inputs(bam_a)
-    k1_main_phase(calls["coverage_scan"], entries[0])
+    entries[0].update(k1_path_phase(calls["coverage_scan"], "main"))
     k2 = k2_path_phase(calls["tile_stats"], "main")
     entries[1].update(k2, max_abs_err=max(entries[1]["max_abs_err"],
                                           k2["max_abs_err"]))
@@ -1007,7 +1260,17 @@ def main() -> int:
     entries[1]["max_abs_err"] = max(entries[1]["max_abs_err"],
                                     k2["max_abs_err"])
     fisher_counts = fisher_path(bam_a, bam_b)
-    k3_fisher_phase(fisher_kernel_inputs(bam_a, bam_b), entries[2])
+    k3 = k3_path_phase(fisher_kernel_inputs(bam_a, bam_b), "fisher")
+    entries[2].update(k3, max_abs_err=max(entries[2]["max_abs_err"],
+                                          k3["max_abs_err"]))
+    sharded_counts, sharded = sharded_path(bam_a)
+    sharded_fisher_counts, k3 = sharded_fisher_path(bam_a, bam_b)
+    sharded["fisher_combine"] = k3
+    for e in entries:
+        e["sharded_path"] = sharded[e["name"]]
+        e["max_abs_err"] = max(e["max_abs_err"],
+                               sharded[e["name"]]["max_abs_err"])
+    serve_phase(bam_a)
     logs_path(synth_bam("log"))
     loaded = sorted({m.split(".")[0] for m in sys.modules}
                     & {"jax", "genrich_tpu"})
@@ -1017,8 +1280,11 @@ def main() -> int:
         path = fisher_counts if e["name"] == "fisher_combine" \
             else main_counts
         e["launches"] = path[e["name"]]
-        e["launches_by_path"] = {"main": main_counts[e["name"]],
-                                 "fisher": fisher_counts[e["name"]]}
+        e["launches_by_path"] = {
+            "main": main_counts[e["name"]],
+            "fisher": fisher_counts[e["name"]],
+            "sharded": sharded_counts[e["name"]],
+            "sharded_fisher": sharded_fisher_counts[e["name"]]}
     import torch
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -1,19 +1,26 @@
 """Command line of the port: Genrich flags plus ``--device cuda|cpu``.
 
     python -m genrich_tpu_torch -t in.bam -o out.narrowPeak [flags]
-        [--device cuda|cpu]
+        [--engine jax|sharded] [--device cuda|cpu]
+    python -m genrich_tpu_torch --serve [default flags] [--device cuda|cpu]
 
 Flags are parsed by ``params.parse_args``; the analysis is
-``pipeline.run`` with a ``TorchEngine`` on the chosen device (default
+``pipeline.run`` with a device engine on the chosen device (default
 ``cuda``; no card is an error, never a silent switch to the CPU).
-Before the run, ``ingest.ensure_native()`` makes the native ingest
+``--engine jax`` (the default) selects ``TorchEngine``, ``--engine
+sharded`` the tile-sharded ``ShardedTorchEngine`` (one rank, or a
+``torch.distributed`` group joined from ``MASTER_ADDR``/``MASTER_PORT``/
+``WORLD_SIZE``/``RANK``); the names are the JAX package's, so its
+argument strings run unchanged.  ``--engine exact`` (the exact engine's
+host stages) fails with "not yet ported to genrich_tpu_torch".
+``--serve`` runs ``serve.serve_loop``: one analysis per stdin line,
+with one engine per kind kept across them.
+
+Before a run, ``ingest.ensure_native()`` makes the native ingest
 library load on this host (building it if the committed one does not);
 if that fails, the run parses with the Python reader, as the JAX
-package does, after a one-line warning.
-
-``--serve`` and ``--engine`` are not ported and fail with "not yet
-ported to genrich_tpu_torch".  Errors print ``Error! <msg>`` to stderr
-and exit 1.
+package does, after a one-line warning.  Errors print ``Error! <msg>``
+to stderr and exit 1.
 """
 
 from __future__ import annotations
@@ -65,6 +72,15 @@ Other options:
 """
 
 
+EXTRA_USAGE = """Options of the PyTorch port:
+  --device <str>   cuda (def.) or cpu
+  --engine <str>   jax (def.; one tensor per chromosome) or sharded
+                     (tiles; torch.distributed ranks from MASTER_ADDR,
+                     MASTER_PORT, WORLD_SIZE, RANK)
+  --serve          One analysis per stdin line (READY; OK/ERR per line)
+"""
+
+
 class NotPorted(Exception):
     pass
 
@@ -91,7 +107,26 @@ def _no(what: str):
     raise NotPorted(f"{what} is not yet ported to genrich_tpu_torch")
 
 
-def _native_ingest(p: Params) -> None:
+def parse_port_args(argv: List[str]) -> Params:
+    """``parse_args`` with the port's default engine, ``jax`` (the
+    ``Params`` default, ``exact``, is the JAX package's); a later
+    ``--engine`` wins, and ``exact`` raises NotPorted."""
+    p = parse_args(["--engine", "jax"] + argv)
+    if p.engine == "exact":
+        _no("--engine exact")
+    return p
+
+
+def make_engine(kind: str, device: str):
+    """A device engine of ``kind`` ("jax" or "sharded") on ``device``."""
+    if kind == "sharded":
+        from .engine.sharded_bridge import ShardedTorchEngine
+        return ShardedTorchEngine(device)
+    from .engine.torch_bridge import TorchEngine
+    return TorchEngine(device)
+
+
+def native_ingest(p: Params) -> None:
     """Make native ingest load, or warn that the Python reader runs."""
     if p.ingest == "python":
         return
@@ -115,12 +150,12 @@ def main(argv: Optional[List[str]] = None,
     try:
         device, rest = _split_device(argv)
         if "--serve" in rest:
-            _no("--serve")
-        if "--engine" in rest:
-            _no("--engine (the port has one engine; choose --device)")
-        params = parse_args(rest)
+            from .serve import serve_loop
+            return serve_loop([a for a in rest if a != "--serve"],
+                              device=device)
+        params = parse_port_args(rest)
     except UsageRequested:
-        sys.stderr.write(USAGE + "  --device <str>   cuda (def.) or cpu\n")
+        sys.stderr.write(USAGE + EXTRA_USAGE)
         return 1
     except VersionRequested:
         sys.stderr.write(
@@ -134,14 +169,13 @@ def main(argv: Optional[List[str]] = None,
         sys.stderr.write(f"Error! {e}\n")
         return 1
 
-    from .engine.torch_bridge import TorchEngine
     from .pipeline import run
     try:
-        engine = TorchEngine(device)
-    except RuntimeError as e:
+        engine = make_engine(params.engine, device)
+    except (RuntimeError, ValueError) as e:
         sys.stderr.write(f"Error! {e}\n")
         return 1
-    _native_ingest(params)
+    native_ingest(params)
     try:
         run(params, engine=engine, perf=perf)
     except GenrichError as e:

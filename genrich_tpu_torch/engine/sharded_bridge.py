@@ -1,0 +1,456 @@
+"""Tile-sharded device engine for the CLI (twin of engine/sharded_bridge.py).
+
+``python -m genrich_tpu_torch --engine sharded``.  The engine contract
+of ``TorchEngine`` (pipeline.py drives both), but every chromosome is
+cut into a grid of power-of-two tiles and every numeric stage runs the
+steps of ``parallel/mesh.ShardedKernels`` over this rank's tiles: the
+host splits events by tile (``split_events_flat``), each tile scans
+from the carry of the tiles before it (K1), p-values run over all tiles
+(K2), each tile calls its own peaks (K4, at most ``PEAK_CAP``
+candidates) and the host merges peaks that straddle tile boundaries
+(``merge_tile_peaks``); the -f/-k logs stitch the tiles' RLE runs, and
+several replicates combine tile by tile (K3).
+
+Reference semantics per stage (float32, as TorchEngine):
+  coverage/pileup   savePileupExpt/Ctrl   Genrich.c:2052-2295
+  p-values          savePval/calcPval     Genrich.c:1628-1794
+  Fisher            combinePval           Genrich.c:612-667
+  q-values          computeQval           Genrich.c:146-401 (exact
+                    distinct-value BH, host float32 sweep)
+  peak calling      callPeaks             Genrich.c:977-1069
+
+On one card the grid degenerates gracefully: ``n_shards`` (the JAX
+engine's mesh size D) is 1, and a chromosome of the 2.75 Gbp main-path
+genome is five tiles of 2^28 bp.  Under a process group
+(``parallel/distributed.init_distributed``: NCCL on CUDA, gloo on the
+CPU) each rank holds its block of tiles and the collectives of
+``parallel/mesh.py`` couple them; ``n_shards`` defaults to the group's
+size.  Tests pass ``n_shards=8`` to cut the grid as the JAX tests' 8
+virtual devices do.
+
+What the JAX engine does for the TPU and this one does not: no monotone
+event-width floor and no power-of-two size buckets (eager PyTorch needs
+no fixed shapes); no all-padding control triple for a run without
+control (the control arrays are [t, 0]); events upload as int32 ends,
+not the uint16-length wire.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..ops.peaks import TilePeaks
+from ..ops.pipeline import TileResult
+from ..parallel.distributed import (init_distributed, local_tile_range,
+                                    rank_device)
+from ..parallel.mesh import (ShardedKernels, merge_tile_peaks, world_rank,
+                             split_events_flat, split_excl_to_tiles)
+from . import qvalue
+from .host_fallback import INT32_MAX, HostChromMixin
+from .perf import PerfMixin
+from .pileup import Pileup
+from .torch_bridge import check_device
+
+F32 = np.float32
+PEAK_CAP = 4096            # per-tile candidate rows (call_peaks k)
+
+
+def _pow2(n: int, lo: int = 1) -> int:
+    size = lo
+    while size < n:
+        size <<= 1
+    return size
+
+
+def expand_flat(fs, fe, fc, off, n_tiles: int, width: int, tile_len: int):
+    """Flat tile-major events + [T+1] offsets -> a [T, width] triple.
+
+    Rows past a tile's count become (tile_len, tile_len, 0) padding.
+    Plain PyTorch gathers on the device (the JAX engine's
+    ``_expand_flat32``).
+    """
+    dev = off.device
+    if fs.numel() == 0:
+        pad = torch.full((n_tiles, width), tile_len, dtype=torch.int32,
+                         device=dev)
+        return pad, pad.clone(), torch.zeros((n_tiles, width),
+                                             dtype=torch.uint8, device=dev)
+    idx = off[:-1, None] + torch.arange(width, device=dev)
+    pad = idx >= off[1:, None]
+    idx = idx.clamp(max=fs.numel() - 1)
+    return (fs[idx].masked_fill(pad, tile_len),
+            fe[idx].masked_fill(pad, tile_len), fc[idx].masked_fill(pad, 0))
+
+
+class ShardedTorchEngine(PerfMixin, HostChromMixin):
+    """Per-run sharded device context on one explicit ``device``."""
+
+    MAX_TILE_LEN = 1 << 28   # keeps positions well inside int32; a
+                             # chromosome longer than D * cap gets
+                             # several tiles per shard
+
+    def __init__(self, device, n_shards: Optional[int] = None,
+                 min_tile_len: int = 1 << 16):
+        device = check_device(device)
+        self.group = init_distributed(device)
+        self.world, self.rank = world_rank(self.group)
+        self.device = rank_device(device, self.rank)
+        self.D = self.world if n_shards is None else int(n_shards)
+        if self.D < 1 or self.D % self.world:
+            raise ValueError(f"n_shards={self.D} must be a positive "
+                             f"multiple of the {self.world} ranks")
+        self.min_tile_len = min_tile_len
+        self._kernels: Dict[int, ShardedKernels] = {}
+        self._chrom: Dict[int, dict] = {}
+        self._reps: List[Dict[int, tuple]] = []
+        self._qtable = None
+        self._qtable_host = (np.zeros(0, F32), np.zeros(0, F32))
+        self._fixed_grid = None
+        self.begin_run()
+
+    def begin_run(self) -> None:
+        """Reset the per-analysis accounting, plus the grid and the
+        peaks that the host caller or the boundary merge finished."""
+        super().begin_run()
+        self.perf.update(grid_tile_len=0, grid_tiles=0, straddling_peaks=0,
+                         host_peak_chroms=0)
+
+    # --- grid ------------------------------------------------------------
+
+    def prepare(self, max_chrom_len: int = 0) -> None:
+        """Fix ONE (tile_len, n_tiles) grid for the run, from the longest
+        device chromosome, and build the CUDA kernels.
+
+        Shorter chromosomes pad to the same grid (trailing tiles get
+        limit 0), as in the JAX engine.  Runs once per analysis, so a
+        serve process fed inputs of other sizes re-derives it.  Of the
+        JAX engine's arguments only ``max_chrom_len`` is taken: the
+        event and exclusion maxima sized its shape buckets, which eager
+        PyTorch does not need.
+        """
+        if self.device.type == "cuda":
+            kernels.library()
+        self._fixed_grid = None
+        if max_chrom_len:
+            tl = _pow2(-(-max_chrom_len // self.D), lo=self.min_tile_len)
+            tl = min(tl, self.MAX_TILE_LEN)
+            t = -(-max_chrom_len // tl)
+            self._fixed_grid = (tl, -(-t // self.D) * self.D)
+            self.perf.update(grid_tile_len=self._fixed_grid[0],
+                             grid_tiles=self._fixed_grid[1])
+
+    def _grid(self, chrom_len: int) -> Tuple[int, int, np.ndarray]:
+        """(tile_len, n_tiles, per-tile limits) for a chromosome: the
+        run's grid when it covers the chromosome, else its own."""
+        fixed = self._fixed_grid
+        if fixed is not None and fixed[0] * fixed[1] >= chrom_len:
+            tl, t = fixed
+        else:
+            tl = _pow2(-(-chrom_len // self.D), lo=self.min_tile_len)
+            tl = min(tl, self.MAX_TILE_LEN)
+            t = -(-chrom_len // tl)
+            t = -(-t // self.D) * self.D
+        limit = np.clip(chrom_len - np.arange(t, dtype=np.int64) * tl, 0, tl)
+        return tl, t, limit
+
+    def _kern(self, tile_len: int) -> ShardedKernels:
+        k = self._kernels.get(tile_len)
+        if k is None:
+            k = self._kernels[tile_len] = ShardedKernels(tile_len,
+                                                         group=self.group)
+        return k
+
+    # --- input staging ---------------------------------------------------
+
+    def _stage_events(self, s, e, c, off, w: int, tile_len: int):
+        """Upload one flat tile-major event triple (``split_events_flat``:
+        int32 starts and ends, count codes as uint8) and its int64 [T+1]
+        offsets; the device gathers each tile's slice into the [T, w]
+        layout and writes the padding rows itself."""
+        return self._call(expand_flat, self._put(s), self._put(e),
+                          self._put(c.astype(np.uint8)), self._put(off),
+                          off.shape[0] - 1, w, tile_len)
+
+    # --- stage 1: coverage (resident) -------------------------------------
+
+    def coverage_chrom(self, cidx: int, expt_ev, ctrl_ev,
+                       bed: List[int], chrom_len: int) -> tuple:
+        """Per-tile coverage of one chromosome (asynchronous); returns
+        the gathered per-tile fragment sums, or floats for a host
+        chromosome (over 2^31-1 bp)."""
+        if chrom_len > INT32_MAX:
+            return self.host_coverage_chrom(cidx, expt_ev, ctrl_ev,
+                                            bed, chrom_len)
+        tile_len, n_tiles, limit = self._grid(chrom_len)
+        r = local_tile_range(n_tiles)
+        kern = self._kern(tile_len)
+        staged = []
+        for ev in (expt_ev, ctrl_ev):
+            if ev is None:
+                ev = (np.zeros(0, np.int64),) * 3
+            s, e, c, off = split_events_flat(ev[0], ev[1], ev[2], n_tiles,
+                                             tile_len)
+            # every rank pads to the widest tile of all, so the gathered
+            # [t, ...] arrays agree in shape
+            w = int(np.diff(off).max())
+            lo, hi = off[r.start], off[r.stop]
+            staged += self._stage_events(s[lo:hi], e[lo:hi], c[lo:hi],
+                                         off[r.start:r.stop + 1] - lo, w,
+                                         tile_len)
+        excl = split_excl_to_tiles(bed, n_tiles, tile_len)[r.start:r.stop]
+        limit = limit[r.start:r.stop]
+        (starts, ends, ev, cr, excluded, live, frag_all,
+         cfrag_all) = self._call(kern.cov, *staged, self._put(excl), limit)
+        self._chrom[cidx] = {
+            "starts": starts, "ends": ends, "ev": ev, "cr": cr,
+            "excluded": excluded, "live": live, "len": chrom_len,
+            "tile_len": tile_len, "limit": limit,
+        }
+        return frag_all, cfrag_all
+
+    def coverage_finish(self, handles) -> Tuple[float, float]:
+        """Resolve coverage handles (one pull): float64 sums of the
+        per-tile sums, then Python float adds in submission order."""
+        dev = [x for h in handles for x in h if isinstance(x, torch.Tensor)]
+        got = iter(self._fetch_many(dev) if dev else ())
+        frag = 0.0
+        cfrag = 0.0
+        for fe, fc in handles:
+            if isinstance(fe, torch.Tensor):
+                fe, fc = next(got), next(got)
+            frag += float(np.asarray(fe, np.float64).sum())
+            cfrag += float(np.asarray(fc, np.float64).sum())
+        return frag, cfrag
+
+    # --- stage 2: p-values (resident) --------------------------------------
+
+    def stats_all(self, lam: float, factor: float) -> None:
+        self._lam = F32(lam)
+        self._factor = F32(factor)
+        for st in self._chrom.values():
+            if st.get("host"):
+                continue
+            st["pv"] = self._call(ShardedKernels.stats, st["ev"], st["cr"],
+                                  st["excluded"], self._lam, self._factor)
+        self.host_stats(lam, factor)
+
+    # --- multi-replicate: archive + per-tile Fisher --------------------------
+
+    def archive_replicate(self) -> None:
+        """Per-tile p-value RLE compaction; coverage arrays released."""
+        rep: Dict[int, tuple] = {}
+        for cidx, st in self._chrom.items():
+            if st.get("host"):
+                rep[cidx] = self.host_archive(st)
+                continue
+            e_b, pv_b, _ = self._call(ShardedKernels.rle_pv, st["starts"],
+                                      st["ends"], st["pv"], st["live"],
+                                      st["limit"])
+            rep[cidx] = (e_b, pv_b, st["len"], st["tile_len"], st["limit"])
+        self._reps.append(rep)
+        self._chrom.clear()
+
+    def finalize_fisher(self) -> None:
+        """combinePval across replicates, tile by tile (K3)."""
+        chroms = sorted({c for rep in self._reps for c in rep})
+        for cidx in chroms:
+            present = [rep[cidx] for rep in self._reps if cidx in rep]
+            if any(self.host_is_archived(r) for r in present):
+                self.host_fisher(cidx, present)
+                continue
+            kern = self._kern(present[0][3])
+            starts, ends, comb, live = self._call(
+                kern.fisher(len(present)), *(p[0] for p in present),
+                *(p[1] for p in present))
+            self._chrom[cidx] = {
+                "starts": starts, "ends": ends, "pv": comb,
+                "live": live, "len": present[0][2],
+                "tile_len": present[0][3], "limit": present[0][4],
+            }
+        self._reps.clear()
+
+    # --- host-RLE paths (-f/-k logs, -X, host peak caller) -------------------
+
+    def pval_pileup(self, cidx: int) -> Pileup:
+        st = self._chrom[cidx]
+        if st.get("host"):
+            return self.host_pval_pileup(st)
+        e_b, pv_b, b = self._call(ShardedKernels.rle_pv, st["starts"],
+                                  st["ends"], st["pv"], st["live"],
+                                  st["limit"])
+        ends, (pv,) = self._stitch(e_b, (pv_b,), b, st)
+        if len(ends) == 0:
+            return Pileup(np.array([st["len"]], np.int64), np.zeros(1, F32))
+        return Pileup(ends, pv)
+
+    def pvalue_pileups(self, cidx: int) -> Tuple[Pileup, Pileup, Pileup]:
+        st = self._chrom[cidx]
+        if st.get("host"):
+            return self.host_pvalue_pileups(st)
+        e_b, pv_b, ev_b, cv_b, b = self._call(
+            ShardedKernels.rle, st["starts"], st["ends"], st["pv"], st["ev"],
+            st["cr"], st["excluded"], st["live"], self._lam, self._factor)
+        ends, (pv, ev, cv) = self._stitch(e_b, (pv_b, ev_b, cv_b), b, st)
+        if len(ends) == 0:
+            end = np.array([st["len"]], np.int64)
+            return (Pileup(end, np.zeros(1, F32)),
+                    Pileup(end, np.full(1, self._lam, F32)),
+                    Pileup(end, np.zeros(1, F32)))
+        return Pileup(ends, ev), Pileup(ends, cv), Pileup(ends, pv)
+
+    def _stitch(self, e_b, vals, b, st):
+        """Per-tile RLE arrays of every rank -> one chromosome RLE (host).
+
+        Offsets tile-local ends to chromosome coordinates and merges
+        the artificial run break at each tile boundary when the
+        run-defining p-value is equal on both sides (keeping the later
+        run's companion values, i.e. the run's final boundary row).
+        """
+        tile_len = st["tile_len"]
+        kern = self._kern(tile_len)
+        fetched = self._fetch_many([kern.gather(x) for x in (b, e_b) + vals])
+        b_np, e_np = fetched[0], fetched[1]
+        v_np = list(fetched[2:])
+        ends_parts, val_parts = [], [[] for _ in v_np]
+        for t in range(e_np.shape[0]):
+            n = int(b_np[t])
+            if n == 0:
+                continue
+            ends_parts.append(e_np[t, :n].astype(np.int64) + t * tile_len)
+            for j, v in enumerate(v_np):
+                val_parts[j].append(v[t, :n])
+        if not ends_parts:
+            return np.zeros(0, np.int64), tuple(
+                np.zeros(0, F32) for _ in v_np)
+        ends = np.concatenate(ends_parts)
+        vs = [np.concatenate(p) for p in val_parts]
+        # merge runs across tile boundaries: drop row i when the next
+        # row has the same p-value (vs[0] is the run key)
+        same = np.concatenate([vs[0][1:] == vs[0][:-1], np.zeros(1, bool)])
+        boundary = (ends % tile_len) == 0
+        keep = ~(same & boundary & (ends < st["len"]))
+        return ends[keep], tuple(v[keep] for v in vs)
+
+    # --- stage 3: q-values ---------------------------------------------------
+
+    def qvalue_table(self, genome_len: int) -> bool:
+        """Exact genome-wide BH from the per-rank distinct (p, bp) tables.
+
+        Every chromosome's table is submitted before any is pulled; a
+        table that overflowed its width k is computed again, just for
+        that chromosome, with k widened to fit -- loud, never a silent
+        truncation.
+        """
+        ps, ws = [], []
+        pend = []
+        for st in self._chrom.values():
+            if st.get("host"):
+                hp, hw = self.host_distinct(st)
+                if len(hp):
+                    ps.append(np.asarray(hp, F32))
+                    ws.append(np.asarray(hw, np.uint64))
+                continue
+            kern = self._kern(st["tile_len"])
+            pend.append((st, kern, self._call(
+                kern.distinct, st["starts"], st["ends"], st["pv"],
+                st["live"])))
+        d_nps = []
+        while pend:
+            d_nps = self._fetch_many([out[2] for _, _, out in pend])
+            redo = [i for i, ((_, kern, _), d_np)
+                    in enumerate(zip(pend, d_nps))
+                    if not (d_np <= kern.k).all()]
+            if not redo:
+                break
+            for i in redo:
+                st = pend[i][0]
+                kern = ShardedKernels(st["tile_len"],
+                                      _pow2(int(d_nps[i].max())), self.group)
+                self._kernels[st["tile_len"]] = kern
+                pend[i] = (st, kern, self._call(
+                    kern.distinct, st["starts"], st["ends"], st["pv"],
+                    st["live"]))
+        if pend:
+            flat = self._fetch_many([x for _, _, (pv_all, w_all, _) in pend
+                                     for x in (pv_all, w_all)])
+            for j, ((_, kern, _), d_np) in enumerate(zip(pend, d_nps)):
+                pv_g, w_g = flat[2 * j], flat[2 * j + 1]
+                for i, d in enumerate(d_np):
+                    d = int(d)
+                    if d:
+                        ps.append(pv_g[i * kern.k:i * kern.k + d])
+                        ws.append(w_g[i * kern.k:i * kern.k + d]
+                                  .astype(np.uint64))
+        if not ps:
+            z = torch.zeros(1, dtype=torch.float32, device=self.device)
+            self._qtable = (z, z)
+            self._qtable_host = (np.zeros(0, F32), np.zeros(0, F32))
+            return False
+        uv, qv, tab_p, tab_q, _, all_one = \
+            qvalue.merge_distinct_tables(ps, ws, genome_len, lo=1 << 8)
+        self._qtable = (self._put(tab_p), self._put(tab_q))
+        self._qtable_host = (uv, qv)
+        return all_one
+
+    # --- stage 4: peaks ------------------------------------------------------
+
+    def peaks_submit(self, cidx: int, min_pq: float, min_auc: float,
+                     min_len: int, max_gap: int, use_q: bool):
+        """Queue per-tile peak calling (no blocking).  None for a host
+        chromosome, or for a gap the boundary merge cannot honour
+        (``max_gap >= tile_len``): the pipeline's host peak caller then
+        finishes the chromosome."""
+        st = self._chrom[cidx]
+        if st.get("host"):
+            return None
+        if max_gap >= st["tile_len"]:
+            self.perf["host_peak_chroms"] += 1
+            return None
+        kern = self._kern(st["tile_len"])
+        if use_q:
+            tab_p, tab_q = self._qtable
+        else:
+            tab_p = tab_q = torch.zeros(1, dtype=torch.float32,
+                                        device=self.device)
+        for key in ("ev", "cr", "excluded"):
+            st.pop(key, None)
+        res = self._call(kern.peaks(use_q, min_len, max_gap,
+                                    replicated=self.world > 1),
+                         st["starts"], st["ends"], st["pv"], st["live"],
+                         tab_p, tab_q, min_pq, min_auc)
+        cap = min(PEAK_CAP, st["starts"].shape[1])
+        return res, st, cap, min_auc, min_len, max_gap
+
+    def peaks_fetch(self, handle):
+        """Resolve a ``peaks_submit`` handle: the cap check, then the host
+        boundary merge.  Returns the peak arrays, or None when a tile had
+        more candidates than the cap (the host peak caller finishes)."""
+        res, st, cap, min_auc, min_len, max_gap = handle
+        res = self._fetch_many(res)
+        if int(res[-1].max()) > cap:           # n_peaks
+            self.perf["host_peak_chroms"] += 1
+            return None
+        tile_len = st["tile_len"]
+        merged = merge_tile_peaks(TileResult(TilePeaks(*res), None, None),
+                                  tile_len, min_auc, min_len, max_gap)
+        if not merged:
+            z64 = np.zeros(0, np.int64)
+            zf = np.zeros(0, F32)
+            return z64, z64, zf, zf, zf, z64
+        starts = np.array([m[0] for m in merged], np.int64)
+        ends = np.array([m[1] for m in merged], np.int64)
+        self.perf["straddling_peaks"] += int(
+            (starts // tile_len < (ends - 1) // tile_len).sum())
+        return (starts, ends, np.array([m[2] for m in merged], F32),
+                np.array([m[3] for m in merged], F32),
+                np.array([m[4] for m in merged], F32),
+                np.array([m[5] for m in merged], np.int64))
+
+    def release(self) -> None:
+        self._chrom.clear()
+        self._reps.clear()
+        self._qtable = None

@@ -46,6 +46,20 @@ PEAK_CAP = 1 << 15        # per-chrom device peak rows (jax_bridge's cap)
 SKIP = -1.0
 
 
+def check_device(device) -> torch.device:
+    """``device`` as a torch.device: "cuda", "cuda:N" or "cpu".  A CUDA
+    device with no card raises, never a silent switch to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device} requested but no CUDA card "
+                f"is available (torch.cuda.is_available() is False)")
+    elif device.type != "cpu":
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
 class TorchEngine(PerfMixin, HostChromMixin):
     """Per-run device context on one explicit ``device``.
 
@@ -56,25 +70,19 @@ class TorchEngine(PerfMixin, HostChromMixin):
     """
 
     def __init__(self, device):
-        self.device = torch.device(device)
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    f"device {self.device} requested but no CUDA card "
-                    f"is available (torch.cuda.is_available() is False)")
-        elif self.device.type != "cpu":
-            raise ValueError(f"unsupported device {self.device}")
+        self.device = check_device(device)
         self._chrom: Dict[int, dict] = {}
         self._reps: List[dict] = []
         self._qtable = None
         self._qtable_host = None
         self.begin_run()
 
-    def prepare(self) -> None:
+    def prepare(self, max_chrom_len: int = 0) -> None:
         """Build the CUDA kernels before the first chromosome.
 
-        Eager PyTorch needs no shape buckets or program prewarm; a
-        build failure raises here.
+        Takes the sharded engine's grid argument and ignores it: eager
+        PyTorch needs no shape buckets or program prewarm.  A build
+        failure raises here.
         """
         if self.device.type == "cuda":
             kernels.library()

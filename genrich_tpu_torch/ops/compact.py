@@ -106,6 +106,35 @@ def distinct_pvals(starts, ends, pv, live):
     count).  SKIP intervals and zero-length rows carry no weight and
     sort to +inf.  Per-chromosome bp sums are below 2^31.
     """
+    key_s, run_w, keep = _distinct_runs(starts, ends, pv, live, torch.int32)
+    (pv_d, w_d), d = compact(keep, (key_s, run_w))
+    return pv_d, w_d, d
+
+
+def distinct_pvals_k(starts, ends, pv, live, k: int):
+    """``distinct_pvals`` as a fixed-width [k] table (shard exchange).
+
+    Returns (p [k], int64 bp [k], count): the first min(count, k) rows
+    are the table, every later row is (+inf, 0), so tables of several
+    ranks line up at a fixed stride.  count may exceed k: the caller
+    checks and re-runs with a wider k, never truncating silently.  The
+    bp sums are int64 (a rank's tiles are flattened into one call).
+    """
+    key_s, run_w, keep = _distinct_runs(starts, ends, pv, live, torch.int64)
+    (pv_d, w_d), d = compact(keep, (key_s, run_w))
+    n = pv_d.shape[0]
+    if n < k:
+        pv_d = torch.cat([pv_d, pv_d.new_full((k - n,), float("inf"))])
+        w_d = torch.cat([w_d, w_d.new_zeros(k - n)])
+    pv_d, w_d = pv_d[:k], w_d[:k]
+    tail = torch.arange(k, device=pv.device) >= d
+    return (pv_d.masked_fill(tail, float("inf")), w_d.masked_fill(tail, 0),
+            d)
+
+
+def _distinct_runs(starts, ends, pv, live, dtype):
+    """Rows sorted by p: (p, bp of the run ending at the row as
+    ``dtype``, mask of each run's last row with a finite p)."""
     lens = ends - starts
     real = live & (lens > 0) & (pv != SKIP)
     key = torch.where(real, pv, torch.full_like(pv, float("inf")))
@@ -119,10 +148,7 @@ def distinct_pvals(starts, ends, pv, live):
                                        torch.zeros_like(cum)), dim=0)
     prev = torch.cat([torch.zeros(1, dtype=cum.dtype, device=dev),
                       run_end.values[:-1]])
-    run_w = (cum - prev).to(torch.int32)
-    keep = is_last & torch.isfinite(key_s)
-    (pv_d, w_d), d = compact(keep, (key_s, run_w))
-    return pv_d, w_d, d
+    return key_s, (cum - prev).to(dtype), is_last & torch.isfinite(key_s)
 
 
 def assign_qvals(pv, table_p, table_q):

@@ -1,21 +1,34 @@
-"""Per-chromosome coverage and p-values (twin of ops/pipeline_jax.py).
+"""Per-tile coverage, p-values and peaks (twin of ops/pipeline_jax.py).
 
 ``tile_coverage`` merges expt, ctrl and exclusion breakpoints into one
 sort of 8-channel packed class deltas and scans them with kernel K1
 (``ops/scan.py``, two 10-bit groups); ``tile_stats`` turns coverage
 into -log10 p with kernel K2 (``csrc/stats.cu``) on the card, or with
-its plain PyTorch version on the CPU.
+its plain PyTorch version on the CPU.  The single-tile helpers
+(``analyze_tile_core``, ``analyze_tile``, ``analyze_tile_ctrl``) chain
+them into peak calling; ``analyze_tile_core`` scans in K1's lambda mode,
+the Pallas kernel's own function.  ``tile_class_totals`` gives the
+inter-tile carries of the sharded engine (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import kernels
+from .peaks import TilePeaks, call_peaks
 from .pileup import PACKED_ADD, PACKED_SUB, PACKED_ZERO, event_deltas
 from .pvalue import calc_pval
 from .scan import coverage_scan
+
+
+class TileResult(NamedTuple):
+    peaks: TilePeaks
+    frag_len: torch.Tensor     # f32 scalar: weighted fragment length
+    n_intervals: torch.Tensor  # int32 scalar: live intervals
 
 
 def build_event_points(start, end, count):
@@ -162,3 +175,103 @@ def tile_stats(expt_val, ctrl_raw, excluded, factor, lam):
     if expt_val.device.type != "cpu":
         raise ValueError(f"unsupported device {expt_val.device}")
     return tile_stats_plain(expt_val, ctrl_raw, excluded, factor, lam)
+
+
+def tile_class_totals(start, end, count):
+    """Sum of all class deltas of a tile's events (int32 [..., 4]).
+
+    The inter-tile carry of the sharded engine is the exclusive prefix
+    of these totals over the tiles in genomic order.  Leading dims are
+    batch dims: [t, E] events give [t, 4].
+    """
+    add, sub = event_deltas(count)
+    return (add + sub).sum(dim=-2, dtype=torch.int32)
+
+
+def analyze_tile_core(start, end, count, tile_len, carry, lam, min_pq,
+                      min_auc, min_len: int, max_gap: int) -> TileResult:
+    """Tile analysis with an inter-tile carry: events -> peaks.
+
+    start/end/count: [E] events, padding rows count 0 at tile_len.
+    carry: int32 [4] class sums entering the tile.  lam: background
+    rate (no control); min_pq: the -log10 threshold.  A virtual point
+    at 0 makes the leading interval carry the incoming coverage.  The
+    scan is K1's lambda mode (``coverage_pval_fused``'s function):
+    coverage and -log10 p against lam in one pass.
+    """
+    dev = start.device
+    idx = count.long()
+    pos = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                     start.to(torch.int32), end.to(torch.int32)])
+    packed = torch.cat([
+        torch.full((1,), PACKED_ZERO, dtype=torch.int32, device=dev),
+        torch.as_tensor(PACKED_ADD, device=dev)[idx],
+        torch.as_tensor(PACKED_SUB, device=dev)[idx]])
+    pos, order = torch.sort(pos)
+    vals, pval = coverage_scan(packed[order], 1, carry.to(torch.int32),
+                               lam=float(np.float32(lam)))
+    vals = vals[0]
+    starts = pos
+    ends = torch.cat([pos[1:], torch.full((1,), int(tile_len),
+                                          dtype=pos.dtype, device=dev)])
+    frag_len = ((ends - starts).to(torch.float32) * vals).sum()
+    live = starts < int(tile_len)
+    peaks = call_peaks(starts, ends, pval, pval, torch.full_like(pval, -1.0),
+                       live, float(np.float32(min_pq)),
+                       float(np.float32(min_auc)), min_len, max_gap)
+    return TileResult(peaks, frag_len, live.sum(dtype=torch.int32))
+
+
+def analyze_tile(start, end, count, tile_len, lam, min_pq, min_auc,
+                 min_len: int, max_gap: int) -> TileResult:
+    """Single-tile analysis (no carry): events -> peaks."""
+    zero = torch.zeros(4, dtype=torch.int32, device=start.device)
+    return analyze_tile_core(start, end, count, tile_len, zero, lam, min_pq,
+                             min_auc, min_len, max_gap)
+
+
+def analyze_tile_ctrl(es, ee, ec, cs, ce, cc, excl, tile_len, carry_e,
+                      carry_c, lam, factor, min_pq, min_auc, min_len: int,
+                      max_gap: int):
+    """Full-feature single-tile analysis: expt + ctrl + exclusions.
+
+    Through K1 (``tile_coverage``), K2 (``tile_stats``) and K4
+    (``call_peaks``).  Returns (TileResult, ctrl_frag, pval, starts,
+    ends, live), as the JAX twin.
+    """
+    (starts, ends, expt_val, ctrl_raw, excluded, live, frag_len,
+     ctrl_frag) = tile_coverage(es, ee, ec, cs, ce, cc, excl, tile_len,
+                                carry_e, carry_c)
+    pval = tile_stats(expt_val, ctrl_raw, excluded, factor, lam)
+    peaks = call_peaks(starts, ends, pval, pval, torch.full_like(pval, -1.0),
+                       live, float(np.float32(min_pq)),
+                       float(np.float32(min_auc)), min_len, max_gap)
+    return (TileResult(peaks, frag_len, live.sum(dtype=torch.int32)),
+            ctrl_frag, pval, starts, ends, live)
+
+
+def random_events(generator: torch.Generator, n_events: int, tile_len: int,
+                  n_hotspots: int = 8, frac_hot: float = 0.7):
+    """Synthetic clustered fragment events for benches and dry runs.
+
+    A share ``frac_hot`` of the events start within 1,500 bp after one
+    of ``n_hotspots`` random positions, the rest anywhere in the tile;
+    fragments are 80-399 bp, clipped to the tile, never empty.  Drawn
+    from ``generator`` on its device: (start, end, count) int32 [n].
+    """
+    g = generator
+    dev = g.device
+
+    def randint(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=g, device=dev)
+
+    hot = randint(0, max(1, tile_len - 2000), n_hotspots)
+    which = randint(0, n_hotspots, n_events)
+    is_hot = torch.rand(n_events, generator=g, device=dev) < frac_hot
+    base = torch.where(is_hot, hot[which] + randint(0, 1500, n_events),
+                       randint(0, max(1, tile_len - 500), n_events))
+    frag = randint(80, 400, n_events)
+    start = base.clamp(0, tile_len - 1).to(torch.int32)
+    end = (base + frag).clamp(1, tile_len).to(torch.int32)
+    end = torch.maximum(end, start + 1)
+    return start, end, torch.ones(n_events, dtype=torch.int32, device=dev)

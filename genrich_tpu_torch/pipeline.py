@@ -1,7 +1,9 @@
 """Main analysis pipeline: the runProgram equivalent (Genrich.c:5386-5695).
 
-Copy of ``genrich_tpu/pipeline.py`` cut to what the port runs: the
-device engine (``engine/torch_bridge.TorchEngine``) is always present.
+Copy of ``genrich_tpu/pipeline.py`` cut to what the port runs: a device
+engine (``engine/torch_bridge.TorchEngine`` or
+``engine/sharded_bridge.ShardedTorchEngine``, chosen by the caller from
+``--engine``) is always present.
 Replicate loop: parse expt/ctrl SAM/BAM -> fragment events -> device
 coverage and p-values (``_replicate_device``); then findPeaks, on the
 device (``_find_peaks_device``: Fisher combination, q-values, peak
@@ -200,7 +202,14 @@ def _replicate_device(eng, registry: ChromRegistry,
         registry, lambda c: not c.skip and c.save)
     if not genome_len:
         raise fatal("", ERRGEN)
-    eng.prepare()
+
+    # the longest device chromosome (those over 2^31-1 bp run on the
+    # host) fixes the sharded engine's one tile grid; TorchEngine needs
+    # none.  Runs per analysis, so a serve process fed inputs of other
+    # sizes re-derives the grid.
+    eng.prepare(max_chrom_len=max(
+        (c.length for c in registry
+         if not c.skip and c.save and c.length <= 0x7FFFFFFF), default=0))
 
     # submit every chromosome's upload+coverage program before
     # resolving any fragment scalar: uploads and device compute
@@ -588,9 +597,9 @@ def _log_intervals(registry, pvals, qvals, n, expt, ctrl, log_stream,
 def run(p: Params, engine, perf: Optional[dict] = None) -> None:
     """runProgram (Genrich.c:5386-5695) on the device ``engine``.
 
-    ``engine``: the ``TorchEngine`` that computes every replicate's
-    coverage and p-values; it clears its per-run state in
-    ``release()``.
+    ``engine``: the device engine (``TorchEngine`` or
+    ``ShardedTorchEngine``) that computes every replicate's coverage and
+    p-values; it clears its per-run state in ``release()``.
 
     ``perf``: optional dict; filled with the stage-wall decomposition
     {ingest_s, device_rep_s, findpeaks_s, ...} plus the engine's

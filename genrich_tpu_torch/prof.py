@@ -1,9 +1,11 @@
 """Where the device time goes on the port's main and Fisher paths.
 
-    python -m genrich_tpu_torch.prof A.bam B.bam [--parent DIR]
+    python -m genrich_tpu_torch.prof A.bam B.bam [--engine jax|sharded]
+        [--parent DIR]
 
 Runs ``-t A`` (main path) and ``-t A,B`` (Fisher) with ``-r -j -q 0.05
--a 20 --device cuda``, each once cold and once warm under
+-a 20 --device cuda`` and the ``--engine`` given (default jax: the
+TorchEngine), each once cold and once warm under
 ``torch.profiler``, and prints for the warm run: its wall, the
 pipeline's ``perf`` dict, the device time (kernels and copies, summed
 from the profiler's device events), the card's idle share (1 - device
@@ -70,14 +72,15 @@ def _device_events(prof):
     return sorted(evs, reverse=True)
 
 
-def profile_path(name, ts):
+def profile_path(name, ts, engine="jax"):
     """Cold run, then the warm run under torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from . import cli
     out = os.path.join(tempfile.mkdtemp(), "out.np")
-    args = ["-t", ts, "-o", out] + FLAGS + ["--device", "cuda"]
+    args = ["-t", ts, "-o", out] + FLAGS + ["--engine", engine,
+                                             "--device", "cuda"]
     if cli.main(args) != 0:
         raise SystemExit(f"{name}: cold run failed")
     torch.cuda.synchronize()
@@ -93,7 +96,7 @@ def profile_path(name, ts):
     evs = _device_events(prof)
     device_ms = sum(ms for ms, _, _ in evs)
     print(f"profile {name} " + json.dumps(
-        {"wall_s": wall, "device_ms": device_ms,
+        {"engine": engine, "wall_s": wall, "device_ms": device_ms,
          "idle_share": 1.0 - device_ms / 1e3 / wall, "perf": perf}))
     for ms, n, key in evs[:TOP]:
         print(f"  {ms:10.3f} ms {100 * ms / device_ms:5.1f}% x{n:<5d} "
@@ -117,6 +120,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m genrich_tpu_torch.prof")
     ap.add_argument("bam_a")
     ap.add_argument("bam_b")
+    ap.add_argument("--engine", choices=("jax", "sharded"), default="jax")
     ap.add_argument("--parent", help="another checkout to compare with")
     a = ap.parse_args(argv)
     import torch
@@ -129,8 +133,8 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(f"card {smi}")
-    profile_path("main", a.bam_a)
-    profile_path("fisher", f"{a.bam_a},{a.bam_b}")
+    profile_path("main", a.bam_a, a.engine)
+    profile_path("fisher", f"{a.bam_a},{a.bam_b}", a.engine)
     if a.parent:
         compare_trees(a.parent, a.bam_a)
     return 0

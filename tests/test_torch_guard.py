@@ -2,10 +2,12 @@
 
 The port stands alone: no module of it, and no line that chip_smoke.py
 runs in its own process, imports jax or genrich_tpu, and every CLI path
-runs on the CPU with both imports refused.  ``--device cuda`` with no
-card is an error, never a silent switch to the CPU; ``--serve`` and
-``--engine``, whose paths are not ported, fail with "not yet ported to
-genrich_tpu_torch".
+(``--engine sharded`` and ``--serve`` among them, and
+``genrich_tpu_torch.parallel``) runs on the CPU with both imports
+refused.  ``--device cuda`` with no card is an error, never a silent
+switch to the CPU, on the CLI as in serve; ``--engine exact``, whose
+host stages are not ported, fails with "not yet ported to
+genrich_tpu_torch", on the CLI and as a serve line.
 """
 
 from __future__ import annotations
@@ -146,6 +148,10 @@ PATHS = [
     ("ctrl", ["-c", "CTRL", "-y", "-p", "0.01", "-a", "5"], ["out.np"]),
     ("excl", ["-E", "EXCL", "-e", "chr2", "-y", "-p", "0.05", "-a", "5"],
      ["out.np"]),
+    ("sharded", ["--engine", "sharded", "-c", "CTRL", "-E", "EXCL", "-y",
+                 "-q", "0.5"], ["out.np"]),
+    ("sharded_fisher_logs", ["-t2", "--engine", "sharded", "-f", "f.log",
+                             "-y", "-a", "5"], ["f.log", "out.np"]),
 ]
 
 _REFUSE = """
@@ -209,13 +215,69 @@ def test_default_device_is_cuda(tmp_path, sam):
     assert r.returncode == 1 and "CUDA" in r.stderr
 
 
-@pytest.mark.parametrize("flags", [["--serve"], ["--engine", "jax"]])
+@pytest.mark.parametrize("flags", [["--engine", "exact"],
+                                   ["--serve", "--engine", "exact"]])
 def test_unported_flags_rejected(tmp_path, sam, flags):
+    """``--engine exact`` fails with MARK: on the CLI with exit code 1,
+    as a serve line with ERR (the server goes on)."""
     args = ["-t", sam, "-o", "out.np", "-y"] + flags
-    r = _port(args + ["--device", "cpu"], str(tmp_path))
-    assert r.returncode == 1, r.stderr
+    r = subprocess.run([sys.executable, "-m", "genrich_tpu_torch"] + args
+                       + ["--device", "cpu"], cwd=str(tmp_path),
+                       capture_output=True, text=True, env=_env(),
+                       input="-p 0.01\n")
+    if "--serve" in flags:
+        assert r.returncode == 0, r.stderr
+        assert [ln.split()[0] for ln in r.stdout.splitlines()] \
+            == ["READY", "ERR"]
+    else:
+        assert r.returncode == 1, r.stderr
     assert MARK in r.stderr
     assert not (tmp_path / "out.np").exists()
+
+
+_SERVE = """
+import io, sys
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "genrich_tpu"):
+            raise ImportError("refused: " + name)
+        return None
+sys.meta_path.insert(0, Refuse())
+import genrich_tpu_torch.parallel.distributed
+from genrich_tpu_torch.serve import serve_loop
+out = io.StringIO()
+assert serve_loop(["-y", "-a", "5"], io.StringIO({lines!r}), out,
+                  device="cpu") == 0
+print(out.getvalue())
+print("LOADED", sorted({{m.split(".")[0] for m in sys.modules}}
+                       & {{"jax", "genrich_tpu"}}))
+"""
+
+
+def test_serve_runs_with_jax_and_genrich_tpu_refused(tmp_path, sam):
+    lines = "".join(f"-t {sam} -o {e}.np --engine {e}\n"
+                    for e in ("jax", "sharded"))
+    r = subprocess.run([sys.executable, "-c", _SERVE.format(lines=lines)],
+                       cwd=str(tmp_path), capture_output=True, text=True,
+                       env=_env())
+    assert r.returncode == 0, r.stderr[-1500:]
+    assert "LOADED []" in r.stdout
+    assert [ln.split()[0] for ln in r.stdout.splitlines()[:3]] \
+        == ["READY", "OK", "OK"]
+    assert (tmp_path / "jax.np").exists()
+    assert (tmp_path / "sharded.np").exists()
+
+
+def test_serve_cuda_without_card_fails_clearly(tmp_path):
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: serve would start")
+    r = subprocess.run([sys.executable, "-m", "genrich_tpu_torch", "--serve",
+                        "--device", "cuda"], cwd=str(tmp_path),
+                       capture_output=True, text=True, env=_env(),
+                       input="-t x.sam -o out.np\n")
+    assert r.returncode == 1 and "CUDA" in r.stderr and "Error!" in r.stderr
+    assert "READY" not in r.stdout
 
 
 def test_bad_device_rejected(tmp_path, sam):

@@ -215,3 +215,60 @@ def test_cli_stderr_identical_to_exact_engine(cli_inputs, tmp_path,
     assert err == want_err and "Peaks identified" in err
     assert [r.split("\t")[:6] for r in rows] \
         == [r.split("\t")[:6] for r in want_rows]
+
+
+# --- the numpy copies of genrich_tpu/parallel ------------------------------
+
+def _tile_peaks(rng, n_tiles=24, cap=8, tile_len=4096):
+    """Random per-tile peak arrays (numpy) for the boundary merge."""
+    from genrich_tpu.ops.peaks_jax import TilePeaks
+    from genrich_tpu.ops.pipeline_jax import TileResult
+    shape = (n_tiles, cap)
+    starts = rng.randint(0, tile_len - 2, shape).astype(np.int32)
+    f32 = lambda hi: (rng.rand(*shape) * hi).astype(np.float32)  # noqa
+    cand = rng.rand(*shape) < 0.4
+    pk = TilePeaks(starts, np.minimum(starts + rng.randint(1, 2000, shape),
+                                      tile_len).astype(np.int32), f32(50),
+                   f32(10), f32(10), rng.randint(0, 99, shape).astype(
+                       np.int32), cand, cand,
+                   rng.choice(np.float32([1, 2, 3]), shape),
+                   rng.randint(1, 4, shape).astype(np.int32),
+                   rng.rand(n_tiles) < 0.2, rng.rand(n_tiles) < 0.2,
+                   np.int32(0))
+    return TileResult(pk, None, None)
+
+
+@pytest.mark.parametrize("name", [
+    "split_events_to_tiles", "split_excl_to_tiles", "merge_tile_peaks",
+    "_merge_tile_peaks_loop", "exact_q_table", "local_tile_range",
+    "host_local_events"])
+def test_parallel_numpy_copies_equal(name):
+    """Each numpy helper of genrich_tpu_torch.parallel against its
+    original in genrich_tpu.parallel, on one input: equal results."""
+    from genrich_tpu.parallel import distributed as jd, mesh as jm
+    from genrich_tpu_torch.parallel import distributed as td, mesh as tm
+    rng = np.random.RandomState(9)
+    start = rng.randint(0, 60_000, 500).astype(np.int64)
+    end = np.minimum(start + rng.randint(1, 9000, 500), 65_536)
+    count = rng.randint(1, 11, 500).astype(np.int32)
+    args = {
+        "split_events_to_tiles": (start, end, count, 16, 4096),
+        "split_excl_to_tiles": ([100, 5000, 9000, 9001, 20_000, 41_000], 16,
+                                4096),
+        "merge_tile_peaks": (_tile_peaks(rng), 4096, 12.0, 10, 80),
+        "exact_q_table": (np.float32([0.5, 1.5, np.inf, 2.5, 0.5, np.inf]),
+                          np.int64([10, 20, 0, 5, 7, 0]),
+                          np.int32([2, 2, 0]), 2, 1000),
+        "local_tile_range": (8,),
+        "host_local_events": (start, end, count, 16, 4096, 256),
+    }
+    args["_merge_tile_peaks_loop"] = args["merge_tile_peaks"]
+    src = jd if name in ("local_tile_range", "host_local_events") else jm
+    dst = td if src is jd else tm
+    want = getattr(src, name)(*args[name])
+    got = getattr(dst, name)(*args[name])
+    if isinstance(want, np.ndarray):
+        got, want = (got,), (want,)
+    assert len(want) and len(got) == len(want)
+    for g, x in zip(got, want):
+        np.testing.assert_array_equal(g, x)

@@ -215,15 +215,21 @@ PEAK_FIELDS_EXACT = ("start", "end", "summit_pos", "summit_pval",
                      "summit_qval", "summit_stat", "summit_len")
 
 
-def _compare_peaks(ref, got):
+def _compare_peaks(ref, got, auc_ref=None, summit_rtol=0.0):
+    """``got`` against the JAX peaks ``ref``; AUC against ``auc_ref``
+    (a float64 sum) where given, else against ref's; the summit's
+    float fields within ``summit_rtol`` (for p-values that are not the
+    JAX twin's bits)."""
     ex = np.asarray(ref.cand)
     np.testing.assert_array_equal(got.cand.numpy(), ex)
     np.testing.assert_array_equal(got.valid.numpy(), np.asarray(ref.valid))
     for f in PEAK_FIELDS_EXACT:
-        np.testing.assert_array_equal(getattr(got, f).numpy()[ex],
-                                      np.asarray(getattr(ref, f))[ex], f)
-    np.testing.assert_allclose(got.auc.numpy()[ex], np.asarray(ref.auc)[ex],
-                               rtol=1e-5)
+        np.testing.assert_allclose(
+            getattr(got, f).numpy()[ex], np.asarray(getattr(ref, f))[ex],
+            rtol=summit_rtol if f.startswith("summit_") else 0.0,
+            atol=0.0, err_msg=f)
+    want = np.asarray(ref.auc if auc_ref is None else auc_ref)
+    np.testing.assert_allclose(got.auc.numpy()[ex], want[ex], rtol=1e-5)
     for f in ("skip_head", "skip_tail", "n_peaks"):
         assert int(getattr(got, f)) == int(np.asarray(getattr(ref, f))), f
     return int(ex.sum())
@@ -294,3 +300,132 @@ def test_call_peaks_skip_breaks_and_empty():
     none = peaks.call_peaks(*(T(a) for a in args), 10.0, 0.0, 0, 100,
                             k_peaks=4)
     assert int(none.n_peaks) == 0 and not none.cand.any()
+
+
+# --- the tile helpers (pipeline_jax.py:44-90, 176-209) ----------------------
+
+def _tile(seed, n=2500, length=1 << 15, weights=(1, 1, 1, 2, 5)):
+    rng = np.random.RandomState(seed)
+    start = np.concatenate([rng.randint(0, length - 300, n // 2),
+                            rng.randint(9000, 11000, n - n // 2)])
+    end = np.minimum(start + rng.randint(80, 300, n), length)
+    count = rng.choice(weights, n).astype(np.int32)
+    pad = np.full(7, length, np.int32)         # padding rows, count 0
+    return (np.concatenate([start, pad]).astype(np.int32),
+            np.concatenate([end, pad]).astype(np.int32),
+            np.concatenate([count, np.zeros(7, np.int32)]), length)
+
+
+def test_tile_class_totals_matches_jax():
+    s, e, c, _ = _tile(41)
+    want = np.asarray(pipeline_jax.tile_class_totals(*(jnp.asarray(a)
+                                                       for a in (s, e, c))))
+    got = pipeline.tile_class_totals(T(s), T(e), T(c))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.dtype == torch.int32 and bool((got != 0).any())
+    batch = pipeline.tile_class_totals(*(T(np.stack([a, a])) for a in
+                                         (s, e, c)))
+    np.testing.assert_array_equal(batch.numpy(), np.stack([want, want]))
+
+
+def _auc_f64(peaks, starts, ends, stat, live, min_pq):
+    """Each candidate's AUC summed in float64 over its rows: the JAX
+    twin takes AUC as a difference of float32 prefix sums, which loses
+    up to 3e-4 relative on small peaks of these tiles."""
+    s, e, st, lv = (x.numpy() for x in (starts, ends, stat, live))
+    thr = np.float32(min_pq)
+    contrib = np.where(lv & (e > s) & (st > thr),
+                       (e - s) * (st - thr).astype(np.float64), 0.0)
+    csum = np.concatenate([[0.0], np.cumsum(contrib)])
+    lo = np.searchsorted(s, peaks.start.numpy(), "left")
+    hi = np.searchsorted(e, peaks.end.numpy(), "right")
+    return csum[hi] - csum[lo]
+
+
+@pytest.mark.parametrize("carry", [None, [3, 5, 1, 2]],
+                         ids=["analyze_tile", "core_with_carry"])
+def test_analyze_tile_matches_jax(carry):
+    """Peaks equal to the JAX twin's (positions exact, summit p within
+    1e-5 as calc_pval is, AUC to a float64 sum over the rows); the rows
+    come from analyze_tile_ctrl with no control, which computes the same
+    peaks through K2 instead of K1's lambda mode."""
+    s, e, c, length = _tile(42)
+    lam, min_pq, min_auc = 1.1, 2.0, 20.0
+    c4 = np.zeros(4, np.int32) if carry is None else np.array(carry,
+                                                                np.int32)
+    if carry is None:
+        ref = pipeline_jax.analyze_tile(
+            *(jnp.asarray(a) for a in (s, e, c)), jnp.int32(length),
+            jnp.float32(lam), jnp.float32(min_pq), jnp.float32(min_auc),
+            0, 100)
+        got = pipeline.analyze_tile(T(s), T(e), T(c), length, lam, min_pq,
+                                    min_auc, 0, 100)
+    else:
+        ref = pipeline_jax.analyze_tile_core(
+            *(jnp.asarray(a) for a in (s, e, c)), jnp.int32(length),
+            jnp.asarray(c4), jnp.float32(lam), jnp.float32(min_pq),
+            jnp.float32(min_auc), 0, 100)
+        got = pipeline.analyze_tile_core(T(s), T(e), T(c), length, T(c4),
+                                         lam, min_pq, min_auc, 0, 100)
+    none = torch.full((1,), length, dtype=torch.int32)
+    rows, _, pv, rs, re_, lv = pipeline.analyze_tile_ctrl(
+        T(s), T(e), T(c), none, none, torch.zeros(1, dtype=torch.int32),
+        torch.full((1, 2), length, dtype=torch.int32), length, T(c4),
+        torch.zeros(4, dtype=torch.int32), lam, 1.0, min_pq, min_auc, 0, 100)
+    ex = got.peaks.cand
+    assert torch.equal(ex, rows.peaks.cand)
+    assert all(torch.equal(a[ex], b[ex])
+               for a, b in zip(got.peaks[:-3], rows.peaks[:-3]))
+    assert all(torch.equal(a, b)
+               for a, b in zip(got.peaks[-3:], rows.peaks[-3:]))
+    auc = _auc_f64(got.peaks, rs, re_, pv, lv, min_pq)
+    assert _compare_peaks(ref.peaks, got.peaks, auc, summit_rtol=1e-5) >= 2
+    assert int(got.n_intervals) == int(ref.n_intervals)
+    np.testing.assert_allclose(float(got.frag_len), float(ref.frag_len),
+                               rtol=1e-5)
+
+
+def test_analyze_tile_ctrl_matches_jax():
+    es, ee, ec, cs, ce, cc, excl, length = _case(43)
+    z4 = np.zeros(4, np.int32)
+    c4 = np.array([2, 0, 1, 0], np.int32)
+    args = (es, ee, ec, cs, ce, cc, excl)
+    ref, cf_r, pv_r, s_r, e_r, lv_r = pipeline_jax.analyze_tile_ctrl(
+        *(jnp.asarray(a) for a in args), jnp.int32(length),
+        jnp.asarray(c4), jnp.asarray(z4), jnp.float32(0.61),
+        jnp.float32(1.37), jnp.float32(2.0), jnp.float32(20.0), 0, 100)
+    got, cf, pv, s, e, lv = pipeline.analyze_tile_ctrl(
+        *(T(a) for a in args), length, T(c4), T(z4), 0.61, 1.37, 2.0, 20.0,
+        0, 100)
+    np.testing.assert_array_equal(s.numpy(), np.asarray(s_r))
+    np.testing.assert_array_equal(lv.numpy(), np.asarray(lv_r))
+    real = np.asarray(e_r) > np.asarray(s_r)
+    np.testing.assert_allclose(pv.numpy()[real], np.asarray(pv_r)[real],
+                               rtol=1e-5, atol=1e-5)
+    auc = _auc_f64(got.peaks, s, e, pv, lv, 2.0)
+    assert _compare_peaks(ref.peaks, got.peaks, auc, summit_rtol=1e-5) >= 2
+    np.testing.assert_allclose(float(cf), float(cf_r), rtol=1e-5)
+
+
+def test_random_events_contract():
+    """random_events cannot equal jax.random bit for bit: both are held
+    to the same contract (ranges, a non-empty fragment, the clustered
+    share)."""
+    import jax
+    tile_len, n = 1 << 20, 100_000
+    g = torch.Generator().manual_seed(7)
+    got = pipeline.random_events(g, n, tile_len)
+    want = pipeline_jax.random_events(jax.random.PRNGKey(7), n, tile_len)
+    for start, end, count in ([x.numpy() for x in got],
+                              [np.asarray(x) for x in want]):
+        assert start.dtype == end.dtype == count.dtype == np.int32
+        assert start.min() >= 0 and start.max() < tile_len
+        assert end.max() <= tile_len and (end > start).all()
+        assert (count == 1).all()
+        # 70% of the events start within 1,500 bp after one of 8
+        # hotspots: the 16 fullest 2 kbp bins hold most of them
+        bins = np.sort(np.bincount(start // 2048))[::-1]
+        assert bins[:16].sum() >= 0.65 * n
+    again = pipeline.random_events(torch.Generator().manual_seed(7), n,
+                                   tile_len)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
