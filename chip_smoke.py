@@ -26,35 +26,42 @@ non-zero, and the result line is printed only when every phase passed:
    scripts/perf_synth.py into the git-ignored .bench_cache/ when
    missing.
 4. Main path: the 2M-pair ATAC BAM on the 2.75 Gbp human-scale genome
-   of scripts/bench_e2e.py, ``--engine exact`` once (in a child process
-   that loads the native library the port's ``ensure_native()`` found),
-   then the port twice in this process (cold, warm) with ``-r -j -q
-   0.05 -a 20 --device cuda``.  Checks: K1, K2 and K4 launched in each
-   run, native ingest in every run, the peak rows against the exact
-   engine by bench_e2e's rule (match_frac >= 0.99,
-   worst_unmatched_margin <= 0.02), cold and warm narrowPeak
-   byte-identical.  One more run keeps the inputs of the main path's
-   own K1, K2 and K4 calls.  K1 on them: bitwise to its plain version
-   and its first design (a call whose carry is zero also with a
-   non-zero one), one kernel launch per call (the call captured into a
-   CUDA graph, whose kernel nodes are counted),
-   times; K2 on them against its plain version (rtol = atol = 1e-5)
-   and its first design (bitwise), times, and the rows it read from
-   its tables (branches ``table_p`` and ``table_params``).  K4 on them and on 2^23
-   synthetic rows holding about 30,000 short peaks: against its plain
-   version (summit fields exact, AUC rtol 1e-5), against the exact
-   engine's float32 row-order sum (AUC bitwise), and all six outputs
-   bitwise to its first design.
+   of scripts/bench_e2e.py, the JAX package's ``--engine exact -v`` once
+   (in a child process that loads the native library the port's
+   ``ensure_native()`` found) and the port's ``--engine exact -v`` once
+   in this process (host code only): narrowPeak and -v stderr
+   byte-identical, both walls printed.  Then the port twice in this
+   process (cold, warm) with ``-r -j -q 0.05 -a 20 --device cuda``.
+   Checks: K1, K2 and K4 launched in each run, native ingest in every
+   run, the peak rows against the exact engine by bench_e2e's rule
+   (match_frac >= 0.99, worst_unmatched_margin <= 0.02), cold and warm
+   narrowPeak byte-identical; the matched rows whose column 10 (summit
+   offset) differs from the exact engine's are counted, not gated on.
+   One more run keeps the inputs of the main path's own K1, K2 and K4
+   calls.  Every kernel on its path's calls launches the device kernels
+   of ``kernels.KERNELS_PER_CALL`` per call (the call captured into a
+   CUDA graph, whose kernel nodes are read), the table ``prof.py``
+   holds torch.profiler's records to.  K1 on them: bitwise to its plain
+   version and its first design (a call whose carry is zero also with
+   a non-zero one), times; K2 on them against its plain version (rtol
+   = atol = 1e-5) and its first design (bitwise), times, and the rows
+   it read from its tables (branches ``table_p`` and
+   ``table_params``).  K4 on them and on 2^23 synthetic rows holding
+   about 30,000 short peaks: against its plain version (summit fields
+   exact, AUC rtol 1e-5), against the exact engine's float32 row-order
+   sum (AUC bitwise), and all six outputs bitwise to its first
+   design.
 5. Control: ``-t A -c B`` (B the second 2M-pair BAM, seed 8), the
-   same flags; exact once, the port cold and warm, the same checks as
-   the main path.  One more run keeps the inputs of its K2 calls, the
-   only ones where the control varies from row to row: K2 on them as
-   on the main path's.
-6. Fisher: ``-t A,B``, the same flags; exact once, the port cold and
-   warm.  Checks: the same row rule, cold == warm bytes, K1 and K2
-   launched 6 times, K3 3 times, K4 at least 3 times per run.  One
-   more run keeps the inputs of its K3 calls: K3 on them against its
-   float64 plain version and its first design (bitwise), times.
+   same flags; both exact engines once, the port cold and warm, the
+   same checks as the main path.  One more run keeps the inputs of its
+   K2 calls, the only ones where the control varies from row to row:
+   K2 on them as on the main path's.
+6. Fisher: ``-t A,B``, the same flags; both exact engines once, the
+   port cold and warm.  Checks: the same row rule, cold == warm bytes,
+   K1 and K2 launched 6 times, K3 3 times, K4 at least 3 times per
+   run.  One more run keeps the inputs of its K3 calls: K3 on them
+   against its float64 plain version and its first design (bitwise),
+   times.
 7. Sharded main path: the main path's BAM and flags with ``--engine
    sharded`` under a one-rank NCCL process group (MASTER_ADDR,
    MASTER_PORT, RANK=0, WORLD_SIZE=1 set for the phase, so the
@@ -78,14 +85,17 @@ non-zero, and the result line is printed only when every phase passed:
    them as on the Fisher path's calls.
 9. Serve: a child ``python -m genrich_tpu_torch --serve --device cuda``
    fed ``--engine jax`` twice, ``--engine sharded`` twice, a bogus line,
-   ``--engine jax`` again, on the main path's BAM and flags.  Statuses
-   OK OK OK OK ERR OK; each engine's warm file equals its cold one and
-   the in-process run of the same engine (phases 4 and 7); every OK
-   line's JSON has ingest_s, upload_bytes, dispatch_n and fetch_s; the
-   walls, cold beside warm.
+   ``--engine jax`` again and ``--engine exact``, on the main path's
+   BAM and flags.  Statuses OK OK OK OK ERR OK OK; each engine's warm
+   file equals its cold one and the in-process run of the same engine
+   (phases 4 and 7; the exact line's, the port's exact file of phase
+   4); every device line's JSON has ingest_s, upload_bytes, dispatch_n
+   and fetch_s, the exact line's ingest_s and findpeaks_s; the walls,
+   cold beside warm.
 10. Logs (depth cut to a 200,000-pair BAM: every log row is text on
-   both sides): ``-f f.log -k k.log`` with the same flags, port against
-   exact by ``testing.check_log``.
+   both sides): ``-f f.log -k k.log`` with the same flags; both exact
+   engines byte-identical (narrowPeak, both logs, -v stderr), then the
+   port on the card against the exact logs by ``testing.check_log``.
 11. The last lines: the kernels JSON, the nvidia-smi line and {"ok":
    true, "device": {...}}; neither jax nor genrich_tpu is ever imported
    in this process.  Each kernel's bound is the larger of its bytes
@@ -100,6 +110,8 @@ non-zero, and the result line is printed only when every phase passed:
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import socket
@@ -462,6 +474,21 @@ def _kernel_launches(fn):
     return names
 
 
+def _kernels_per_call(name, fn, where):
+    """The kernels one call of ``fn`` (a wrapper of kernel ``name``)
+    launches, by graph capture; they must be
+    ``kernels.KERNELS_PER_CALL[name]``, the table prof.py holds the
+    profiler's records to."""
+    from genrich_tpu_torch import kernels
+    ran = _kernel_launches(fn)
+    want = kernels.KERNELS_PER_CALL[name]
+    if len(ran) != len(want) or not all(
+            kernels.is_kernel(r, w) for r, w in zip(ran, want)):
+        raise AssertionError(f"{name}, {where}: launched {ran}, not "
+                             f"{list(want)}")
+    return ran
+
+
 def _k1_bitwise(packed, groups, carry, lam):
     """K1 against its plain version and its first design, bitwise on
     the coverage; returns K1's output."""
@@ -501,11 +528,8 @@ def k1_path_phase(calls, path):
         if got is None or _k1_bitwise(packed, groups, alt, lam) is None:
             raise AssertionError(f"coverage_scan, {path} path call {i}: "
                                  f"not bitwise")
-        ran = _kernel_launches(lambda: scan.coverage_scan(
-            packed, groups, carry, lam))
-        if len(ran) != 1 or "coverage_scan_kernel" not in ran[0]:
-            raise AssertionError(f"coverage_scan, {path} path call {i}: "
-                                 f"{len(ran)} kernels: {ran}")
+        ran = _kernels_per_call("coverage_scan", lambda: scan.coverage_scan(
+            packed, groups, carry, lam), f"{path} path call {i}")
         nonzero += bool((carry != 0).any())
         m = packed.shape[0]
         parts.append(_bound(_scan_bytes(m, groups, lam),
@@ -683,7 +707,9 @@ def k4_path_phase(calls, path):
     for i, call in enumerate(calls):
         args = [a.to(dev) if torch.is_tensor(a) else a for a in call]
         res = _hold_k4(args, call[-1])
-        res.update(rows=int(args[0].shape[0]),
+        res.update(kernels_per_call=_kernels_per_call(
+            "peak_reduce", lambda: peaks.peak_reduce(*args),
+            f"{path} path call {i}"), rows=int(args[0].shape[0]),
                    ms=_median_ms(lambda: peaks.peak_reduce(*args)),
                    call_ms=_median_ms(lambda: peaks.peak_reduce(*args),
                                       busy=False),
@@ -782,38 +808,94 @@ def _rel_diffs(ref_path, out_path):
     return worst
 
 
+def _summit_diffs(ref_path, out_path):
+    """Matched rows (columns 1-3) whose column 10, the summit offset,
+    differs from the exact engine's (printed, not gated on)."""
+    ref, out = _rows(ref_path), _rows(out_path)
+    return sum(ref[k][9] != out[k][9] for k in ref.keys() & out.keys())
+
+
 def _native_used() -> bool:
     from genrich_tpu_torch.ingest import native
     return native.available(build=False)
 
 
-# The exact engine runs in a child process, so that this one never
-# imports jax or genrich_tpu; it loads the native library that the
-# port's ensure_native() found (argv[2]) and prints, last, whether that
-# library served the run.
-_EXACT = ("import sys; sys.path.insert(0, sys.argv[1]); "
+# The JAX package's exact engine runs in a child process, so that this
+# one never imports jax or genrich_tpu; it loads the native library that
+# the port's ensure_native() found (argv[2]) and prints the wall of its
+# cli.main call, then, last, whether that library served the run.
+_EXACT = ("import sys, time; sys.path.insert(0, sys.argv[1]); "
           "from genrich_tpu.ingest import native; "
           "native._SO = sys.argv[2]; "
           "from genrich_tpu import cli; "
-          "rc = cli.main(sys.argv[3:]); "
+          "t0 = time.perf_counter(); rc = cli.main(sys.argv[3:]); "
+          "print(time.perf_counter() - t0); "
           "print(native.available(build=False)); sys.exit(rc)")
 NATIVE_SO = {}
 
 
 def run_exact(label: str, args):
-    """``--engine exact`` on ``args`` in a child process; returns its
-    wall (the child's start and imports included)."""
-    t0 = time.perf_counter()
+    """The JAX package's ``--engine exact -v`` on ``args`` in a child
+    process; returns the wall of its ``cli.main`` call and its stderr."""
     r = subprocess.run([sys.executable, "-c", _EXACT, REPO,
-                        NATIVE_SO["path"]] + args + ["--engine", "exact"],
+                        NATIVE_SO["path"]] + args
+                       + ["-v", "--engine", "exact"],
                        capture_output=True, text=True)
-    wall = time.perf_counter() - t0
     if r.returncode != 0:
         raise AssertionError(f"exact engine ({label}) exit code "
                              f"{r.returncode}: {r.stderr[-2000:]}")
-    if r.stdout.split()[-1:] != ["True"]:
+    wall, used = r.stdout.split()[-2:]
+    if used != "True":
         raise AssertionError(f"exact engine ({label}) used Python ingest")
-    return wall
+    return float(wall), r.stderr
+
+
+def run_port_exact(label: str, args):
+    """The port's ``--engine exact -v`` on ``args`` in this process (host
+    code only); returns its wall and its stderr."""
+    from genrich_tpu_torch import cli
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(args + ["-v", "--engine", "exact"])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"port exact engine ({label}) exit code {rc}: "
+                             f"{err.getvalue()[-2000:]}")
+    if not _native_used():
+        raise AssertionError(f"port exact engine ({label}) used Python "
+                             f"ingest")
+    return wall, err.getvalue()
+
+
+def exact_pair(label: str, args, outputs):
+    """``--engine exact`` of the JAX package (child) and of the port (this
+    process) on ``args``; ``outputs`` maps each output flag to the
+    (JAX, port) paths.  Every output file and the -v stderr must be
+    byte-identical.  Prints both walls: host seconds of each side's
+    ``cli.main`` call on the card's machine."""
+    def with_outputs(side):
+        return args + [x for flag, paths in outputs.items()
+                       for x in (flag, paths[side])]
+    jax_wall, jax_err = run_exact(label, with_outputs(0))
+    port_wall, port_err = run_port_exact(label, with_outputs(1))
+    same = {flag: open(a, "rb").read() == open(b, "rb").read()
+            for flag, (a, b) in outputs.items()}
+    say(f"{label}_exact", jax_wall_s=jax_wall, port_wall_s=port_wall,
+        walls="host s of cli.main; JAX in a child process, port here",
+        peaks=sum(1 for _ in open(outputs["-o"][0])), ingest="native",
+        identical=same, stderr_identical=jax_err == port_err,
+        stderr_lines=jax_err.count("\n"))
+    if not all(same.values()):
+        raise AssertionError(f"{label}: the port's exact engine wrote other "
+                             f"bytes than the JAX package's: {same}")
+    if jax_err != port_err:
+        diff = [(a, b) for a, b in zip(jax_err.splitlines(),
+                                       port_err.splitlines()) if a != b]
+        raise AssertionError(f"{label}: -v stderr differs: {diff[:3]} "
+                             f"({jax_err.count(chr(10))} / "
+                             f"{port_err.count(chr(10))} lines)")
+    return jax_wall, port_wall
 
 
 def run_port(label: str, args):
@@ -847,9 +929,8 @@ def peak_runs(name: str, ts, need, extra=(), ref=None):
     os.makedirs(run_dir, exist_ok=True)
     ref_np = os.path.join(run_dir, f"{ref or name}_exact.np")
     if ref is None:
-        wall = run_exact(name, ["-t", ts, "-o", ref_np, *extra] + FLAGS)
-        say(f"{name}_exact", wall_s=wall,
-            peaks=sum(1 for _ in open(ref_np)), ingest="native")
+        exact_pair(name, ["-t", ts, *extra] + FLAGS, {"-o": (
+            ref_np, os.path.join(run_dir, f"{name}_port_exact.np"))})
     counts = {}
     for label in ("cold", "warm"):
         out_np = os.path.join(run_dir, f"{name}_port_{label}.np")
@@ -859,7 +940,8 @@ def peak_runs(name: str, ts, need, extra=(), ref=None):
         diffs = _rel_diffs(ref_np, out_np)
         say(f"{name}_port_{label}", wall_s=wall, launches=counts,
             ingest="native", max_memory_allocated=mem, rows=rows,
-            worst_rel_diff=diffs, perf=perf)
+            worst_rel_diff=diffs, summit_differs=_summit_diffs(
+                ref_np, out_np), perf=perf)
         fault = need(counts)
         if fault:
             raise AssertionError(f"{name} ({label}): {fault}: {counts}")
@@ -980,6 +1062,9 @@ def k2_path_phase(calls, path):
                                  f"differs from the first design")
         m = args[0].shape[0]
         res = {"rows": m, "max_abs_err": err,
+               "kernels_per_call": _kernels_per_call(
+                   "tile_stats", lambda: pipeline.tile_stats(*args),
+                   f"{path} path call {i}"),
                "ms": _median_ms(lambda: pipeline.tile_stats(*args)),
                "call_ms": _median_ms(lambda: pipeline.tile_stats(*args),
                                      busy=False),
@@ -1033,6 +1118,9 @@ def k3_path_phase(calls, path):
         r, n = pv.shape
         err = float((got - want).abs().max())
         res = {"replicates": r, "lanes": n, "max_abs_err": err,
+               "kernels_per_call": _kernels_per_call(
+                   "fisher_combine", lambda: chisq.fisher_combine(pv),
+                   f"{path} path call {i}"),
                "ms": _median_ms(lambda: chisq.fisher_combine(pv)),
                "call_ms": _median_ms(lambda: chisq.fisher_combine(pv),
                                      busy=False),
@@ -1154,7 +1242,7 @@ def sharded_fisher_path(bam_a, bam_b):
 
 SERVE_LINES = [("jax_cold", "jax"), ("jax_warm", "jax"),
                ("sharded_cold", "sharded"), ("sharded_warm", "sharded"),
-               ("bogus", None), ("jax_again", "jax")]
+               ("bogus", None), ("jax_again", "jax"), ("exact", "exact")]
 
 
 def serve_phase(bam):
@@ -1181,7 +1269,7 @@ def serve_phase(bam):
         raise AssertionError(f"serve exit code {r.returncode}: "
                              f"{r.stderr[-2000:]}")
     statuses = [ln.split()[0] for ln in out[1:]]
-    if statuses != ["OK", "OK", "OK", "OK", "ERR", "OK"]:
+    if statuses != ["OK", "OK", "OK", "OK", "ERR", "OK", "OK"]:
         raise AssertionError(f"serve statuses {statuses}: "
                              f"{r.stderr[-2000:]}")
     walls, perfs = {}, {}
@@ -1191,48 +1279,53 @@ def serve_phase(bam):
         if engine is None:
             continue
         perfs[label] = json.loads(parts[2])
-        missing = [k for k in ("ingest_s", "upload_bytes", "dispatch_n",
-                               "fetch_s") if k not in perfs[label]]
+        keys = ("ingest_s", "findpeaks_s") if engine == "exact" \
+            else ("ingest_s", "upload_bytes", "dispatch_n", "fetch_s")
+        missing = [k for k in keys if k not in perfs[label]]
         if missing:
             raise AssertionError(f"serve {label}: OK line lacks {missing}")
 
     def read(path):
         return open(path, "rb").read()
     same = {}
-    for engine, in_process in (("jax", "main"), ("sharded", "sharded")):
+    for engine, in_process in (("jax", "main_port_cold"),
+                               ("sharded", "sharded_port_cold"),
+                               ("exact", "main_port_exact")):
         files = [read(os.path.join(run_dir, f"{label}.np"))
                  for label, e in SERVE_LINES if e == engine]
-        ref = read(os.path.join(WORK, "chip_smoke",
-                                f"{in_process}_port_cold.np"))
+        ref = read(os.path.join(WORK, "chip_smoke", f"{in_process}.np"))
         same[engine] = all(f == files[0] for f in files) and files[0] == ref
         if not same[engine]:
             raise AssertionError(f"serve --engine {engine}: files differ "
                                  f"from each other or the in-process run")
     say("serve", statuses=statuses, child_s=child_s, walls_s=walls,
         equal_to_in_process=same,
-        warm_perf={k: perfs[k] for k in ("jax_warm", "sharded_warm")})
+        warm_perf={k: perfs[k] for k in ("jax_warm", "sharded_warm",
+                                          "exact")})
 
 
 def logs_path(bam):
     run_dir = os.path.join(WORK, "chip_smoke", "logs")
     out = {}
-    for side in ("exact", "port"):
-        d = os.path.join(run_dir, side)
-        os.makedirs(d, exist_ok=True)
-        args = ["-t", bam, "-o", os.path.join(d, "out.np"),
-                "-f", os.path.join(d, "f.log"),
-                "-k", os.path.join(d, "k.log")] + FLAGS
-        if side == "exact":
-            out[side] = {"wall_s": run_exact("logs", args)}
-        else:
-            wall, counts, perf, mem = run_port("logs", args)
-            missing = [k for k in ("coverage_scan", "tile_stats")
-                       if counts[k] <= 0]
-            if missing:
-                raise AssertionError(f"logs: kernels not launched: "
-                                     f"{missing}")
-            out[side] = {"wall_s": wall, "launches": counts,
-                         "max_memory_allocated": mem, "perf": perf}
+    for side in ("exact", "port_exact", "port"):
+        os.makedirs(os.path.join(run_dir, side), exist_ok=True)
+
+    def path(side, name):
+        return os.path.join(run_dir, side, name)
+    jax_wall, port_wall = exact_pair("logs", ["-t", bam] + FLAGS, {
+        flag: (path("exact", name), path("port_exact", name))
+        for flag, name in (("-o", "out.np"), ("-f", "f.log"),
+                           ("-k", "k.log"))})
+    out["exact"] = {"wall_s": jax_wall}
+    out["port_exact"] = {"wall_s": port_wall}
+    wall, counts, perf, mem = run_port("logs", [
+        "-t", bam, "-o", path("port", "out.np"), "-f", path("port", "f.log"),
+        "-k", path("port", "k.log")] + FLAGS)
+    missing = [k for k in ("coverage_scan", "tile_stats") if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"logs: kernels not launched: {missing}")
+    out["port"] = {"wall_s": wall, "launches": counts,
+                   "max_memory_allocated": mem, "perf": perf}
     from genrich_tpu_torch import testing
     checks = {name: testing.check_log(os.path.join(run_dir, "exact", name),
                                       os.path.join(run_dir, "port", name))

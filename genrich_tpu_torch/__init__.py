@@ -1,19 +1,20 @@
-"""genrich_tpu_torch: the PyTorch/CUDA port of genrich-tpu's device path.
+"""genrich_tpu_torch: the PyTorch/CUDA port of genrich-tpu.
 
-The peak-calling path of ``genrich_tpu``'s ``--engine jax`` (one or
-several ``-t`` replicates, the ``-f``/``-k`` logs, ``-X``/``-P``) runs
-here on one NVIDIA Hopper card through hand-written CUDA kernels
+The peak-calling paths of ``genrich_tpu``'s device engines (``--engine
+jax`` and ``sharded``: one or several ``-t`` replicates, the
+``-f``/``-k`` logs, ``-X``/``-P``, ``--serve``) run here on one NVIDIA
+Hopper card through hand-written CUDA kernels
 (``genrich_tpu_torch/csrc``), or on the CPU through their plain PyTorch
-versions.  The package stands alone: it imports ``torch`` and never
-``jax`` nor ``genrich_tpu``, and keeps its own copy of the host half it
-runs (ingest, params, the exact engine's host numerics for BH, Fisher
-with logs, ``-P`` and the >2^31-bp fallback, the writers).
+versions; ``--engine exact`` runs the host engine in numpy, as the JAX
+package does.  The package stands alone: it imports ``torch`` and never
+``jax`` nor ``genrich_tpu``, and keeps its own copy of the host half
+(ingest, params, the exact engine, the writers, ``tools/find_ns``).
 
 Layout mirrors ``genrich_tpu``, so each module's counterpart has the
 same path there: ``errors``, ``params``, ``io/``, ``ingest/`` (with the
 native library's build in ``ingest/native.py``), ``output/``,
-``logreader``, ``utils/`` and the host modules of ``engine/`` are
-copies; ``pipeline`` is cut to the device engine; ``ops/`` holds the
+``logreader``, ``utils/``, ``tools/``, ``pipeline`` and the host modules
+of ``engine/`` are copies; ``ops/`` holds the
 tensor programs (each with its JAX twin named in its docstring),
 ``engine/torch_bridge.py`` the device engine that ``pipeline.run``
 drives, ``kernels.py`` the nvcc build, ctypes binding and launch

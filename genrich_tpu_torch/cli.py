@@ -1,18 +1,21 @@
 """Command line of the port: Genrich flags plus ``--device cuda|cpu``.
 
     python -m genrich_tpu_torch -t in.bam -o out.narrowPeak [flags]
-        [--engine jax|sharded] [--device cuda|cpu]
+        [--engine jax|sharded|exact] [--device cuda|cpu]
     python -m genrich_tpu_torch --serve [default flags] [--device cuda|cpu]
 
 Flags are parsed by ``params.parse_args``; the analysis is
 ``pipeline.run`` with a device engine on the chosen device (default
 ``cuda``; no card is an error, never a silent switch to the CPU).
-``--engine jax`` (the default) selects ``TorchEngine``, ``--engine
-sharded`` the tile-sharded ``ShardedTorchEngine`` (one rank, or a
+``--engine jax`` selects ``TorchEngine``, ``--engine sharded`` the
+tile-sharded ``ShardedTorchEngine`` (one rank, or a
 ``torch.distributed`` group joined from ``MASTER_ADDR``/``MASTER_PORT``/
 ``WORLD_SIZE``/``RANK``); the names are the JAX package's, so its
-argument strings run unchanged.  ``--engine exact`` (the exact engine's
-host stages) fails with "not yet ported to genrich_tpu_torch".
+argument strings run unchanged.  The port's default engine is ``jax``;
+the JAX package's (the ``Params`` default) is ``exact``.  ``--engine
+exact`` is the host engine by name, as in the JAX package:
+``pipeline.run`` with no device engine, numpy on the host with C-exact
+semantics; it touches no CUDA API and ignores ``--device``.
 ``--serve`` runs ``serve.serve_loop``: one analysis per stdin line,
 with one engine per kind kept across them.
 
@@ -73,16 +76,13 @@ Other options:
 
 
 EXTRA_USAGE = """Options of the PyTorch port:
-  --device <str>   cuda (def.) or cpu
-  --engine <str>   jax (def.; one tensor per chromosome) or sharded
+  --device <str>   cuda (def.) or cpu; not read by --engine exact
+  --engine <str>   jax (def.; one tensor per chromosome), sharded
                      (tiles; torch.distributed ranks from MASTER_ADDR,
-                     MASTER_PORT, WORLD_SIZE, RANK)
+                     MASTER_PORT, WORLD_SIZE, RANK) or exact (the host
+                     engine: numpy, no device)
   --serve          One analysis per stdin line (READY; OK/ERR per line)
 """
-
-
-class NotPorted(Exception):
-    pass
 
 
 def _split_device(argv: List[str]) -> Tuple[str, List[str]]:
@@ -103,22 +103,18 @@ def _split_device(argv: List[str]) -> Tuple[str, List[str]]:
     return device, rest
 
 
-def _no(what: str):
-    raise NotPorted(f"{what} is not yet ported to genrich_tpu_torch")
-
-
 def parse_port_args(argv: List[str]) -> Params:
     """``parse_args`` with the port's default engine, ``jax`` (the
     ``Params`` default, ``exact``, is the JAX package's); a later
-    ``--engine`` wins, and ``exact`` raises NotPorted."""
-    p = parse_args(["--engine", "jax"] + argv)
-    if p.engine == "exact":
-        _no("--engine exact")
-    return p
+    ``--engine`` wins."""
+    return parse_args(["--engine", "jax"] + argv)
 
 
 def make_engine(kind: str, device: str):
-    """A device engine of ``kind`` ("jax" or "sharded") on ``device``."""
+    """A device engine of ``kind`` ("jax" or "sharded") on ``device``;
+    None for "exact", the host engine."""
+    if kind == "exact":
+        return None
     if kind == "sharded":
         from .engine.sharded_bridge import ShardedTorchEngine
         return ShardedTorchEngine(device)
@@ -165,7 +161,7 @@ def main(argv: Optional[List[str]] = None,
     except GenrichError as e:
         sys.stderr.write(e.render() + "\n")
         return 1
-    except (NotPorted, ValueError) as e:
+    except ValueError as e:
         sys.stderr.write(f"Error! {e}\n")
         return 1
 

@@ -9,7 +9,10 @@ from the carry of the tiles before it (K1), p-values run over all tiles
 (K2), each tile calls its own peaks (K4, at most ``PEAK_CAP``
 candidates) and the host merges peaks that straddle tile boundaries
 (``merge_tile_peaks``); the -f/-k logs stitch the tiles' RLE runs, and
-several replicates combine tile by tile (K3).
+several replicates combine tile by tile (K3).  A merged peak that
+straddles a boundary gets its AUC summed again over its rows in
+genomic order (``_row_order_aucs``), as TorchEngine's K4 and the exact
+engine sum one peak; the JAX twin keeps the sum of its tiles' AUCs.
 
 Reference semantics per stage (float32, as TorchEngine):
   coverage/pileup   savePileupExpt/Ctrl   Genrich.c:2052-2295
@@ -43,12 +46,14 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..ops.compact import assign_qvals
 from ..ops.peaks import TilePeaks
 from ..ops.pipeline import TileResult
 from ..parallel.distributed import (init_distributed, local_tile_range,
                                     rank_device)
-from ..parallel.mesh import (ShardedKernels, merge_tile_peaks, world_rank,
-                             split_events_flat, split_excl_to_tiles)
+from ..parallel.mesh import (ShardedKernels, gather_rows, merge_tile_peaks,
+                             world_rank, split_events_flat,
+                             split_excl_to_tiles)
 from . import qvalue
 from .host_fallback import INT32_MAX, HostChromMixin
 from .perf import PerfMixin
@@ -64,6 +69,21 @@ def _pow2(n: int, lo: int = 1) -> int:
     while size < n:
         size <<= 1
     return size
+
+
+def gather_ragged(x: torch.Tensor, group) -> torch.Tensor:
+    """Rank-local 1-D rows of any length -> every rank's rows
+    concatenated in rank order, on every rank; ``x`` without a group."""
+    if group is None:
+        return x
+    n = gather_rows(torch.tensor([x.shape[0]], device=x.device),
+                    group).tolist()
+    width = max(n)
+    if width == 0:
+        return x
+    pad = torch.zeros(width - x.shape[0], dtype=x.dtype, device=x.device)
+    parts = gather_rows(torch.cat([x, pad]), group).split(width)
+    return torch.cat([part[:k] for part, k in zip(parts, n)])
 
 
 def expand_flat(fs, fe, fc, off, n_tiles: int, width: int, tile_len: int):
@@ -423,32 +443,85 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
                          st["starts"], st["ends"], st["pv"], st["live"],
                          tab_p, tab_q, min_pq, min_auc)
         cap = min(PEAK_CAP, st["starts"].shape[1])
-        return res, st, cap, min_auc, min_len, max_gap
+        return res, st, cap, min_pq, min_auc, min_len, max_gap, use_q
 
     def peaks_fetch(self, handle):
         """Resolve a ``peaks_submit`` handle: the cap check, then the host
-        boundary merge.  Returns the peak arrays, or None when a tile had
-        more candidates than the cap (the host peak caller finishes)."""
-        res, st, cap, min_auc, min_len, max_gap = handle
+        boundary merge, the row-order AUC of each merged peak that
+        straddles a tile boundary, and the min-AUC filter.  Returns the
+        peak arrays, or None when a tile had more candidates than the cap
+        (the host peak caller finishes)."""
+        res, st, cap, min_pq, min_auc, min_len, max_gap, use_q = handle
         res = self._fetch_many(res)
         if int(res[-1].max()) > cap:           # n_peaks
             self.perf["host_peak_chroms"] += 1
             return None
         tile_len = st["tile_len"]
+        # no AUC filter yet: a straddling peak's AUC changes below
         merged = merge_tile_peaks(TileResult(TilePeaks(*res), None, None),
-                                  tile_len, min_auc, min_len, max_gap)
-        if not merged:
-            z64 = np.zeros(0, np.int64)
-            zf = np.zeros(0, F32)
-            return z64, z64, zf, zf, zf, z64
+                                  tile_len, -np.inf, min_len, max_gap)
         starts = np.array([m[0] for m in merged], np.int64)
         ends = np.array([m[1] for m in merged], np.int64)
-        self.perf["straddling_peaks"] += int(
-            (starts // tile_len < (ends - 1) // tile_len).sum())
-        return (starts, ends, np.array([m[2] for m in merged], F32),
-                np.array([m[3] for m in merged], F32),
-                np.array([m[4] for m in merged], F32),
-                np.array([m[5] for m in merged], np.int64))
+        aucs = np.array([m[2] for m in merged], F32)
+        strad = starts // tile_len < (ends - 1) // tile_len
+        if strad.any():
+            aucs[strad] = self._row_order_aucs(st, starts[strad],
+                                               ends[strad], min_pq, use_q)
+        keep = aucs >= F32(min_auc)
+        self.perf["straddling_peaks"] += int((strad & keep).sum())
+        return (starts[keep], ends[keep], aucs[keep],
+                np.array([m[3] for m in merged], F32)[keep],
+                np.array([m[4] for m in merged], F32)[keep],
+                np.array([m[5] for m in merged], np.int64)[keep])
+
+    def _row_order_aucs(self, st, p_start, p_end, min_pq: float,
+                        use_q: bool) -> np.ndarray:
+        """Float32 AUC of each peak [p_start, p_end) (chromosome
+        coordinates), summed over its significant rows in genomic order
+        across tiles: ``auc = f32(auc + f32(len * f32(stat - min_pq)))``,
+        the order of K4 and of the exact engine's updatePeak.  A row that
+        a tile boundary cut in two (equal stat on both sides, the rule of
+        ``_stitch``) counts as the one row it is in TorchEngine's layout.
+        Each rank selects the rows of its own tiles; ranks hold
+        consecutive tiles, so the gathered rows are in genomic order."""
+        tl = st["tile_len"]
+        starts, ends, pv = st["starts"], st["ends"], st["pv"]
+        stat = assign_qvals(pv.reshape(-1), *self._qtable).reshape(
+            pv.shape) if use_q else pv
+        thr = F32(min_pq)
+        t = starts.shape[0]
+        off = (torch.arange(t, dtype=torch.int64, device=starts.device)
+               + self.rank * t)[:, None] * tl
+        g_start = (starts + off).reshape(-1)
+        g_end = (ends + off).reshape(-1)
+        sig = st["live"] & (ends > starts) & (stat > float(thr))
+        peak = torch.searchsorted(torch.as_tensor(p_start,
+                                                  device=starts.device),
+                                  g_start, right=True) - 1
+        take = sig.reshape(-1) & (peak >= 0) & (
+            g_end <= torch.as_tensor(p_end, device=starts.device)[
+                peak.clamp_min(0)])
+        # the generator runs inside the fetch, so the boolean selection's
+        # host sync is accounted as the fetch it is
+        peak, g_start, g_end, stat = self._fetch_many(
+            gather_ragged(x[take], self.group)
+            for x in (peak, g_start, g_end, stat.reshape(-1)))
+        out = np.zeros(len(p_start), F32)
+        if not len(peak):
+            return out
+        cut = ((g_end[:-1] == g_start[1:]) & (g_end[:-1] % tl == 0)
+               & (stat[:-1] == stat[1:]) & (peak[:-1] == peak[1:]))
+        head = np.flatnonzero(np.concatenate([[True], ~cut]))
+        lens = np.add.reduceat(g_end - g_start, head)
+        contrib = lens.astype(F32) * (stat[head] - thr)
+        peak = peak[head]
+        for j in range(len(p_start)):
+            rows = contrib[peak == j]
+            if len(rows):
+                # a sequential float32 sum (add.accumulate never
+                # reassociates)
+                out[j] = np.cumsum(rows, dtype=F32)[-1]
+        return out
 
     def release(self) -> None:
         self._chrom.clear()

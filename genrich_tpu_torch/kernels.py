@@ -19,7 +19,8 @@ of the p-value header, not ``csrc/pval.cuh``.
 launched it on the card (the wrappers in ``ops/scan.py``,
 ``ops/pipeline.py``, ``ops/chisq.py`` and ``ops/peaks.py`` add one each
 time); a run reads the counts to show that its main path went through
-the kernels.
+the kernels.  ``KERNELS_PER_CALL`` names the device kernels that one
+such call runs.
 """
 
 from __future__ import annotations
@@ -27,12 +28,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -51,6 +53,25 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES: Dict[str, int] = {"coverage_scan": 0, "tile_stats": 0,
                             "fisher_combine": 0, "peak_reduce": 0}
+
+# The device kernels that one counted call of each wrapper runs
+# (chip_smoke.py checks them by CUDA graph capture on the paths' own
+# calls; prof.py holds the profiler's kernel records to them).
+KERNELS_PER_CALL: Dict[str, Tuple[str, ...]] = {
+    "coverage_scan": ("coverage_scan_kernel",),
+    "tile_stats": ("tile_stats_table_kernel", "tile_stats_kernel"),
+    "fisher_combine": ("fisher_combine_kernel",),
+    "peak_reduce": ("peak_reduce_kernel",)}
+
+
+def is_kernel(name: str, ident: str) -> bool:
+    """Whether a device kernel's ``name`` is the function ``ident``:
+    mangled, as ``cuFuncGetName`` gives it (``_Z17tile_stats_kernelPKf...``),
+    or demangled, as torch.profiler does (``tile_stats_kernel(float
+    const*, ...)``)."""
+    return f"{len(ident)}{ident}" in name or re.search(
+        rf"(?<!\w){ident}(?!\w)", name) is not None
+
 
 _lib: Optional[ctypes.CDLL] = None
 _ref_lib: Optional[ctypes.CDLL] = None

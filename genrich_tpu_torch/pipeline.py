@@ -1,14 +1,17 @@
 """Main analysis pipeline: the runProgram equivalent (Genrich.c:5386-5695).
 
-Copy of ``genrich_tpu/pipeline.py`` cut to what the port runs: a device
-engine (``engine/torch_bridge.TorchEngine`` or
+Copy of ``genrich_tpu/pipeline.py``.  With a device engine
+(``engine/torch_bridge.TorchEngine`` or
 ``engine/sharded_bridge.ShardedTorchEngine``, chosen by the caller from
-``--engine``) is always present.
-Replicate loop: parse expt/ctrl SAM/BAM -> fragment events -> device
-coverage and p-values (``_replicate_device``); then findPeaks, on the
-device (``_find_peaks_device``: Fisher combination, q-values, peak
-calling over resident arrays) when no -f/-k log is asked for, else on
-the host from compact RLE pileups (``find_peaks``).
+``--engine jax|sharded``), the replicate loop is: parse expt/ctrl
+SAM/BAM -> fragment events -> device coverage and p-values
+(``_replicate_device``); then findPeaks, on the device
+(``_find_peaks_device``: Fisher combination, q-values, peak calling over
+resident arrays) when no -f/-k log is asked for, else on the host from
+compact RLE pileups (``find_peaks``).  Without one (``--engine exact``)
+every stage runs on the host in numpy with C-exact semantics: pileups
+(``_save_pileup_expt``/``_ctrl``/``_noctrl``), p-values
+(``_save_pval``) and ``find_peaks``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,8 +24,10 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from .engine import chisq, peaks as peaks_mod, qvalue
-from .engine.pileup import Pileup
+from .engine import chisq, peaks as peaks_mod, pvalue, qvalue
+from .engine.pileup import (Pileup, calc_factor, calc_lambda,
+                            const_pileup, ctrl_frag_terms, ctrl_pileup,
+                            expt_pileup, lambda_pileup)
 from .errors import ERREXPT, ERRGEN, ERRISSUE, fatal, warn
 from .ingest.bam import read_bam
 from .ingest.chroms import ChromRegistry
@@ -89,6 +94,31 @@ def _chrom_events(sink: EventSink, chrom_index: int):
         return None
     return (np.asarray(buf[0], np.int64), np.asarray(buf[1], np.int64),
             np.asarray(buf[2], np.int64))
+
+
+def _par_map(fn, items):
+    """Map fn over per-chromosome work items, in parallel when it can
+    help.  Results come back in input order, so every downstream
+    reduction (exact float64 fragment sums, BH tables, log writers)
+    sees exactly the sequential order — numpy's big-array ufuncs and
+    the ctypes breakpoint kernel release the GIL, so chromosomes
+    genuinely overlap.  The reference is single-threaded
+    (Genrich.c:5386-5695 runs its chromosome loops serially)."""
+    import os as _os
+    # cores-1 workers: on a 2-core box 2-thread numerics measured a
+    # WASH at <=100M records and a 27 s LOSS at 146M (glibc main-
+    # arena contention on GB-scale temporaries once the heap starts
+    # growing under the lock), so the serial path is the 2-core
+    # default; GENRICH_NUMERIC_THREADS overrides in either direction
+    n = min(len(items), max(1, (_os.cpu_count() or 2) - 1), 4)
+    env = _os.environ.get("GENRICH_NUMERIC_THREADS", "")
+    if env:
+        n = min(len(items), max(1, int(env)))
+    if n <= 1 or len(items) <= 1:
+        return [fn(it) for it in items]
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=n) as ex:
+        return list(ex.map(fn, items))
 
 
 def _append_text(path: Optional[str], gz: bool, text: str) -> None:
@@ -179,6 +209,104 @@ def _compute_genome_len(registry: ChromRegistry, use_chrom) -> int:
             for j in range(0, len(c.bed), 2):
                 total -= c.bed[j + 1] - c.bed[j]
     return total
+
+
+def _save_pileup_expt(registry: ChromRegistry, sink: EventSink
+                      ) -> tuple:
+    """savePileupExpt over all chroms; returns (pileups, fragLen)."""
+    out: Dict[int, Pileup] = {}
+    all_terms = []
+    work = []
+    for c in registry:
+        if c.skip or not c.save:
+            continue
+        ev = _chrom_events(sink, c.index)
+        if ev is None:
+            out[c.index] = const_pileup(c.length, F32(0.0))
+            continue
+        work.append((c, ev))
+    for (c, _), (pu, terms) in zip(work, _par_map(
+            lambda w: expt_pileup(w[1][0], w[1][1], w[1][2],
+                                  w[0].length, w[0].bed), work)):
+        out[c.index] = pu
+        all_terms.append(terms)
+    from .engine.pileup import exact_sum_f64
+    frag_len = exact_sum_f64(
+        np.concatenate(all_terms) if all_terms
+        else np.zeros(0, F32))
+    if frag_len == 0.0:
+        raise fatal("", ERREXPT)
+    return out, frag_len
+
+
+def _save_pileup_ctrl(registry: ChromRegistry, sink: EventSink,
+                      frag_len: float, genome_len: int,
+                      verbose: bool) -> Dict[int, Pileup]:
+    """savePileupCtrl (Genrich.c:2052-2161)."""
+    lam = _calc_lambda(registry, frag_len, genome_len)
+    if verbose:
+        warn(f"  Background pileup value: {fmt_f(lam)}\n")
+    work = []
+    for c in registry:
+        if c.skip or not c.save:
+            continue
+        ev = _chrom_events(sink, c.index)
+        if ev is None:
+            continue
+        work.append((c, ev))
+    ctrl_terms = _par_map(
+        lambda w: ctrl_frag_terms(w[1][0], w[1][1], w[1][2],
+                                  w[0].length, w[0].bed), work)
+    from .engine.pileup import exact_sum_f64
+    ctrl_frag = exact_sum_f64(
+        np.concatenate(ctrl_terms) if ctrl_terms
+        else np.zeros(0, F32))
+    factor = calc_factor(frag_len, ctrl_frag)
+    if verbose:
+        warn(f"  Scaling factor for control pileup: {fmt_f(factor)}\n")
+        if factor > F32(5.0):
+            warn("  ** Warning! Large scaling may mask true signal **\n")
+    out: Dict[int, Pileup] = {}
+    work2 = []
+    for c in registry:
+        if c.skip or not c.save:
+            continue
+        ev = _chrom_events(sink, c.index)
+        if ev is None:
+            out[c.index] = lambda_pileup(c.length, c.bed, lam)
+        else:
+            work2.append((c, ev))
+    for (c, _), pu in zip(work2, _par_map(
+            lambda w: ctrl_pileup(w[1][0], w[1][1], w[1][2],
+                                  w[0].length, w[0].bed, factor,
+                                  lam), work2)):
+        out[c.index] = pu
+    return out
+
+
+def _calc_lambda(registry: ChromRegistry, frag_len: float,
+                 genome_len: int) -> np.float32:
+    if not genome_len:
+        genome_len = _compute_genome_len(
+            registry, lambda c: not c.skip and c.save)
+        if not genome_len:
+            raise fatal("", ERRGEN)
+    return calc_lambda(frag_len, genome_len)
+
+
+def _save_pileup_noctrl(registry: ChromRegistry, frag_len: float,
+                        genome_len: int, verbose: bool
+                        ) -> Dict[int, Pileup]:
+    """savePileupNoCtrl (Genrich.c:1883-1896)."""
+    lam = _calc_lambda(registry, frag_len, genome_len)
+    if verbose:
+        warn(f"  Background pileup value: {fmt_f(lam)}\n")
+    out: Dict[int, Pileup] = {}
+    for c in registry:
+        if c.skip or not c.save:
+            continue
+        out[c.index] = lambda_pileup(c.length, c.bed, lam)
+    return out
 
 
 def _replicate_device(eng, registry: ChromRegistry,
@@ -348,6 +476,46 @@ def _find_peaks_device(registry: ChromRegistry, eng, p: Params,
     if p.verbose:
         warn(f"Peaks identified: {count} ({peak_bp}bp)\n")
     eng.release()
+
+
+def _save_pval(registry: ChromRegistry, n: int,
+               expt: Dict[int, Pileup], ctrl: Dict[int, Pileup],
+               pvals: Dict[int, List[Optional[Pileup]]],
+               pile_stream, expt_name: str,
+               ctrl_name: Optional[str]) -> None:
+    """savePval (Genrich.c:1720-1794) incl. the -k pileup log."""
+    if pile_stream is not None:
+        writers.pile_header(pile_stream, expt_name, ctrl_name)
+
+    def _pval_one(c):
+        ends, ev, cv = pvalue.merge_pileups(expt[c.index],
+                                            ctrl[c.index])
+        pv, tab = pvalue.calc_pval_unique_tab(ends, ev, cv)
+        return ends, ev, cv, pv, tab
+
+    todo = [c for c in registry if not c.skip and c.save]
+    results = {c.index: r for c, r in zip(todo,
+                                          _par_map(_pval_one, todo))}
+    for c in registry:
+        if c.skip:
+            continue
+        lst = pvals.setdefault(c.index, [])
+        while len(lst) < n:
+            lst.append(None)
+        if not c.save:
+            lst.append(None)
+            continue
+        ends, ev, cv, pv, tab = results[c.index]
+        lst.append(Pileup(ends, pv, tab=tab))
+        if pile_stream is not None:
+            starts = np.concatenate([[0], ends[:-1]])
+            if isinstance(pile_stream, writers.RowLog) \
+                    and pile_stream.pile_rows(c.name, starts, ends,
+                                              ev, cv, pv):
+                continue
+            for m in range(len(ends)):
+                writers.pile_row(pile_stream, c.name, int(starts[m]),
+                                 int(ends[m]), ev[m], cv[m], pv[m])
 
 
 def log_counts(counters: FileCounters, registry: ChromRegistry,
@@ -594,12 +762,13 @@ def _log_intervals(registry, pvals, qvals, n, expt, ctrl, log_stream,
                            reps, pv, qv, p, n, False)
 
 
-def run(p: Params, engine, perf: Optional[dict] = None) -> None:
-    """runProgram (Genrich.c:5386-5695) on the device ``engine``.
+def run(p: Params, engine=None, perf: Optional[dict] = None) -> None:
+    """runProgram (Genrich.c:5386-5695).
 
     ``engine``: the device engine (``TorchEngine`` or
     ``ShardedTorchEngine``) that computes every replicate's coverage and
-    p-values; it clears its per-run state in ``release()``.
+    p-values; it clears its per-run state in ``release()``.  None runs
+    the exact engine: every stage on the host, no device API touched.
 
     ``perf``: optional dict; filled with the stage-wall decomposition
     {ingest_s, device_rep_s, findpeaks_s, ...} plus the engine's
@@ -653,11 +822,14 @@ def run(p: Params, engine, perf: Optional[dict] = None) -> None:
     pvals: Dict[int, List[Optional[Pileup]]] = {}
     expt_pu: Dict[int, Pileup] = {}
     ctrl_pu: Dict[int, Pileup] = {}
-    engine.begin_run()    # reset per-analysis accounting
-    # with no interval logs, the analysis finishes on the device:
-    # Fisher combination, q-values, and peak calling over resident
-    # arrays
-    full_device = p.peaks_opt and not p.log_file and not p.pile_file
+    full_device = False
+    if engine is not None:
+        engine.begin_run()    # reset per-analysis accounting
+        # with no interval logs, the analysis finishes on the device:
+        # Fisher combination, q-values, and peak calling over resident
+        # arrays
+        full_device = (p.peaks_opt and not p.log_file
+                       and not p.pile_file)
 
     sample = 0
     for si, expt_name in enumerate(expt_files):
@@ -665,6 +837,7 @@ def run(p: Params, engine, perf: Optional[dict] = None) -> None:
         if nat is not None:
             nat.reset_save()
         ctrl_name = ctrl_files[si] if si < len(ctrl_files) else None
+        frag_len = 0.0
         sinks: List[Optional[EventSink]] = [None, None]
         for i in (0, 1):
             filename = expt_name
@@ -676,6 +849,10 @@ def run(p: Params, engine, perf: Optional[dict] = None) -> None:
                     if p.verbose:
                         warn(f"- control file #{sample} not "
                              f"provided -\n")
+                    if engine is None:
+                        ctrl_pu = _save_pileup_noctrl(
+                            registry, frag_len, p.genome_len,
+                            p.verbose)
                     break
             if p.verbose:
                 warn(f"Processing {'control' if i else 'experimental'}"
@@ -701,12 +878,28 @@ def run(p: Params, engine, perf: Optional[dict] = None) -> None:
             if p.verbose:
                 log_counts(counters, registry, p, bam)
             sinks[i] = sink
+            if engine is not None:
+                continue
+            if i:
+                with stage("pileup ctrl"):
+                    ctrl_pu = _save_pileup_ctrl(
+                        registry, sink, frag_len, p.genome_len,
+                        p.verbose)
+            else:
+                with stage("pileup expt"):
+                    expt_pu, frag_len = _save_pileup_expt(registry,
+                                                          sink)
 
-        with stage("device pileup+p-values", perf, "device_rep_s"):
-            expt_pu, ctrl_pu = _replicate_device(
-                engine, registry, sinks[0], sinks[1], p, sample, pvals,
-                pile_stream, expt_name, ctrl_name, full_device,
-                archive=(len(expt_files) > 1))
+        if engine is not None:
+            with stage("device pileup+p-values", perf, "device_rep_s"):
+                expt_pu, ctrl_pu = _replicate_device(
+                    engine, registry, sinks[0], sinks[1], p, sample,
+                    pvals, pile_stream, expt_name, ctrl_name,
+                    full_device, archive=(len(expt_files) > 1))
+        else:
+            with stage("p-values"):
+                _save_pval(registry, sample, expt_pu, ctrl_pu, pvals,
+                           pile_stream, expt_name, ctrl_name)
         sample += 1
 
     out_stream = files.open_write(p.out_file, p.gz_out) \
@@ -720,7 +913,7 @@ def run(p: Params, engine, perf: Optional[dict] = None) -> None:
             find_peaks(registry, pvals, sample, expt_pu, ctrl_pu,
                        out_stream, log_stream, p)
 
-    if perf is not None:
+    if perf is not None and engine is not None:
         perf.update(engine.perf)
 
     for s in (out_stream, log_stream, pile_stream, bed_stream,

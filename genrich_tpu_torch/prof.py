@@ -11,6 +11,14 @@ pipeline's ``perf`` dict, the device time (kernels and copies, summed
 from the profiler's device events), the card's idle share (1 - device
 time / wall) and the top device entries.
 
+torch.profiler has been seen to drop device records on the H100 host,
+so a breakdown is printed only when the profiler recorded every hand
+kernel that the run launched: each device kernel of
+``kernels.KERNELS_PER_CALL`` as many times as ``kernels.LAUNCHES``
+counted its wrapper's calls (``record_shortfall``).  A warm run that
+fails this check is reported and run again, up to ``ATTEMPTS`` times;
+then the profiler exits non-zero, naming the kernel and both counts.
+
 With ``--parent DIR``, another checkout of the repo (say the parent
 commit, unpacked with ``git archive``), it then runs the main path in
 child processes, parent / this tree / this tree / parent, each cold and
@@ -32,6 +40,7 @@ import time
 
 FLAGS = ["-r", "-j", "-q", "0.05", "-a", "20"]
 TOP = 18
+ATTEMPTS = 3
 
 # One tree's main path, cold then warm, in a fresh process: argv is
 # tree, BAM, output directory; prints one JSON line.
@@ -72,32 +81,69 @@ def _device_events(prof):
     return sorted(evs, reverse=True)
 
 
+def record_shortfall(records, launches):
+    """Hand kernels whose device records disagree with their launches.
+
+    ``records``: (kernel name as the profiler gives it, record count)
+    pairs of one profiled run; ``launches``: ``kernels.LAUNCHES`` of
+    that run.  Returns (kernel, records, expected) for every device
+    kernel of ``kernels.KERNELS_PER_CALL`` whose records differ from
+    the calls of its wrapper times its share of each call; empty when
+    the profiler saw every launch."""
+    from .kernels import KERNELS_PER_CALL, is_kernel
+    bad = []
+    for wrapper, per_call in KERNELS_PER_CALL.items():
+        for ident in dict.fromkeys(per_call):
+            want = launches.get(wrapper, 0) * per_call.count(ident)
+            got = sum(n for key, n in records if is_kernel(key, ident))
+            if got != want:
+                bad.append((ident, got, want))
+    return bad
+
+
 def profile_path(name, ts, engine="jax"):
-    """Cold run, then the warm run under torch.profiler."""
+    """Cold run, then the warm run under torch.profiler, again while the
+    profiler's hand-kernel records disagree with the launches (at most
+    ATTEMPTS runs)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from . import cli
+    from . import cli, kernels
     out = os.path.join(tempfile.mkdtemp(), "out.np")
     args = ["-t", ts, "-o", out] + FLAGS + ["--engine", engine,
                                              "--device", "cuda"]
     if cli.main(args) != 0:
         raise SystemExit(f"{name}: cold run failed")
-    torch.cuda.synchronize()
-    perf = {}
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        rc = cli.main(args, perf=perf)
+    for attempt in range(1, ATTEMPTS + 1):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    if rc != 0:
-        raise SystemExit(f"{name}: warm run failed")
-    evs = _device_events(prof)
+        kernels.reset_launches()
+        perf = {}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            rc = cli.main(args, perf=perf)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if rc != 0:
+            raise SystemExit(f"{name}: warm run failed")
+        evs = _device_events(prof)
+        short = record_shortfall([(key, n) for _, n, key in evs],
+                                 kernels.LAUNCHES)
+        if not short:
+            break
+        print(f"profile {name} attempt {attempt}: profiler records "
+              f"disagree with the launches: " + "; ".join(
+                  f"{k}: {got} device records, {want} launched "
+                  f"(kernels.LAUNCHES)" for k, got, want in short))
+    else:
+        raise SystemExit(f"{name}: torch.profiler's hand-kernel records "
+                         f"disagreed with the launches in all {ATTEMPTS} "
+                         f"warm runs; no breakdown")
     device_ms = sum(ms for ms, _, _ in evs)
     print(f"profile {name} " + json.dumps(
         {"engine": engine, "wall_s": wall, "device_ms": device_ms,
-         "idle_share": 1.0 - device_ms / 1e3 / wall, "perf": perf}))
+         "idle_share": 1.0 - device_ms / 1e3 / wall, "attempt": attempt,
+         "launches": dict(kernels.LAUNCHES), "perf": perf}))
     for ms, n, key in evs[:TOP]:
         print(f"  {ms:10.3f} ms {100 * ms / device_ms:5.1f}% x{n:<5d} "
               f"{key[:90]}")

@@ -11,14 +11,16 @@ library is found once.
   - runs it with the cached engine of its ``--engine`` kind (``jax``,
     the default: ``TorchEngine``; ``sharded``: ``ShardedTorchEngine``),
     all on one ``device``, and calls the engine's ``release()`` after
-    every analysis;
+    every analysis; an ``--engine exact`` line runs with no engine, on
+    the host, as ``genrich_tpu/serve.py`` runs it;
   - prints one status line per analysis to stdout:
       ``OK <wall_seconds> [<perf_json>]``  or  ``ERR <wall_seconds>``
     (stderr carries the usual -v output and the error), and ``READY``
     at startup.  The JSON holds the analysis's stage walls
     (``ingest_s``, ``device_rep_s``, ``findpeaks_s``) and the engine's
-    upload/dispatch/fetch accounting; split the line on the first two
-    whitespace fields only.
+    upload/dispatch/fetch accounting; an exact line's has the walls
+    ``ingest_s`` and ``findpeaks_s`` only.  Split the line on the
+    first two whitespace fields only.
 
 An empty line or ``EXIT`` ends the loop.  A failing analysis, an
 unexpected exception included, answers ``ERR`` and serving goes on.
@@ -33,7 +35,7 @@ import sys
 import time
 from typing import List, Optional
 
-from .cli import NotPorted, make_engine, native_ingest, parse_port_args
+from .cli import make_engine, native_ingest, parse_port_args
 from .engine.torch_bridge import check_device
 from .errors import GenrichError
 
@@ -61,15 +63,16 @@ def serve_loop(default_args: Optional[List[str]] = None, stdin=None,
         t0 = time.perf_counter()
         try:
             p = parse_port_args(default_args + shlex.split(line))
-            eng = engines.get(p.engine)
-            if eng is None:
-                eng = engines[p.engine] = make_engine(p.engine, device)
+            if p.engine not in engines:
+                engines[p.engine] = make_engine(p.engine, device)
+            eng = engines[p.engine]          # None for --engine exact
             native_ingest(p)
             perf: dict = {}
             try:
                 run(p, engine=eng, perf=perf)
             finally:
-                eng.release()    # per-run state; kernels stay loaded
+                if eng is not None:
+                    eng.release()    # per-run state; kernels stay loaded
             msg = f"OK {time.perf_counter() - t0:.3f}"
             if perf:
                 msg += " " + json.dumps(
@@ -78,10 +81,6 @@ def serve_loop(default_args: Optional[List[str]] = None, stdin=None,
             print(msg, file=stdout, flush=True)
         except GenrichError as e:
             sys.stderr.write(e.render() + "\n")
-            print(f"ERR {time.perf_counter() - t0:.3f}", file=stdout,
-                  flush=True)
-        except NotPorted as e:
-            sys.stderr.write(f"Error! {e}\n")
             print(f"ERR {time.perf_counter() - t0:.3f}", file=stdout,
                   flush=True)
         except Exception:

@@ -4,7 +4,8 @@
 peaks, and ``peak_row_columns`` the same rows as ``peak_reduce``'s
 int32/float32 columns; ``auc_rowwise`` is the exact engine's AUC on the
 host (a float32 sum in row order); ``check_log`` holds a port's
-``-f``/``-k`` log to the exact engine's.  numpy only, except
+``-f``/``-k`` log to the exact engine's, and ``check_summits`` its
+narrowPeak column 10 (summit offset).  numpy only, except
 the ``*_first_design`` helpers, which launch the first designs of
 kernels K1-K4 (``csrc/reference/``) on the card so that the current
 ones can be held to them, and the operation counters.
@@ -214,6 +215,54 @@ def check_log(exact_log, port_log, cols=(3, 4, 5)):
         raise AssertionError(f"covered bp differ: {span(fe)} {span(ff)}")
     return {"rows_exact": len(fe), "rows_port": len(ff),
             "worst_rel_diff": worst, "bp": span(ff)}
+
+
+def _log_stats(path):
+    """{chrom: (starts, ends, stat)} of an -f log; the stat is the
+    column that calls peaks: -log(q) when the log has it, else the
+    (combined) -log(p); NA rows are NaN."""
+    with open(path) as f:
+        header = next(ln for ln in f if ln.startswith("chr\t"))
+    names = header.rstrip("\n").split("\t")
+    col = names.index("-log(q)") if "-log(q)" in names \
+        else max(i for i, n in enumerate(names) if n.startswith("-log(p)"))
+    by_chrom = {}
+    for r in _log_rows(path):
+        by_chrom.setdefault(r[0], []).append(
+            (int(r[1]), int(r[2]), np.nan if r[col] == "NA"
+             else float(r[col])))
+    return {c: tuple(np.array(x) for x in zip(*rows))
+            for c, rows in by_chrom.items()}
+
+
+def check_summits(exact_lines, port_lines, exact_log, tol):
+    """narrowPeak column 10 (summit offset) of the port's rows against
+    the exact engine's, on the rows whose columns 1-3 agree.  Equal, or
+    a near tie: the exact engine's ``-f`` log puts the two summits in
+    intervals whose stats lie within ``tol`` relative (the tolerance the
+    caller grants columns 8-9), so float32 statistics may pick either.
+    Raises AssertionError; returns (rows compared, near ties)."""
+    exact = {tuple(ln.split("\t")[:3]): ln.split("\t")
+             for ln in exact_lines}
+    stats = None
+    n = ties = 0
+    for ln in port_lines:
+        got = ln.split("\t")
+        want = exact.get(tuple(got[:3]))
+        if want is None:
+            continue
+        n += 1
+        if got[9] == want[9]:
+            continue
+        stats = stats or _log_stats(exact_log)
+        starts, ends, stat = stats[got[0]]
+        at = [stat[np.searchsorted(ends, int(got[1]) + int(r[9]),
+                                   side="right")] for r in (want, got)]
+        if not abs(at[0] - at[1]) <= tol * max(1.0, abs(at[0])):
+            raise AssertionError(f"summit differs and is no near tie "
+                                 f"(stats {at}): {want} {got}")
+        ties += 1
+    return n, ties
 
 
 # --- operation counts and bounds ------------------------------------------

@@ -4,6 +4,10 @@ Cloned from test_engine_jax_cli.py: the same fixtures and the same
 comparison rules (narrowPeak columns 1-6 identical, float columns
 within 1e-4 relative; the ctrl + -E case threshold-aware), plus the
 >2^31-bp host-fallback chromosome and a run against ``--engine jax``.
+Column 10 (summit offset) is held to the exact engine's on every
+matched row (``testing.check_summits``): equal, or a near tie that the
+exact engine's ``-f`` log shows (its run writes one: ``summit.log``
+unless the case asks for a log of its own).
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ import sys
 import numpy as np
 import pytest
 
-from genrich_tpu_torch.testing import check_log
+from genrich_tpu_torch.testing import check_log, check_summits
 
 sys.path.insert(0, os.path.dirname(__file__))
 import oracle  # noqa: E402
@@ -33,18 +37,30 @@ def _run_torch(args, cwd):
         env=_env())
 
 
+SUMMIT_LOG = "summit.log"
+
+
+def _with_log(args):
+    """The exact engine's args with an -f log (its peaks do not change)
+    for the summit check, unless the case has one."""
+    return args if "-f" in args or "--engine" in args \
+        else args + ["-f", SUMMIT_LOG]
+
+
 def _run(tmp_path, name, extra, infile="in.sam", torch_port=False):
     d = tmp_path / name
     d.mkdir()
     args = ["-t", str(tmp_path / infile), "-o", "out.np", "-y",
             "-p", "0.01", "-a", "20"] + extra
     r = _run_torch(args, str(d)) if torch_port \
-        else oracle.run_ours(args, cwd=str(d))
+        else oracle.run_ours(_with_log(args), cwd=str(d))
     assert r.returncode == 0, r.stderr[-1500:]
     return (d / "out.np").read_text().splitlines()
 
 
-def _close_rows(exact, fast, cols=(6, 7), tol=1e-4):
+def _close_rows(exact, fast, cols=(6, 7), tol=1e-4, log=None):
+    """Columns 1-6 identical, ``cols`` within ``tol``; with the exact
+    engine's -f ``log``, column 10 by ``check_summits``."""
     assert len(exact) == len(fast)
     for a, b in zip(exact, fast):
         fa, fb = a.split("\t"), b.split("\t")
@@ -52,6 +68,8 @@ def _close_rows(exact, fast, cols=(6, 7), tol=1e-4):
         for i in cols:
             x, y = float(fa[i]), float(fb[i])
             assert abs(x - y) <= tol * max(1.0, abs(x)), (a, b)
+    if log is not None:
+        assert check_summits(exact, fast, log, tol)[0] == len(exact)
 
 
 def test_torch_port_matches_exact_boundaries(tmp_path):
@@ -59,7 +77,7 @@ def test_torch_port_matches_exact_boundaries(tmp_path):
     exact = _run(tmp_path, "exact", [])
     fast = _run(tmp_path, "torch", [], torch_port=True)
     assert exact
-    _close_rows(exact, fast)
+    _close_rows(exact, fast, log=tmp_path / "exact" / SUMMIT_LOG)
 
 
 def test_torch_port_bam_input(tmp_path):
@@ -70,6 +88,7 @@ def test_torch_port_bam_input(tmp_path):
     assert exact and len(exact) == len(fast)
     for a, b in zip(exact, fast):
         assert a.split("\t")[:6] == b.split("\t")[:6], (a, b)
+    check_summits(exact, fast, tmp_path / "exact" / SUMMIT_LOG, 1e-4)
 
 
 def test_torch_port_with_ctrl_and_exclusions(tmp_path):
@@ -105,6 +124,8 @@ def test_torch_port_with_ctrl_and_exclusions(tmp_path):
     check_only(ek.keys() - fk.keys(), ek, spans(fast))
     check_only(fk.keys() - ek.keys(), fk, spans(exact))
     assert exact and len(ek.keys() & fk.keys()) >= len(exact) * 0.95
+    assert check_summits(exact, fast, tmp_path / "exact" / SUMMIT_LOG,
+                         1e-4)[0] == len(ek.keys() & fk.keys())
 
 
 def test_torch_port_big_chrom_host_fallback(tmp_path):
@@ -120,7 +141,8 @@ def test_torch_port_big_chrom_host_fallback(tmp_path):
     fast = _run(tmp_path, "torch", extra, torch_port=True)
     assert any(ln.startswith("chrBig\t") for ln in exact)
     assert any(ln.startswith("chr2\t") for ln in exact)
-    _close_rows(exact, fast, cols=(6, 7, 8))
+    _close_rows(exact, fast, cols=(6, 7, 8),
+                log=tmp_path / "exact" / SUMMIT_LOG)
     assert any(int(ln.split("\t")[1]) > 0x7FFFFFFF for ln in exact
                if ln.startswith("chrBig\t"))
 
@@ -153,7 +175,7 @@ def test_torch_port_cap_exceeded_uses_host_peak_caller(tmp_path,
                    "-p", "0.01", "-a", "20", "--device", "cpu"], perf=perf)
     assert rc == 0
     fast = out.read_text().splitlines()
-    _close_rows(exact, fast)
+    _close_rows(exact, fast, log=tmp_path / "exact" / SUMMIT_LOG)
     assert perf["fetch_n"] > 0 and perf["device_rep_s"] > 0
 
 
@@ -163,13 +185,14 @@ def _run_reps(tmp_path, name, reps, extra, torch_port=False):
     args = ["-t", ",".join(str(tmp_path / r) for r in reps), "-o",
             "out.np", "-y", "-p", "0.01", "-a", "20"] + extra
     r = _run_torch(args, str(d)) if torch_port \
-        else oracle.run_ours(args, cwd=str(d))
+        else oracle.run_ours(_with_log(args), cwd=str(d))
     assert r.returncode == 0, r.stderr[-1500:]
     return (d / "out.np").read_text().splitlines()
 
 
-def _fisher_rows(exact, fast, tol=1e-3):
-    """test_engine_jax_cli.py:84-92's rule for several replicates."""
+def _fisher_rows(exact, fast, tol=1e-3, log=None):
+    """test_engine_jax_cli.py:84-92's rule for several replicates; with
+    the exact engine's -f ``log``, column 10 by ``check_summits``."""
     assert exact and len(exact) == len(fast)
     same = sum(a.split("\t")[:6] == b.split("\t")[:6]
                for a, b in zip(exact, fast))
@@ -179,6 +202,8 @@ def _fisher_rows(exact, fast, tol=1e-3):
         for i in (6, 7):
             x, y = float(fa[i]), float(fb[i])
             assert abs(x - y) <= tol * max(1.0, abs(x)), (a, b)
+    if log is not None:
+        assert check_summits(exact, fast, log, tol)[0] >= same
 
 
 @pytest.fixture
@@ -196,7 +221,8 @@ def test_torch_port_fisher_replicates(tmp_path, two_reps, ref):
     extra = [] if ref == "exact" else ["--engine", "jax"]
     want = _run_reps(tmp_path, ref, two_reps, extra)
     got = _run_reps(tmp_path, "torch", two_reps, [], torch_port=True)
-    _fisher_rows(want, got)
+    _fisher_rows(want, got, log=tmp_path / "exact" / SUMMIT_LOG
+                 if ref == "exact" else None)
 
 
 def test_torch_port_three_replicates_with_q(tmp_path, two_reps):
@@ -205,7 +231,7 @@ def test_torch_port_three_replicates_with_q(tmp_path, two_reps):
     want = _run_reps(tmp_path, "exact", reps, ["-q", "0.5"])
     got = _run_reps(tmp_path, "torch", reps, ["-q", "0.5"],
                     torch_port=True)
-    _fisher_rows(want, got)
+    _fisher_rows(want, got, log=tmp_path / "exact" / SUMMIT_LOG)
 
 
 def test_torch_port_fisher_big_chrom_host_fallback(tmp_path):
@@ -220,7 +246,7 @@ def test_torch_port_fisher_big_chrom_host_fallback(tmp_path):
     got = _run_reps(tmp_path, "torch", reps, ["-q", "0.5"],
                     torch_port=True)
     assert any(ln.startswith("chrBig\t") for ln in want)
-    _fisher_rows(want, got)
+    _fisher_rows(want, got, log=tmp_path / "exact" / SUMMIT_LOG)
 
 
 @pytest.mark.parametrize("ref", ["exact", "jax"])
@@ -240,6 +266,9 @@ def test_torch_port_logs(tmp_path, ref, extra):
     got = _run(tmp_path, "torch", logs + extra, torch_port=True)
     assert [a.split("\t")[:6] for a in want] \
         == [b.split("\t")[:6] for b in got]
+    if ref == "exact":
+        assert check_summits(want, got, tmp_path / "exact" / "f.log",
+                             1e-3)[0] == len(want)
     for name in ("f.log", "k.log"):
         check_log(tmp_path / ref / name, tmp_path / "torch" / name)
 
@@ -250,7 +279,7 @@ def test_torch_port_fisher_with_log_takes_host_path(tmp_path, two_reps):
     want = _run_reps(tmp_path, "exact", two_reps, ["-f", "f.log"])
     got = _run_reps(tmp_path, "torch", two_reps, ["-f", "f.log"],
                     torch_port=True)
-    _fisher_rows(want, got)
+    _fisher_rows(want, got, log=tmp_path / "exact" / "f.log")
     check_log(tmp_path / "exact" / "f.log", tmp_path / "torch" / "f.log")
 
 
@@ -271,7 +300,40 @@ def test_torch_port_skip_peaks_then_peaks_only(tmp_path):
     check_log(tmp_path / "exact" / "x.log", tmp_path / "torch" / "x.log")
     want = (tmp_path / "exact" / "out.np").read_text().splitlines()
     got = (tmp_path / "torch" / "out.np").read_text().splitlines()
-    _close_rows(want, got, cols=(6, 7), tol=1e-3)
+    _close_rows(want, got, cols=(6, 7), tol=1e-3,
+                log=tmp_path / "exact" / "x.log")
+
+
+def test_torch_port_main_path_flags_summit_ties(tmp_path, monkeypatch):
+    """The main path's flags (``-r -j -q 0.05 -a 20``) on a dense ATAC
+    BAM from scripts/perf_synth.py, against the port's ``--engine exact``
+    (byte-identical to the JAX package's, test_torch_exact.py): columns
+    1-6 identical, column 10 equal or a tie, and ties there are.  The
+    device's rows break at every event position, also where the pileup
+    value does not change, so where several of the exact engine's
+    intervals share a peak's maximum -log(q) (the top plateau of BH),
+    the longest-interval rule of the summit sees pieces of them.  With
+    ``-f`` the port calls peaks on the host from RLE runs merged by
+    p-value, and every summit is the exact engine's."""
+    sys.path.insert(0, os.path.join(oracle.REPO, "scripts"))
+    import perf_synth
+    from genrich_tpu_torch import cli
+    monkeypatch.chdir(tmp_path)
+    perf_synth.synth_bam("in.bam", 60_000, seed=7,
+                         chroms=(("chr1", 150_000), ("chr2", 100_000)))
+    flags = ["-t", "in.bam", "-r", "-j", "-q", "0.05", "-a", "20"]
+    for argv in (["-o", "exact.np", "-f", "exact.log", "--engine", "exact"],
+                 ["-o", "device.np", "--device", "cpu"],
+                 ["-o", "host.np", "-f", "host.log", "--device", "cpu"]):
+        assert cli.main(flags + argv) == 0
+    exact, device, host = ((tmp_path / f"{n}.np").read_text().splitlines()
+                           for n in ("exact", "device", "host"))
+    _close_rows(exact, device)
+    _close_rows(exact, host)
+    n, ties = check_summits(exact, device, tmp_path / "exact.log", 1e-4)
+    assert n == len(exact) > 20 and ties > 0
+    assert check_summits(exact, host, tmp_path / "exact.log", 0.0) \
+        == (len(exact), 0)
 
 
 def test_torch_engine_long_fragment():

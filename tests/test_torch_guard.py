@@ -2,12 +2,12 @@
 
 The port stands alone: no module of it, and no line that chip_smoke.py
 runs in its own process, imports jax or genrich_tpu, and every CLI path
-(``--engine sharded`` and ``--serve`` among them, and
-``genrich_tpu_torch.parallel``) runs on the CPU with both imports
-refused.  ``--device cuda`` with no card is an error, never a silent
-switch to the CPU, on the CLI as in serve; ``--engine exact``, whose
-host stages are not ported, fails with "not yet ported to
-genrich_tpu_torch", on the CLI and as a serve line.
+(``--engine sharded``, ``--engine exact`` and ``--serve`` among them,
+``genrich_tpu_torch.parallel`` and ``tools.find_ns``) runs on the CPU
+with both imports refused.  ``--device cuda`` with no card is an error,
+never a silent switch to the CPU, on the CLI as in serve, except for
+``--engine exact``: the host engine touches no CUDA API and runs on a
+host with no card.
 """
 
 from __future__ import annotations
@@ -21,9 +21,6 @@ import pytest
 
 sys.path.insert(0, os.path.dirname(__file__))
 import oracle  # noqa: E402
-
-MARK = "not yet ported to genrich_tpu_torch"
-
 
 def _env():
     env = {**os.environ, "PYTHONPATH": oracle.REPO}
@@ -59,15 +56,19 @@ def test_cpu_run_never_imports_jax(tmp_path, sam):
 
 
 @pytest.mark.parametrize("flags", [
-    ["-f", "f.log", "-k", "k.log"], ["-X", "-f", "f.log"], "two_reps"])
+    ["-f", "f.log", "-k", "k.log"], ["-X", "-f", "f.log"], "two_reps",
+    ["--engine", "exact", "-f", "f.log", "-k", "k.log"], "find_ns"])
 def test_cpu_run_never_imports_jax_on_other_paths(tmp_path, sam, flags):
     args = ["-t", f"{sam},{sam}", "-o", "out.np", "-y", "-a", "5"] \
         if flags == "two_reps" \
-        else ["-t", sam, "-o", "out.np", "-y", "-a", "5"] + flags
-    code = ("import sys\n"
-            "from genrich_tpu_torch.cli import main\n"
-            f"rc = main({args + ['--device', 'cpu']!r})\n"
-            "assert rc == 0, rc\n"
+        else ["-t", sam, "-o", "out.np", "-y", "-a", "5"] + list(flags)
+    run = f"from genrich_tpu_torch.cli import main\n" \
+          f"rc = main({args + ['--device', 'cpu']!r})\n"
+    if flags == "find_ns":
+        (tmp_path / "in.fa").write_text(">c1\nACGT" + "N" * 150 + "\n")
+        run = ("from genrich_tpu_torch.tools.find_ns import main\n"
+               "rc = main(['in.fa', 'f.log'])\n")
+    code = ("import sys\n" + run + "assert rc == 0, rc\n"
             "print('JAX_LOADED', 'jax' in sys.modules)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
                        capture_output=True, text=True, env=_env())
@@ -89,13 +90,16 @@ def test_every_module_imports_without_jax(tmp_path):
             "    importlib.import_module(n)\n"
             "from genrich_tpu_torch import kernels\n"
             "assert kernels._lib is None\n"
-            "print('MODULES', len(names))\n"
+            "print('MODULES', len(names), *names)\n"
             "print('JAX_LOADED', 'jax' in sys.modules)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
                        capture_output=True, text=True, env=_env())
     assert r.returncode == 0, r.stderr[-1500:]
     assert "JAX_LOADED False" in r.stdout
-    assert int(r.stdout.split("MODULES")[1].split()[0]) >= 42
+    modules = r.stdout.split("MODULES")[1].split("\n")[0].split()
+    assert int(modules[0]) >= 50
+    assert {"genrich_tpu_torch.pipeline", "genrich_tpu_torch.tools",
+            "genrich_tpu_torch.tools.find_ns"} <= set(modules[1:])
 
 
 REFUSED = ("jax", "genrich_tpu")
@@ -126,7 +130,7 @@ def test_no_module_of_the_port_imports_jax_or_genrich_tpu():
     pkg = os.path.join(oracle.REPO, "genrich_tpu_torch")
     paths = [os.path.join(d, f) for d, _, fs in os.walk(pkg)
              for f in fs if f.endswith(".py")]
-    assert len(paths) >= 44
+    assert len(paths) >= 52
     bad = {os.path.relpath(p, pkg): _imports(p) for p in paths}
     assert not {k: v for k, v in bad.items() if v}
 
@@ -215,24 +219,52 @@ def test_default_device_is_cuda(tmp_path, sam):
     assert r.returncode == 1 and "CUDA" in r.stderr
 
 
+_EXACT = """
+import io, sys
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "genrich_tpu"):
+            raise ImportError("refused: " + name)
+        return None
+sys.meta_path.insert(0, Refuse())
+args = {args!r}
+if {serve!r}:
+    from genrich_tpu_torch.serve import serve_loop
+    out = io.StringIO()
+    assert serve_loop([], io.StringIO(" ".join(args) + "\\n"), out,
+                      device="cpu") == 0
+    print(out.getvalue())
+else:
+    from genrich_tpu_torch.cli import main
+    assert main(args) == 0
+print("LOADED", sorted({{m.split(".")[0] for m in sys.modules}}
+                       & {{"jax", "genrich_tpu"}}))
+print("CUDA_INITIALIZED", "torch" in sys.modules
+      and sys.modules["torch"].cuda.is_initialized())
+"""
+
+
 @pytest.mark.parametrize("flags", [["--engine", "exact"],
                                    ["--serve", "--engine", "exact"]])
 def test_unported_flags_rejected(tmp_path, sam, flags):
-    """``--engine exact`` fails with MARK: on the CLI with exit code 1,
-    as a serve line with ERR (the server goes on)."""
-    args = ["-t", sam, "-o", "out.np", "-y"] + flags
-    r = subprocess.run([sys.executable, "-m", "genrich_tpu_torch"] + args
-                       + ["--device", "cpu"], cwd=str(tmp_path),
-                       capture_output=True, text=True, env=_env(),
-                       input="-p 0.01\n")
-    if "--serve" in flags:
-        assert r.returncode == 0, r.stderr
-        assert [ln.split()[0] for ln in r.stdout.splitlines()] \
-            == ["READY", "ERR"]
-    else:
-        assert r.returncode == 1, r.stderr
-    assert MARK in r.stderr
-    assert not (tmp_path / "out.np").exists()
+    """``--engine exact``, the last flag that the port once rejected as
+    unported, now runs with jax and genrich_tpu refused: on the CLI
+    with the default ``--device cuda`` (the host engine reads no device,
+    so no card is needed) and as a serve line (OK); neither initialises
+    CUDA."""
+    serve = "--serve" in flags
+    args = ["-t", sam, "-o", "out.np", "-y", "-p", "0.01", "-a", "5"] \
+        + [f for f in flags if f != "--serve"]
+    r = subprocess.run([sys.executable, "-c", _EXACT.format(
+        args=args, serve=serve)], cwd=str(tmp_path), capture_output=True,
+        text=True, env=_env())
+    assert r.returncode == 0, r.stderr[-1500:]
+    assert "LOADED []" in r.stdout
+    assert "CUDA_INITIALIZED False" in r.stdout
+    if serve:
+        assert [ln.split()[0] for ln in r.stdout.splitlines()[:2]] \
+            == ["READY", "OK"]
+    assert (tmp_path / "out.np").stat().st_size > 0
 
 
 _SERVE = """

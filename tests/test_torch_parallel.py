@@ -11,7 +11,11 @@ JAX module's contract.  Then ``distributed_analyze`` on two gloo ranks
 each other, against one process of the port and against
 ``dist2_worker.run()`` through JAX: the same peaks (coordinates
 identical, floats within 1e-5 relative), with the peak that straddles
-the process boundary present.
+the process boundary present.  Last, ``ShardedTorchEngine`` through
+``pipeline.run`` on two gloo ranks against one process, on peaks that
+straddle a tile boundary inside a rank and the boundary between the
+ranks: the same narrowPeak bytes (the row-order AUC gathers each
+straddling peak's rows from both ranks).
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from genrich_tpu_torch.parallel import distributed as tdist
 from genrich_tpu_torch.parallel import mesh as tmesh
 from test_mesh_merge import _rand_tilepeaks
 from test_tile_split import _random_events
+from test_torch_sharded import _straddle_sam
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
@@ -348,6 +353,50 @@ def test_two_gloo_ranks_match_one_process_and_jax(tmp_path):
                                [want["lam"], want["factor"]], rtol=1e-5)
     assert any(s < 4 * w.TILE_LEN < e for s, e, *_ in single), \
         "fixture lost its process-boundary-straddling peak"
+
+
+# A rank of the two-process engine run: argv is repo, then the CLI flags.
+_ENGINE_WORKER = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import torch.distributed as td
+from genrich_tpu_torch import params, pipeline
+from genrich_tpu_torch.engine.sharded_bridge import ShardedTorchEngine
+perf = {}
+pipeline.run(params.parse_args(sys.argv[2:]),
+             engine=ShardedTorchEngine("cpu", n_shards=8), perf=perf)
+print("RUN", td.get_world_size(), perf["straddling_peaks"])
+td.destroy_process_group()
+"""
+
+
+def test_two_gloo_ranks_sharded_engine_match_one_process(tmp_path):
+    sam = _straddle_sam(str(tmp_path / "in.sam"),
+                        centers=(131_072, 524_288, 800_000))
+    args = ["-t", sam, "-y", "-p", "0.01", "-a", "20"]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("XLA_FLAGS", "PYTHONPATH")}
+    env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+               WORLD_SIZE="2", GLOO_SOCKET_IFNAME="lo")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _ENGINE_WORKER, REPO] + args
+        + ["-o", str(tmp_path / f"r{i}.np")], env={**env, "RANK": str(i)},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in (0, 1)]
+    logs = [p.communicate(timeout=300) for p in procs]
+    for i, p in enumerate(procs):
+        assert p.returncode == 0, f"rank {i}:\n{logs[i][1][-2000:]}"
+        assert "RUN 2 2" in logs[i][0], logs[i][0]
+    from genrich_tpu_torch import params, pipeline
+    pipeline.run(params.parse_args(args + ["-o", str(tmp_path / "one.np")]),
+                 engine=ShardedTorchEngine("cpu", n_shards=8))
+    one = (tmp_path / "one.np").read_bytes()
+    assert (tmp_path / "r0.np").read_bytes() == one \
+        == (tmp_path / "r1.np").read_bytes()
+    spans = [(int(f[1]), int(f[2])) for f in
+             (ln.split("\t") for ln in one.decode().splitlines())]
+    assert any(s < 131_072 < e for s, e in spans)
+    assert any(s < 524_288 < e for s, e in spans), spans
 
 
 def test_distributed_layer_is_local_without_a_group():

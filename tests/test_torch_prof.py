@@ -1,0 +1,59 @@
+"""prof.py's check of torch.profiler's kernel records against the launch
+counters, on synthetic (name, count) lists: a breakdown is printed only
+when every hand kernel the run launched has its device records."""
+
+from __future__ import annotations
+
+import pytest
+
+from genrich_tpu_torch import kernels
+from genrich_tpu_torch.prof import record_shortfall
+
+# a warm main-path run: K1 3 calls, K2 3 (two kernels each), K4 3
+LAUNCHES = {"coverage_scan": 3, "tile_stats": 3, "fisher_combine": 0,
+            "peak_reduce": 3}
+RECORDS = [
+    ("void coverage_scan_kernel<2, false>(int const*, long, int const*, "
+     "float, float*, float*, int*, long)", 3),
+    ("tile_stats_table_kernel(float, float, Tables*)", 3),
+    ("tile_stats_kernel(float const*, float const*, unsigned char const*, "
+     "float, float, Tables const*, float*, long)", 3),
+    ("peak_reduce_kernel(Rows, long const*, long const*, long, Out)", 3),
+    ("void at::native::tensor_kernel_scan_innermost_dim<long, "
+     "at::native::cummax_helper>(...)", 48),
+    ("Memcpy HtoD (Pageable -> Device)", 20),
+]
+
+
+def _drop(name, n=1):
+    """RECORDS with ``n`` records lost from the kernel named ``name``."""
+    return [(k, c - n if k.startswith(name) else c) for k, c in RECORDS]
+
+
+@pytest.mark.parametrize("records,want", [
+    (RECORDS, []),
+    (_drop("void coverage_scan_kernel"), [("coverage_scan_kernel", 2, 3)]),
+    (_drop("tile_stats_table_kernel"), [("tile_stats_table_kernel", 2, 3)]),
+    (_drop("peak_reduce_kernel", 3), [("peak_reduce_kernel", 0, 3)]),
+    (RECORDS + [("fisher_combine_kernel(float const*, int, long, float*)",
+                 1)], [("fisher_combine_kernel", 1, 0)]),
+], ids=["complete", "K1 lost", "K2 table lost", "K4 lost", "extra K3"])
+def test_record_shortfall(records, want):
+    assert record_shortfall(records, LAUNCHES) == want
+
+
+def test_kernel_names_mangled_and_demangled():
+    """The mangled names that graph capture reads and the profiler's
+    demangled ones name the same kernels; the table kernel of K2 is not
+    its main kernel."""
+    assert kernels.is_kernel("_Z20coverage_scan_kernelILi2ELb0EEvPKil",
+                             "coverage_scan_kernel")
+    assert kernels.is_kernel("_Z17tile_stats_kernelPKfS0_PKhffPK6Tables",
+                             "tile_stats_kernel")
+    assert not kernels.is_kernel("_Z23tile_stats_table_kernelffP6Tables",
+                                 "tile_stats_kernel")
+    assert not kernels.is_kernel("tile_stats_table_kernel(float, float)",
+                                 "tile_stats_kernel")
+    assert kernels.is_kernel("tile_stats_table_kernel(float, float)",
+                             "tile_stats_table_kernel")
+    assert sum(len(v) for v in kernels.KERNELS_PER_CALL.values()) == 5

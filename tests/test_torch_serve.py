@@ -3,12 +3,14 @@
 The five cases of test_serve.py on the port's server: READY, one
 analysis per stdin line, OK/ERR status lines, warm repeats
 byte-identical to cold per engine kind (``--engine jax``, the default,
-and ``--engine sharded``), an ``--engine exact`` line answering ERR
-without poisoning later lines, the -X/-P checkpoint resume, unexpected
-errors survived, the OK line's JSON, and re-preparing on inputs of
-other sizes; then the serve outputs against the JAX package's
-fresh-process ``--engine jax`` / ``--engine sharded`` runs (narrowPeak
-columns 1-6 identical, columns 7-9 within 1e-5 relative).
+and ``--engine sharded``), an ``--engine exact`` line answering OK with
+the bytes of a fresh-process port run and of the JAX package's serve
+(the JSON: the stage walls only), a bad line not poisoning later lines,
+the -X/-P checkpoint resume, unexpected errors survived, the OK line's
+JSON, and re-preparing on inputs of other sizes; then the serve outputs
+against the JAX package's fresh-process ``--engine jax`` / ``--engine
+sharded`` runs (narrowPeak columns 1-6 identical, columns 7-9 within
+1e-5 relative) and column 10 equal to the port's exact engine's.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import pytest
 
 import conftest  # noqa: F401
 import oracle
+
+from genrich_tpu_torch.testing import check_summits
 
 BASE = "-t in.sam -y -p 0.01 -a 20"
 
@@ -63,18 +67,33 @@ def test_serve_warm_runs_identical(tmp_path):
     ])
     assert out[0] == "READY"
     assert [ln.split()[0] for ln in out[1:]] \
-        == ["OK"] * 5 + ["ERR", "ERR", "OK"]
+        == ["OK"] * 5 + ["ERR", "OK", "OK"]
     read = {n: (tmp_path / f"{n}.np").read_bytes()
-            for n in ("dflt0", "jax0", "jax1", "sh0", "sh1", "dflt1")}
-    assert read["jax0"] and read["sh0"]
+            for n in ("dflt0", "jax0", "jax1", "sh0", "sh1", "dflt1",
+                      "exact")}
+    assert read["jax0"] and read["sh0"] and read["exact"]
     # warm == cold per engine kind; no --engine is TorchEngine
     assert read["jax0"] == read["jax1"] == read["dflt0"] == read["dflt1"]
     assert read["sh0"] == read["sh1"]
-    assert not (tmp_path / "exact.np").exists()
     # serve output == a fresh process of the port
     assert _fresh_port(tmp_path, BASE.split(), "fresh.np") == read["jax0"]
     assert _fresh_port(tmp_path, BASE.split() + ["--engine", "sharded"],
                        "fresh_sh.np") == read["sh0"]
+    assert _fresh_port(tmp_path, BASE.split() + ["--engine", "exact"],
+                       "fresh_exact.np") == read["exact"]
+    # the exact line: the JAX package's serve writes the same bytes, and
+    # the OK line carries the stage walls, no device accounting
+    r = subprocess.run(
+        [sys.executable, "-m", "genrich_tpu", "--serve"],
+        input=f"{BASE} -o jax_exact.np --engine exact\nEXIT\n",
+        capture_output=True, text=True, cwd=str(tmp_path),
+        env={**_env(), "JAX_PLATFORMS": "cpu"}, timeout=300)
+    assert r.returncode == 0 and r.stdout.split()[:2] == ["READY", "OK"], \
+        r.stderr[-1500:]
+    assert (tmp_path / "jax_exact.np").read_bytes() == read["exact"]
+    perf = json.loads(out[7].split(None, 2)[2])
+    assert {"ingest_s", "findpeaks_s"} <= set(perf)
+    assert not {"device_rep_s", "upload_bytes", "dispatch_n"} & set(perf)
 
 
 def test_serve_checkpoint_resume(tmp_path):
@@ -156,11 +175,15 @@ def test_serve_heterogeneous_inputs_reprepare(tmp_path, engine):
 def test_serve_matches_jax_package_fresh_runs(tmp_path):
     """Each engine kind of the port's server against the JAX package's
     fresh-process run of the same engine: columns 1-6 identical, 7-9
-    within 1e-5 relative."""
+    within 1e-5 relative; column 10 against the server's own ``--engine
+    exact`` line (``testing.check_summits`` with its -f log)."""
     oracle.random_sam(str(tmp_path / "in.sam"), seed=75, n_pairs=600)
     out = _serve(tmp_path, [f"{BASE} -q 0.5 -o t_{e}.np --engine {e}"
-                            for e in ("jax", "sharded")])
-    assert [ln.split()[0] for ln in out] == ["READY", "OK", "OK"]
+                            for e in ("jax", "sharded")]
+                 + [f"{BASE} -q 0.5 -o t_exact.np -f t_exact.log "
+                    f"--engine exact"])
+    assert [ln.split()[0] for ln in out] == ["READY", "OK", "OK", "OK"]
+    exact = (tmp_path / "t_exact.np").read_text().splitlines()
     for e in ("jax", "sharded"):
         r = oracle.run_ours(BASE.split() + ["-q", "0.5", "-o", f"j_{e}.np",
                                             "--engine", e],
@@ -175,3 +198,5 @@ def test_serve_matches_jax_package_fresh_runs(tmp_path):
             for i in (6, 7, 8):
                 x, y = float(fa[i]), float(fb[i])
                 assert abs(x - y) <= 1e-5 * max(1.0, abs(x)), (e, a, b)
+        assert check_summits(exact, got, tmp_path / "t_exact.log",
+                             1e-5)[0] == len(exact) == len(got)

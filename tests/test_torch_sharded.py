@@ -6,18 +6,23 @@ the 8-device virtual CPU mesh (tests/conftest.py), on the six fixtures
 of test_engine_jax_cli.py's ``ENGINES`` cases: narrowPeak columns 1-6
 identical, columns 7-9 within 1e-5 relative (both are float32 device
 paths; sums differ in order), the -f/-k logs by
-``testing.check_log``.  One exception, a fault of the JAX twin: on the
-big-chromosome fixture its AUC (column 7, a difference of float32
-prefix sums) is 1.08e-5 off the exact engine on one peak, where the
-port's is 2e-7 off; there column 7 is held to the exact engine.
+``testing.check_log``, and column 10 (summit offset) to the port's
+``--engine exact`` by ``testing.check_summits`` (equal, or a near tie
+its -f log shows), not to the JAX twin, whose summit midpoint wraps in
+int32.  One exception, a fault of the JAX twin: on the big-chromosome
+fixture its AUC (column 7, a difference of float32 prefix sums) is
+1.08e-5 off the exact engine on one peak, where the port's is 2e-7 off;
+there column 7 is held to the exact engine.
 
 Then the steps: ``ShardedKernels.cov`` with non-zero carries against the
 JAX ``cov`` step (intervals and masks bitwise, coverage bitwise to the
 exact engine's getVal and within 1e-5 of the JAX twin, whose XLA
 evaluation of getVal's divisions can round one ulp away; fragment sums
 within 1e-5), ``distinct_pvals_k`` against its JAX twin (overflow
-included), and a peak that straddles a tile boundary, where the sharded
-engine and ``TorchEngine`` agree on columns 1-6.
+included), and peaks that straddle a tile boundary: columns 1-6 equal
+``TorchEngine``'s and the exact engine's, column 7 the row-order sum over
+``TorchEngine``'s rows, as K4 takes it (``_row_order_aucs``, a row cut
+by the boundary counted once).
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ from genrich_tpu_torch.engine.torch_bridge import TorchEngine
 from genrich_tpu_torch.ops import compact
 from genrich_tpu_torch.ops.pipeline import tile_class_totals
 from genrich_tpu_torch.parallel import mesh as tmesh
-from genrich_tpu_torch.testing import check_log
+from genrich_tpu_torch.testing import check_log, check_summits
 
 sys.path.insert(0, os.path.dirname(__file__))
 import oracle  # noqa: E402
@@ -58,20 +63,32 @@ def _jax_sharded(tmp_path, args):
 
 
 def _port(tmp_path, args, engine=None, name="port"):
-    """pipeline.run of the port in this process; outputs in tmp/name."""
+    """pipeline.run of the port in this process, on ``engine`` (the
+    sharded one by default, "exact" for none); outputs in tmp/name."""
     d = tmp_path / name
     d.mkdir()
     argv = [str(d / a) if i and args[i - 1] in ("-o", "-f", "-k") else a
             for i, a in enumerate(args)]
     perf = {}
+    if engine is None:
+        engine = ShardedTorchEngine("cpu", n_shards=8)
     tpipeline.run(tparams.parse_args(argv),
-                  engine=engine or ShardedTorchEngine("cpu", n_shards=8),
-                  perf=perf)
+                  engine=None if engine == "exact" else engine, perf=perf)
     return d, perf
 
 
 def _lines(d):
     return (d / "out.np").read_text().splitlines()
+
+
+def _exact(tmp_path, args):
+    """The port's --engine exact on ``args`` in this process, outputs in
+    tmp/exact, with an -f log for the summit check unless ``args`` ask
+    for one; returns its lines and that log."""
+    if "-f" not in args:
+        args = args + ["-f", "summit.log"]
+    d, _ = _port(tmp_path, args, "exact", "exact")
+    return _lines(d), d / args[args.index("-f") + 1]
 
 
 def _close_rows(want, got, tol=1e-5, auc_ref=None):
@@ -127,13 +144,9 @@ def test_sharded_engine_matches_jax_sharded(tmp_path, case):
     want_d = _jax_sharded(tmp_path, args)
     got_d, perf = _port(tmp_path, args)
     want, got = _lines(want_d), _lines(got_d)
-    exact = None
-    if case == "big_chrom":
-        d = tmp_path / "exact"
-        d.mkdir()
-        assert oracle.run_ours(args, cwd=str(d)).returncode == 0
-        exact = _lines(d)
-    _close_rows(want, got, auc_ref=exact)
+    exact, log = _exact(tmp_path, args)
+    _close_rows(want, got, auc_ref=exact if case == "big_chrom" else None)
+    assert check_summits(exact, got, log, 1e-5)[0] >= 0.9 * len(exact)
     assert perf["grid_tiles"] % 8 == 0 and perf["dispatch_n"] > 0
     if case == "logs":
         for name in ("f.log", "k.log"):
@@ -239,14 +252,14 @@ def test_distinct_pvals_k_matches_jax(k):
     assert bool(torch.isinf(pv[n:]).all()) and not bool(w[n:].any())
 
 
-def _straddle_sam(path):
-    """One 1 Mbp chromosome: background pairs, a cluster across the
-    tile boundary at 131,072 (n_shards=8 gives 2^17-bp tiles) and
-    multimapped pairs of equal score (weight 1/2, so the tiles' carries
-    are not zero)."""
+def _straddle_sam(path, centers=(131_072, 400_000, 655_360)):
+    """One 1 Mbp chromosome: background pairs, clusters at ``centers``
+    (by default one across the tile boundary at 131,072: n_shards=8
+    gives 2^17-bp tiles) and multimapped pairs of equal score (weight
+    1/2, so the tiles' carries are not zero)."""
     b = oracle.SamBuilder([("chr1", 1_000_000)], seed=3)
     rng = b.rng
-    for center in (131_072, 400_000, 655_360):
+    for center in centers:
         for _ in range(400):
             p1 = center + rng.randrange(-350, 250)
             b.add_pair("chr1", p1, p1 + rng.randrange(60, 300), score=0)
@@ -260,14 +273,113 @@ def _straddle_sam(path):
     return b.write(path)
 
 
-def test_peak_straddling_a_tile_boundary_matches_torch_engine(tmp_path):
+def _torch_engine_row_order_aucs(tmp_path, args, monkeypatch):
+    """TorchEngine's run of ``args`` with the arguments of its K4 calls
+    kept: its lines, and {(start, end): AUC} summed over its own rows in
+    row order (``testing.auc_rowwise``, what K4 gives on the card; the
+    CPU's plain version sums in float64)."""
+    from genrich_tpu_torch import testing
+    from genrich_tpu_torch.ops import peaks
+    calls = []
+    real = peaks.peak_reduce
+
+    def keep(*a):
+        calls.append(a)
+        return real(*a)
+    monkeypatch.setattr(peaks, "peak_reduce", keep)
+    d, _ = _port(tmp_path, args, TorchEngine("cpu"), "torch")
+    monkeypatch.setattr(peaks, "peak_reduce", real)
+    aucs = {}         # one chromosome: rows are in its coordinates
+    for starts, ends, stat, _, _, sig, _, first, last, min_pq in calls:
+        host = [t.numpy() for t in (starts, ends, stat, sig, first, last)]
+        ex = host[5] >= host[4]
+        auc = testing.auc_rowwise(*host, min_pq)
+        for f, la, a in zip(host[4][ex], host[5][ex], auc[ex]):
+            aucs[(int(host[0][f]), int(host[1][la]))] = a
+    return _lines(d), aucs
+
+
+def test_peak_straddling_a_tile_boundary_matches_torch_engine(tmp_path,
+                                                              monkeypatch):
+    """Two merged peaks straddle a tile boundary.  Columns 1-6 equal
+    TorchEngine's and the port's exact engine's.  Column 7, as text:
+    each straddling peak's is TorchEngine's row-order sum over its own
+    rows (K4's on the card), where the sum of the tiles' AUCs was 1-2
+    ulp off; the others equal TorchEngine's.  Against the exact engine
+    column 7 holds within 1e-6 relative: its float64-exact p-values
+    differ from the device's float32 ones in the last digit, so no
+    device engine's AUC equals its text."""
     args = ["-t", _straddle_sam(str(tmp_path / "in.sam"))] + BASE
     got_d, perf = _port(tmp_path, args)
-    want_d, _ = _port(tmp_path, args, TorchEngine("cpu"), "torch")
-    want, got = _lines(want_d), _lines(got_d)
+    want, row_order = _torch_engine_row_order_aucs(tmp_path, args,
+                                                   monkeypatch)
+    exact, log = _exact(tmp_path, args)
+    got = _lines(got_d)
     assert [a.split("\t")[:6] for a in want] \
-        == [b.split("\t")[:6] for b in got]
+        == [b.split("\t")[:6] for b in got] \
+        == [c.split("\t")[:6] for c in exact]
+    # one summit (of the peak at 655,014) is a near tie
+    assert check_summits(exact, got, log, 1e-5) == (len(exact), 1)
     assert perf["grid_tile_len"] == 131_072 and perf["grid_tiles"] == 8
-    spans = [(int(f[1]), int(f[2])) for f in (ln.split("\t") for ln in got)]
-    assert any(s < 131_072 < e for s, e in spans), spans
-    assert perf["straddling_peaks"] >= 1
+    straddling = 0
+    for a, b, c in zip(want, got, exact):
+        fa, fb, fc = a.split("\t"), b.split("\t"), c.split("\t")
+        s, e = int(fb[1]), int(fb[2])
+        if s // 131_072 < (e - 1) // 131_072:
+            straddling += 1
+            assert fb[6] == f"{row_order[(s, e)]:.6f}", (a, b)
+        else:
+            assert fb[6] == fa[6], (a, b)
+        assert abs(float(fb[6]) - float(fc[6])) <= 1e-6 * float(fc[6]), \
+            (b, c)
+    assert straddling == perf["straddling_peaks"] == 2
+
+
+def test_row_order_auc_joins_a_row_cut_by_the_tile_boundary():
+    """A significant row across the boundary of two tiles is cut in two
+    by the grid; the sharded engine's row-order AUC counts it as one
+    row, bitwise to ``testing.auc_rowwise`` over the uncut rows."""
+    from genrich_tpu_torch import testing
+    rng = np.random.RandomState(7)
+    tl, min_pq = 4096, np.float32(2.0)
+    cuts = np.unique(np.concatenate([
+        [0, 2 * tl], rng.choice(np.arange(1, 2 * tl), 400, replace=False)]))
+    cuts = cuts[cuts != tl]                # the boundary cuts one row
+    starts, ends = cuts[:-1], cuts[1:]
+    stat = rng.uniform(0, 4, len(starts)).astype(np.float32)
+    across = int(np.flatnonzero(starts < tl)[-1])
+    stat[across - 20:across + 21] = rng.uniform(2.5, 9, 41)
+    sig = stat > min_pq
+    lo, hi = across, across
+    while sig[lo - 1]:
+        lo -= 1
+    while sig[hi + 1]:
+        hi += 1
+    want = testing.auc_rowwise(starts, ends, stat, sig, [lo], [hi], min_pq)
+    # the fixture's teeth: summing the two halves gives another float32
+    halves = testing.auc_rowwise(
+        np.insert(starts, across + 1, tl), np.insert(ends, across, tl),
+        np.insert(stat, across, stat[across]), np.insert(sig, across, True),
+        [lo], [hi + 1], min_pq)
+    assert halves[0] != want[0]
+    tiles = []
+    for t in (0, 1):
+        s = np.clip(starts, t * tl, (t + 1) * tl) - t * tl
+        e = np.clip(ends, t * tl, (t + 1) * tl) - t * tl
+        real = e > s
+        tiles.append((s[real], e[real], stat[real]))
+    width = max(len(x[0]) for x in tiles)
+
+    def stack(i, fill, dtype):
+        return torch.from_numpy(np.stack([np.concatenate(
+            [x[i], np.full(width - len(x[i]), fill)]).astype(dtype)
+            for x in tiles]))
+    st = {"tile_len": tl, "starts": stack(0, tl, np.int32),
+          "ends": stack(1, tl, np.int32), "pv": stack(2, 0, np.float32),
+          "live": torch.from_numpy(np.stack([np.arange(width) < len(x[0])
+                                             for x in tiles]))}
+    eng = ShardedTorchEngine("cpu", n_shards=2)
+    got = eng._row_order_aucs(st, np.array([starts[lo]]),
+                              np.array([ends[hi]]), min_pq, False)
+    assert hi - lo > 30 and want[0] > 0
+    assert got.view(np.uint32)[0] == want.view(np.uint32)[0], (got, want)
