@@ -29,16 +29,22 @@ non-zero, and the result line is printed only when every phase passed:
    of scripts/bench_e2e.py, the JAX package's ``--engine exact -v`` once
    (in a child process that loads the native library the port's
    ``ensure_native()`` found) and the port's ``--engine exact -v`` once
-   in this process (host code only): narrowPeak and -v stderr
-   byte-identical, both walls printed.  Then the port twice in this
-   process (cold, warm) with ``-r -j -q 0.05 -a 20 --device cuda``.
-   Checks: K1, K2 and K4 launched in each run, native ingest in every
-   run, the peak rows against the exact engine by bench_e2e's rule
-   (match_frac >= 0.99, worst_unmatched_margin <= 0.02), cold and warm
-   narrowPeak byte-identical; the matched rows whose column 10 (summit
-   offset) differs from the exact engine's are counted, not gated on.
-   One more run keeps the inputs of the main path's own K1, K2 and K4
-   calls.  Every kernel on its path's calls launches the device kernels
+   in this process (host code only), each writing an -f log too:
+   narrowPeak, log and -v stderr byte-identical, both walls printed.
+   Then the port twice in this process (cold, warm) with ``-r -j -q
+   0.05 -a 20 --device cuda``.  Checks: K1, K2 and K4 launched in each
+   run, native ingest in every run, the peak rows against the exact
+   engine by bench_e2e's rule (match_frac >= 0.99,
+   worst_unmatched_margin <= 0.02), column 10 (summit offset) of every
+   matched row equal to the exact engine's or a near tie that its -f log
+   shows (``testing.check_summits``, stats within SUMMIT_TOL), cold and
+   warm narrowPeak byte-identical; the interval rows before and after
+   the engine merged them into the exact engine's intervals
+   (``compact.pileup_runs``) are printed.  One more run keeps the inputs
+   of the main path's own K1, merge, K2 and K4 calls.  The merge (plain
+   PyTorch, no kernel) on them: every output on the card bitwise to the
+   same code on the CPU, times.  Every kernel on its path's calls
+   launches the device kernels
    of ``kernels.KERNELS_PER_CALL`` per call (the call captured into a
    CUDA graph, whose kernel nodes are read), the table ``prof.py``
    holds torch.profiler's records to.  K1 on them: bitwise to its plain
@@ -54,8 +60,9 @@ non-zero, and the result line is printed only when every phase passed:
 5. Control: ``-t A -c B`` (B the second 2M-pair BAM, seed 8), the
    same flags; both exact engines once, the port cold and warm, the
    same checks as the main path.  One more run keeps the inputs of its
-   K2 calls, the only ones where the control varies from row to row:
-   K2 on them as on the main path's.
+   merge, K2 and K4 calls (its K2 calls are the only ones where the
+   control varies from row to row): each on them as on the main
+   path's.
 6. Fisher: ``-t A,B``, the same flags; both exact engines once, the
    port cold and warm.  Checks: the same row rule, cold == warm bytes,
    K1 and K2 launched 6 times, K3 3 times, K4 at least 3 times per
@@ -69,8 +76,9 @@ non-zero, and the result line is printed only when every phase passed:
    phase 4's exact file.  Prints the grid (2^28-bp tiles, 5 per
    chromosome), the merged peaks that straddle a tile boundary and the
    chromosomes the host peak caller finished.  Checks: K1, K2 and K4
-   launched in each run, the row rule, cold == warm bytes.  One more
-   run keeps the inputs of its K1, K2 and K4 calls.  K1 (one call per
+   launched in each run, the row rule, the summits, cold == warm bytes.
+   One more run keeps the inputs of its K1, merge (one call per tile),
+   K2 and K4 calls; the merge as on the main path's.  K1 (one call per
    tile, each from its carry): bitwise to its plain version and its
    first design, one kernel per call, times; every carry of this BAM is
    zero (all its weights are whole), so each call is held once more
@@ -79,7 +87,7 @@ non-zero, and the result line is printed only when every phase passed:
    (one call per tile, the tiles past a chromosome's end among them) as
    on the main path's calls.
 8. Sharded Fisher: ``-t A,B --engine sharded`` under the same group,
-   cold and warm, against phase 6's exact file by the same rule; K3
+   cold and warm, against phase 6's exact files by the same rules; K3
    launched; cold == warm.  One more run keeps the inputs of its K3
    calls (one per tile, RLEs padded with (limit, SKIP) rows): K3 on
    them as on the Fisher path's calls.
@@ -134,6 +142,7 @@ M_MAIN = 1 << 23
 M_RAGGED = (1 << 23) - 12_345
 TOL = 1e-5
 FISHER_RTOL = 1e-6
+SUMMIT_TOL = 1e-4        # a near tie: the two summits' stats this close
 CARRY8 = [5, 1, 2, 3, 7, 0, 1, 4]   # a carry into K1's scan (G=2)
 PEAKS_K4 = 30_000
 DEV = "cuda"
@@ -808,11 +817,26 @@ def _rel_diffs(ref_path, out_path):
     return worst
 
 
-def _summit_diffs(ref_path, out_path):
-    """Matched rows (columns 1-3) whose column 10, the summit offset,
-    differs from the exact engine's (printed, not gated on)."""
-    ref, out = _rows(ref_path), _rows(out_path)
-    return sum(ref[k][9] != out[k][9] for k in ref.keys() & out.keys())
+def _summits(ref_path, ref_log, out_path):
+    """Column 10, the summit offset, of the matched rows (columns 1-3)
+    against the exact engine's: each equal, or a near tie that the exact
+    engine's -f log ``ref_log`` shows (``testing.check_summits``: the
+    two summits' intervals have stats within SUMMIT_TOL relative); any
+    other difference raises.  Returns the rows compared and the rows
+    that differ (each a near tie)."""
+    from genrich_tpu_torch import testing
+    with open(ref_path) as f, open(out_path) as g:
+        n, ties = testing.check_summits(f.read().splitlines(),
+                                        g.read().splitlines(), ref_log,
+                                        SUMMIT_TOL)
+    return {"compared": n, "differ_near_ties": ties}
+
+
+def _merge_counts(perf):
+    """The device's interval rows before and after the merge into the
+    exact engine's intervals (``stats_all``; summed over replicates)."""
+    return {k: perf[k] for k in ("interval_rows", "real_rows",
+                                 "merged_rows", "merged_width")}
 
 
 def _native_used() -> bool:
@@ -928,9 +952,12 @@ def peak_runs(name: str, ts, need, extra=(), ref=None):
     run_dir = os.path.join(WORK, "chip_smoke")
     os.makedirs(run_dir, exist_ok=True)
     ref_np = os.path.join(run_dir, f"{ref or name}_exact.np")
+    ref_log = os.path.join(run_dir, f"{ref or name}_exact.log")
     if ref is None:
-        exact_pair(name, ["-t", ts, *extra] + FLAGS, {"-o": (
-            ref_np, os.path.join(run_dir, f"{name}_port_exact.np"))})
+        exact_pair(name, ["-t", ts, *extra] + FLAGS, {
+            "-o": (ref_np, os.path.join(run_dir, f"{name}_port_exact.np")),
+            "-f": (ref_log, os.path.join(run_dir,
+                                         f"{name}_port_exact.log"))})
     counts = {}
     for label in ("cold", "warm"):
         out_np = os.path.join(run_dir, f"{name}_port_{label}.np")
@@ -940,8 +967,8 @@ def peak_runs(name: str, ts, need, extra=(), ref=None):
         diffs = _rel_diffs(ref_np, out_np)
         say(f"{name}_port_{label}", wall_s=wall, launches=counts,
             ingest="native", max_memory_allocated=mem, rows=rows,
-            worst_rel_diff=diffs, summit_differs=_summit_diffs(
-                ref_np, out_np), perf=perf)
+            worst_rel_diff=diffs, merge=_merge_counts(perf),
+            summits=_summits(ref_np, ref_log, out_np), perf=perf)
         fault = need(counts)
         if fault:
             raise AssertionError(f"{name} ({label}): {fault}: {counts}")
@@ -1015,19 +1042,54 @@ def kernel_inputs(label, ts, targets, extra=()):
 
 
 def main_kernel_inputs(bam):
-    """The arguments of the main path's K1, K2 and K4 calls."""
+    """The arguments of the main path's K1, K2 and K4 calls and of its
+    row merge."""
     from genrich_tpu_torch.engine import torch_bridge
-    from genrich_tpu_torch.ops import peaks, pipeline
+    from genrich_tpu_torch.ops import compact, peaks, pipeline
     return kernel_inputs("main", bam, [(pipeline, "coverage_scan"),
+                                       (compact, "pileup_runs"),
                                        (torch_bridge, "tile_stats"),
                                        (peaks, "peak_reduce")])
 
 
 def control_kernel_inputs(bam_t, bam_c):
-    """The arguments of the control run's K2 calls."""
+    """The arguments of the control run's row merge, K2 and K4 calls."""
     from genrich_tpu_torch.engine import torch_bridge
-    return kernel_inputs("control", bam_t, [(torch_bridge, "tile_stats")],
-                         ["-c", bam_c])["tile_stats"]
+    from genrich_tpu_torch.ops import compact, peaks
+    return kernel_inputs("control", bam_t, [(compact, "pileup_runs"),
+                                            (torch_bridge, "tile_stats"),
+                                            (peaks, "peak_reduce")],
+                         ["-c", bam_c])
+
+
+def merge_phase(calls, path):
+    """The row merge (``compact.pileup_runs``, plain PyTorch) on the
+    inputs of a path's own calls: on the card against the same code on
+    the CPU (every output bitwise), its device and call times (summed
+    over the calls) and the rows it took and gave."""
+    import torch
+    from genrich_tpu_torch.ops import compact
+    dev = torch.device(DEV)
+    out = {"calls": len(calls), "rows": 0, "real_rows": 0, "intervals": 0,
+           "ms": 0.0, "call_ms": 0.0}
+    for i, call in enumerate(calls):
+        args = [a.to(dev) if torch.is_tensor(a) else a for a in call]
+        got = compact.pileup_runs(*args)
+        want = compact.pileup_runs(*call)
+        for name, g, w in zip(got._fields, got, want):
+            if not torch.equal(g.cpu(), w):
+                raise AssertionError(f"pileup_runs, {path} path call {i}: "
+                                     f"{name} differs from the CPU's")
+        out["rows"] += int(args[0].shape[0])
+        out["real_rows"] += int(got.n_rows)
+        out["intervals"] += int(got.n)
+        out["ms"] += _median_ms(lambda: compact.pileup_runs(*args))
+        out["call_ms"] += _median_ms(lambda: compact.pileup_runs(*args),
+                                     busy=False)
+        del args, got
+    torch.cuda.empty_cache()
+    say("merge", path=path, **out)
+    return out
 
 
 def fisher_kernel_inputs(bam_a, bam_b):
@@ -1202,9 +1264,11 @@ def sharded_path(bam):
                                  ["--engine", "sharded"], ref="main")
         backend = _need_nccl()
         calls = kernel_inputs("sharded", bam, [(pipeline, "coverage_scan"),
+                                               (mesh, "pileup_runs"),
                                                (mesh, "tile_stats"),
                                                (peaks, "peak_reduce")],
                               ["--engine", "sharded"])
+    merge_phase(calls.pop("pileup_runs"), "sharded")
     grid = (perf["grid_tile_len"], perf["grid_tiles"])
     say("sharded_grid", backend=backend, tile_len=grid[0],
         tiles_per_chrom=grid[1], k1_calls=len(calls["coverage_scan"]),
@@ -1340,6 +1404,7 @@ def main() -> int:
     bam_a = synth_bam("a")
     main_counts = main_path(bam_a)
     calls = main_kernel_inputs(bam_a)
+    merge_phase(calls["pileup_runs"], "main")
     entries[0].update(k1_path_phase(calls["coverage_scan"], "main"))
     k2 = k2_path_phase(calls["tile_stats"], "main")
     entries[1].update(k2, max_abs_err=max(entries[1]["max_abs_err"],
@@ -1348,10 +1413,17 @@ def main() -> int:
     del calls
     bam_b = synth_bam("b")
     control_path(bam_a, bam_b)
-    k2 = k2_path_phase(control_kernel_inputs(bam_a, bam_b), "control")
+    calls = control_kernel_inputs(bam_a, bam_b)
+    merge_phase(calls["pileup_runs"], "control")
+    k2 = k2_path_phase(calls["tile_stats"], "control")
     entries[1]["control_path"] = k2
     entries[1]["max_abs_err"] = max(entries[1]["max_abs_err"],
                                     k2["max_abs_err"])
+    k4 = k4_path_phase(calls["peak_reduce"], "control")
+    entries[3]["control_path"] = k4
+    entries[3]["max_abs_err"] = max(entries[3]["max_abs_err"],
+                                    k4["max_abs_err"])
+    del calls
     fisher_counts = fisher_path(bam_a, bam_b)
     k3 = k3_path_phase(fisher_kernel_inputs(bam_a, bam_b), "fisher")
     entries[2].update(k3, max_abs_err=max(entries[2]["max_abs_err"],

@@ -9,10 +9,13 @@ from the carry of the tiles before it (K1), p-values run over all tiles
 (K2), each tile calls its own peaks (K4, at most ``PEAK_CAP``
 candidates) and the host merges peaks that straddle tile boundaries
 (``merge_tile_peaks``); the -f/-k logs stitch the tiles' RLE runs, and
-several replicates combine tile by tile (K3).  A merged peak that
-straddles a boundary gets its AUC summed again over its rows in
-genomic order (``_row_order_aucs``), as TorchEngine's K4 and the exact
-engine sum one peak; the JAX twin keeps the sum of its tiles' AUCs.
+several replicates combine tile by tile (K3).  Before the p-values each
+tile's rows are merged into the exact engine's intervals
+(``merge_rows``), as in TorchEngine.  A merged peak that straddles a
+boundary gets its AUC and summit taken again over its rows in genomic
+order (``_row_order_peaks``), with an interval that the boundary cut
+counted once, as TorchEngine's K4 and the exact engine take one peak;
+the JAX twin keeps the sum of its tiles' AUCs and their best summit.
 
 Reference semantics per stage (float32, as TorchEngine):
   coverage/pileup   savePileupExpt/Ctrl   Genrich.c:2052-2295
@@ -58,7 +61,7 @@ from . import qvalue
 from .host_fallback import INT32_MAX, HostChromMixin
 from .perf import PerfMixin
 from .pileup import Pileup
-from .torch_bridge import check_device
+from .torch_bridge import SKIP, check_device
 
 F32 = np.float32
 PEAK_CAP = 4096            # per-tile candidate rows (call_peaks k)
@@ -137,7 +140,8 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
         peaks that the host caller or the boundary merge finished."""
         super().begin_run()
         self.perf.update(grid_tile_len=0, grid_tiles=0, straddling_peaks=0,
-                         host_peak_chroms=0)
+                         host_peak_chroms=0, interval_rows=0, real_rows=0,
+                         merged_rows=0, merged_width=0)
 
     # --- grid ------------------------------------------------------------
 
@@ -221,14 +225,20 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
             staged += self._stage_events(s[lo:hi], e[lo:hi], c[lo:hi],
                                          off[r.start:r.stop + 1] - lo, w,
                                          tile_len)
-        excl = split_excl_to_tiles(bed, n_tiles, tile_len)[r.start:r.stop]
+        excl = self._put(split_excl_to_tiles(bed, n_tiles,
+                                             tile_len)[r.start:r.stop])
         limit = limit[r.start:r.stop]
-        (starts, ends, ev, cr, excluded, live, frag_all,
-         cfrag_all) = self._call(kern.cov, *staged, self._put(excl), limit)
+        (starts, ends, ev, cr, excluded, live, frag_all, cfrag_all,
+         level) = self._call(kern.cov, *staged, excl, limit, levels=True)
+        # tiles whose start is an -E coordinate (a tile-local pair that
+        # starts at 0 may be the rest of one cut by the boundary)
+        tile_bound = np.isin(np.arange(r.start, r.stop) * tile_len,
+                             [b for b in bed if 0 < b < chrom_len])
         self._chrom[cidx] = {
             "starts": starts, "ends": ends, "ev": ev, "cr": cr,
             "excluded": excluded, "live": live, "len": chrom_len,
-            "tile_len": tile_len, "limit": limit,
+            "tile_len": tile_len, "limit": limit, "level": level,
+            "excl": excl, "tile_bound": self._put(tile_bound),
         }
         return frag_all, cfrag_all
 
@@ -249,14 +259,51 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
     # --- stage 2: p-values (resident) --------------------------------------
 
     def stats_all(self, lam: float, factor: float) -> None:
+        """Merge the rows into the exact engine's intervals
+        (``merge_rows``), then -log10 p over every tile (K2)."""
         self._lam = F32(lam)
         self._factor = F32(factor)
+        self.merge_rows()
         for st in self._chrom.values():
             if st.get("host"):
                 continue
             st["pv"] = self._call(ShardedKernels.stats, st["ev"], st["cr"],
                                   st["excluded"], self._lam, self._factor)
         self.host_stats(lam, factor)
+
+    def merge_rows(self) -> None:
+        """Each tile's rows merged into the exact engine's intervals
+        (``ShardedKernels.runs``), the [t, M] layout narrowed to the
+        widest tile's interval count on any rank: one pull of every
+        chromosome's gathered counts.  ``cont`` stays for the summits
+        and AUCs of peaks that straddle a tile boundary."""
+        pend = []
+        keys = ("starts", "ends", "ev", "cr", "excluded")
+        for st in self._chrom.values():
+            if st.get("host"):
+                continue
+            kern = self._kern(st["tile_len"])
+            width = st["starts"].numel() * self.world
+            out = self._call(kern.runs, *(st[key] for key in keys),
+                             st["live"], st.pop("level"), st.pop("excl"),
+                             st.pop("tile_bound"), self._lam, self._factor)
+            st.update(zip(keys, out[:5]), cont=out[7])
+            n = out[5]
+            pend.append((st, width, n, torch.stack([kern.gather(n),
+                                                    kern.gather(out[6])])))
+        if not pend:
+            return
+        p = self.perf
+        for (st, width, n, _), counts in zip(pend, self._fetch_many(
+                [c for *_, c in pend])):
+            k = max(int(counts[0].max()), 1)
+            p["interval_rows"] += width
+            p["real_rows"] += int(counts[1].sum())
+            p["merged_rows"] += int(counts[0].sum())
+            p["merged_width"] += k * counts.shape[1]
+            for key in keys:
+                st[key] = st[key][:, :k].contiguous()
+            st["live"] = torch.arange(k, device=n.device) < n[:, None]
 
     # --- multi-replicate: archive + per-tile Fisher --------------------------
 
@@ -447,10 +494,10 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
 
     def peaks_fetch(self, handle):
         """Resolve a ``peaks_submit`` handle: the cap check, then the host
-        boundary merge, the row-order AUC of each merged peak that
-        straddles a tile boundary, and the min-AUC filter.  Returns the
-        peak arrays, or None when a tile had more candidates than the cap
-        (the host peak caller finishes)."""
+        boundary merge, the row-order AUC and summit of each merged peak
+        that straddles a tile boundary, and the min-AUC filter.  Returns
+        the peak arrays, or None when a tile had more candidates than the
+        cap (the host peak caller finishes)."""
         res, st, cap, min_pq, min_auc, min_len, max_gap, use_q = handle
         res = self._fetch_many(res)
         if int(res[-1].max()) > cap:           # n_peaks
@@ -463,64 +510,89 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
         starts = np.array([m[0] for m in merged], np.int64)
         ends = np.array([m[1] for m in merged], np.int64)
         aucs = np.array([m[2] for m in merged], F32)
+        spv = np.array([m[3] for m in merged], F32)
+        sqv = np.array([m[4] for m in merged], F32)
+        spos = np.array([m[5] for m in merged], np.int64)
         strad = starts // tile_len < (ends - 1) // tile_len
         if strad.any():
-            aucs[strad] = self._row_order_aucs(st, starts[strad],
-                                               ends[strad], min_pq, use_q)
+            got = self._row_order_peaks(st, starts[strad], ends[strad],
+                                        min_pq, use_q)
+            aucs[strad] = got[0]
+            if "cont" in st:
+                spv[strad], sqv[strad], spos[strad] = got[1:]
         keep = aucs >= F32(min_auc)
         self.perf["straddling_peaks"] += int((strad & keep).sum())
-        return (starts[keep], ends[keep], aucs[keep],
-                np.array([m[3] for m in merged], F32)[keep],
-                np.array([m[4] for m in merged], F32)[keep],
-                np.array([m[5] for m in merged], np.int64)[keep])
+        return (starts[keep], ends[keep], aucs[keep], spv[keep], sqv[keep],
+                spos[keep])
 
-    def _row_order_aucs(self, st, p_start, p_end, min_pq: float,
-                        use_q: bool) -> np.ndarray:
-        """Float32 AUC of each peak [p_start, p_end) (chromosome
-        coordinates), summed over its significant rows in genomic order
-        across tiles: ``auc = f32(auc + f32(len * f32(stat - min_pq)))``,
-        the order of K4 and of the exact engine's updatePeak.  A row that
-        a tile boundary cut in two (equal stat on both sides, the rule of
-        ``_stitch``) counts as the one row it is in TorchEngine's layout.
-        Each rank selects the rows of its own tiles; ranks hold
-        consecutive tiles, so the gathered rows are in genomic order."""
+    def _row_order_peaks(self, st, p_start, p_end, min_pq: float,
+                         use_q: bool):
+        """AUC and summit of each peak [p_start, p_end) (chromosome
+        coordinates) over its significant rows in genomic order across
+        tiles, as K4 and the exact engine's updatePeak take them: float32
+        ``auc = f32(auc + f32(len * f32(stat - min_pq)))``; the summit is
+        the first row of maximum stat for its p and q, and the longest
+        such row, the first of equal length, for its position (the
+        row's midpoint, relative to p_start).  A row that a tile boundary
+        cut in two (``cont`` of the later tile, from ``merge_rows``)
+        counts as the one interval it is, at its full length.  The Fisher
+        path's rows have no ``cont``: there a cut is told by an equal
+        stat on both sides (the rule of ``_stitch``), and the caller
+        keeps ``merge_tile_peaks``' summits.  Each rank
+        selects the rows of its own tiles; ranks hold consecutive tiles,
+        so the gathered rows are in genomic order.  Returns (auc,
+        summit p, summit q, summit offset) arrays."""
         tl = st["tile_len"]
         starts, ends, pv = st["starts"], st["ends"], st["pv"]
         stat = assign_qvals(pv.reshape(-1), *self._qtable).reshape(
             pv.shape) if use_q else pv
         thr = F32(min_pq)
         t = starts.shape[0]
-        off = (torch.arange(t, dtype=torch.int64, device=starts.device)
+        dev = starts.device
+        off = (torch.arange(t, dtype=torch.int64, device=dev)
                + self.rank * t)[:, None] * tl
         g_start = (starts + off).reshape(-1)
         g_end = (ends + off).reshape(-1)
+        cont = st.get("cont")
+        if cont is None:
+            cont = torch.ones(t, dtype=torch.bool, device=dev)
+        cont = ((starts == 0) & cont[:, None]).reshape(-1)
         sig = st["live"] & (ends > starts) & (stat > float(thr))
-        peak = torch.searchsorted(torch.as_tensor(p_start,
-                                                  device=starts.device),
+        peak = torch.searchsorted(torch.as_tensor(p_start, device=dev),
                                   g_start, right=True) - 1
         take = sig.reshape(-1) & (peak >= 0) & (
-            g_end <= torch.as_tensor(p_end, device=starts.device)[
-                peak.clamp_min(0)])
+            g_end <= torch.as_tensor(p_end, device=dev)[peak.clamp_min(0)])
         # the generator runs inside the fetch, so the boolean selection's
         # host sync is accounted as the fetch it is
-        peak, g_start, g_end, stat = self._fetch_many(
+        peak, g_start, g_end, stat, pv, cont = self._fetch_many(
             gather_ragged(x[take], self.group)
-            for x in (peak, g_start, g_end, stat.reshape(-1)))
-        out = np.zeros(len(p_start), F32)
+            for x in (peak, g_start, g_end, stat.reshape(-1),
+                      pv.reshape(-1), cont))
+        k = len(p_start)
+        out = (np.zeros(k, F32), np.full(k, F32(SKIP)), np.full(k, F32(SKIP)),
+               np.zeros(k, np.int64))
         if not len(peak):
             return out
-        cut = ((g_end[:-1] == g_start[1:]) & (g_end[:-1] % tl == 0)
-               & (stat[:-1] == stat[1:]) & (peak[:-1] == peak[1:]))
+        cut = (g_end[:-1] == g_start[1:]) & cont[1:] & (peak[:-1] == peak[1:])
+        if "cont" not in st:
+            cut &= stat[:-1] == stat[1:]
         head = np.flatnonzero(np.concatenate([[True], ~cut]))
-        lens = np.add.reduceat(g_end - g_start, head)
-        contrib = lens.astype(F32) * (stat[head] - thr)
-        peak = peak[head]
-        for j in range(len(p_start)):
-            rows = contrib[peak == j]
-            if len(rows):
-                # a sequential float32 sum (add.accumulate never
-                # reassociates)
-                out[j] = np.cumsum(rows, dtype=F32)[-1]
+        g_end = g_end[np.concatenate([head[1:] - 1, [len(g_end) - 1]])]
+        g_start, stat, pv, peak = (a[head] for a in (g_start, stat, pv, peak))
+        lens = g_end - g_start
+        contrib = lens.astype(F32) * (stat - thr)
+        auc, spv, sqv, spos = out
+        for j in range(k):
+            rows = np.flatnonzero(peak == j)
+            if not len(rows):
+                continue
+            # a sequential float32 sum (add.accumulate never reassociates)
+            auc[j] = np.cumsum(contrib[rows], dtype=F32)[-1]
+            top = rows[stat[rows] == stat[rows].max()]
+            spv[j] = pv[top[0]]
+            sqv[j] = stat[top[0]] if use_q else F32(SKIP)
+            best = top[np.argmax(lens[top])]
+            spos[j] = (g_start[best] + g_end[best]) // 2 - p_start[j]
         return out
 
     def release(self) -> None:

@@ -77,6 +77,13 @@ class TorchEngine(PerfMixin, HostChromMixin):
         self._qtable_host = None
         self.begin_run()
 
+    def begin_run(self) -> None:
+        """Reset the per-analysis accounting, with the interval rows
+        before and after ``stats_all`` merges them (``merge_rows``)."""
+        super().begin_run()
+        self.perf.update(interval_rows=0, real_rows=0, merged_rows=0,
+                         merged_width=0)
+
     def prepare(self, max_chrom_len: int = 0) -> None:
         """Build the CUDA kernels before the first chromosome.
 
@@ -125,12 +132,14 @@ class TorchEngine(PerfMixin, HostChromMixin):
         excl = np.full((pairs, 2), chrom_len, np.int32)
         excl[:len(bed) // 2] = np.asarray(bed, np.int64).reshape(-1, 2)
         zero4 = torch.zeros(4, dtype=torch.int32, device=self.device)
-        (starts, ends, ev, cr, excluded, live, frag,
-         cfrag) = self._call(tile_coverage, es, ee, ec, cs, ce, cc,
-                             self._put(excl), chrom_len, zero4, zero4)
+        excl = self._put(excl)
+        (starts, ends, ev, cr, excluded, live, frag, cfrag,
+         level) = self._call(tile_coverage, es, ee, ec, cs, ce, cc, excl,
+                             chrom_len, zero4, zero4, levels=True)
         self._chrom[cidx] = {
             "starts": starts, "ends": ends, "ev": ev, "cr": cr,
             "excluded": excluded, "live": live, "len": chrom_len,
+            "level": level, "excl": excl,
         }
         return frag, cfrag
 
@@ -158,19 +167,55 @@ class TorchEngine(PerfMixin, HostChromMixin):
     def stats_all(self, lam: float, factor: float) -> None:
         """-log10 p per interval for every resident chromosome.
 
-        The coverage arrays (ev, cr, excluded) stay: ``pvalue_pileups``
-        reads them with λ and the control factor kept here.  The stages
-        that only the full-device path reaches free them
-        (``_drop_coverage``).
+        First the interval rows become the exact engine's intervals
+        (``merge_rows``), then K2 runs on them.  The coverage arrays
+        (ev, cr, excluded) stay: ``pvalue_pileups`` reads them with λ
+        and the control factor kept here.  The stages that only the
+        full-device path reaches free them (``_drop_coverage``).
         """
         self._lam = F32(lam)
         self._factor = F32(factor)
+        self.merge_rows()
         for st in self._chrom.values():
             if st.get("host"):
                 continue
             st["pv"] = self._call(tile_stats, st["ev"], st["cr"],
                                   st["excluded"], F32(factor), F32(lam))
         self.host_stats(lam, factor)
+
+    def merge_rows(self) -> None:
+        """Merge each device chromosome's rows into the exact engine's
+        intervals (``compact.pileup_runs``, with λ and the factor of
+        ``stats_all``) and keep only those: one pull of every count.
+        Each chromosome's merged arrays replace its rows as soon as they
+        are queued, so the unmerged rows of one chromosome at a time are
+        alive beside them."""
+        pend = []
+        for st in self._chrom.values():
+            if st.get("host"):
+                continue
+            width = st["starts"].shape[0]
+            r = self._call(compact.pileup_runs, st["starts"], st["ends"],
+                           st["ev"], st["cr"], st["excluded"], st["live"],
+                           st.pop("level"), st.pop("excl"), self._lam,
+                           self._factor)
+            st.update(starts=r.starts, ends=r.ends, ev=r.ev, cr=r.cr,
+                      excluded=r.excluded)
+            pend.append((st, width, torch.stack([r.n, r.n_rows])))
+        if not pend:
+            return
+        p = self.perf
+        for (st, width, _), (n, n_rows) in zip(
+                pend, self._fetch_many([c for _, _, c in pend])):
+            n = int(n)
+            k = max(n, 1)        # an empty chromosome keeps a dead row
+            p["interval_rows"] += width
+            p["real_rows"] += int(n_rows)
+            p["merged_rows"] += n
+            p["merged_width"] += k
+            for key in ("starts", "ends", "ev", "cr", "excluded"):
+                st[key] = st[key][:k].clone()
+            st["live"] = torch.arange(k, device=self.device) < n
 
     @staticmethod
     def _drop_coverage(st) -> None:

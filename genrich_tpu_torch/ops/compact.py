@@ -3,13 +3,18 @@
 Plain PyTorch: ``torch.sort``, ``cumsum``, ``cummax`` and
 ``searchsorted`` stand in for the XLA programs the JAX package left to
 the compiler; ``merge_fisher`` combines through kernel K3
-(``ops/chisq.fisher_combine``).  Shapes stay static (a full-width array
-plus a live count tensor), so nothing here waits for the card; the
-engine pulls counts and slices in batched fetches.
+(``ops/chisq.fisher_combine``).  ``pileup_runs``, which merges the
+device's interval rows into the exact engine's intervals, is the port's
+own: the JAX package keeps one row per event.  Shapes stay static (a
+full-width array plus a live count tensor), so nothing here waits for
+the card; the engine pulls counts and slices in batched fetches.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from .chisq import fisher_combine
@@ -26,6 +31,65 @@ def compact(mask, arrays):
     order = torch.sort((~mask).to(torch.uint8), stable=True).indices
     return (tuple(a[order] for a in arrays),
             mask.sum(dtype=torch.int32))
+
+
+class Runs(NamedTuple):
+    starts: torch.Tensor     # int32 [M]: the first piece's start
+    ends: torch.Tensor       # int32 [M]: the last piece's end
+    ev: torch.Tensor         # f32 [M]: expt value (last piece's)
+    cr: torch.Tensor         # f32 [M]: raw control value (last piece's)
+    excluded: torch.Tensor   # bool [M]
+    level: torch.Tensor      # int64 [M]: 120 x the exact expt value
+    net: torch.Tensor        # f32 [M]: max(factor * cr, lambda)
+    n: torch.Tensor          # int32 []: intervals; later rows are dead
+    n_rows: torch.Tensor     # int32 []: live non-empty rows merged
+
+
+def pileup_runs(starts, ends, ev, cr, excluded, live, level, excl, lam,
+                factor) -> Runs:
+    """Interval rows -> the exact engine's intervals, maximal runs.
+
+    ``tile_coverage`` keeps one row per event position, also where the
+    pileup does not change (a fragment ends where another starts, a
+    control event under lambda).  The exact engine's p-value intervals
+    break only (savePileupExpt/Ctrl, savePval; ``engine/pileup.py``,
+    ``engine/pvalue.py::merge_pileups``) at an -E boundary, or outside
+    exclusions where the treatment's exact value changes or the
+    control's float32 max(factor * raw, lambda) does.  A live non-empty
+    row starts an interval iff its start is an -E coordinate (``excl``,
+    tile_coverage's pairs), its ``excluded`` flag differs from the
+    previous row's, or it is not excluded and its ``level`` (int64,
+    ``tile_coverage(..., levels=True)``) or that control value differs.
+    Each interval keeps its first piece's start and its last piece's
+    end and values (every piece has the same expt value and the same
+    control value).  Rows past ``n`` are dead, of length 0 at the last
+    interval's end.  Plain PyTorch, nothing waits for the card.
+    """
+    net = torch.clamp_min(float(np.float32(factor)) * cr,
+                          float(np.float32(lam)))
+    flat = excl.reshape(-1).to(starts.dtype).contiguous()
+    at = torch.searchsorted(flat, starts).clamp_max(flat.shape[0] - 1)
+    bound = flat[at] == starts
+    (s, e, v, c, x, w, t, b), r = compact(
+        live & (ends > starts),
+        (starts, ends, ev, cr, excluded, level, net, bound))
+    m = s.shape[0]
+    idx = torch.arange(m, dtype=torch.int32, device=s.device)
+
+    def differs(a):
+        return torch.cat([torch.ones(1, dtype=torch.bool, device=a.device),
+                          a[1:] != a[:-1]])
+    new = b | differs(x) | (~x & (differs(w) | differs(t)))
+    nxt = torch.cat([new[1:], torch.ones(1, dtype=torch.bool,
+                                         device=s.device)])
+    last = (idx < r) & (nxt | (idx == r - 1))
+    (e, v, c, x, w, t), n = compact(last, (e, v, c, x, w, t))
+    s = torch.cat([s[:1], e[:-1]])
+    dead = idx >= n
+    fill = e[(n - 1).clamp_min(0)]
+    s = torch.where(dead, fill, s)
+    e = torch.where(dead, fill, e)
+    return Runs(s, e, v, c, x, w, t, n, r)
 
 
 def _run_ends(pv_p, r):

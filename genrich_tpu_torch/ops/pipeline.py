@@ -20,7 +20,8 @@ import torch
 
 from .. import kernels
 from .peaks import TilePeaks, call_peaks
-from .pileup import PACKED_ADD, PACKED_SUB, PACKED_ZERO, event_deltas
+from .pileup import (PACKED_ADD, PACKED_SUB, PACKED_ZERO, event_deltas,
+                     unpack_deltas)
 from .pvalue import calc_pval
 from .scan import coverage_scan
 
@@ -67,7 +68,7 @@ def _excluded(starts, excl):
 
 
 def tile_coverage(es, ee, ec, cs, ce, cc, excl, tile_len, carry_e,
-                  carry_c, limit=None):
+                  carry_c, limit=None, levels: bool = False):
     """Events -> per-interval expt/ctrl coverage for one tile.
 
     es/ee: int32 [E] starts/ends, ec: count codes [E] (any integer
@@ -76,7 +77,11 @@ def tile_coverage(es, ee, ec, cs, ce, cc, excl, tile_len, carry_e,
     frag_len, ctrl_frag) like the JAX twin; ctrl_raw is the unscaled
     control coverage.  ``limit`` (default tile_len) clips the analysed
     span.  Rows that share a position come out of the (unstable) sort
-    in any order; consumers mask rows of length 0.
+    in any order; consumers mask rows of length 0.  With ``levels``
+    a ninth array follows: ``expt_level``, 120 times the treatment's
+    exact pileup value at each row as int64 (``expt_levels``), which
+    ``compact.pileup_runs`` compares where float32 values may round
+    two pileup values to one.
     """
     if limit is None:
         limit = tile_len
@@ -108,8 +113,29 @@ def tile_coverage(es, ee, ec, cs, ce, cc, excl, tile_len, carry_e,
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     frag_len = torch.where(excluded, zero, lens * expt_val).sum()
     ctrl_frag = torch.where(excluded, zero, lens * ctrl_raw).sum()
-    return (starts, ends, expt_val, ctrl_raw, excluded, live, frag_len,
-            ctrl_frag)
+    out = (starts, ends, expt_val, ctrl_raw, excluded, live, frag_len,
+           ctrl_frag)
+    if levels:
+        out += (expt_levels(packed, carry_e),)
+    return out
+
+
+# 120 x (cov + e8/8 + s6/6 + t10/10): the class sums' rational value as
+# an integer (getVal's value, Genrich.c:1902-1907, before rounding)
+LEVEL_WEIGHTS = (120, 15, 20, 12)
+
+
+def expt_levels(packed, carry):
+    """Exact treatment pileup per row of sorted packed deltas: int64
+    [M], 120 times the value of the inclusive class sums plus ``carry``
+    (int32 [4]).  Two rows have the same value iff their levels are
+    equal; the exact engine breaks an interval exactly there
+    (``engine/pileup.py::_entry_nonzero``), where float32 rounds two
+    values to one once coverage passes about 2^21."""
+    w = torch.as_tensor(LEVEL_WEIGHTS, dtype=torch.int64,
+                        device=packed.device)
+    step = (unpack_deltas(packed, 1).to(torch.int64) * w).sum(dim=1)
+    return torch.cumsum(step, dim=0) + (carry.to(torch.int64) * w).sum()
 
 
 def tile_stats_plain(expt_val, ctrl_raw, excluded, factor, lam):

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ..ops.compact import (SKIP, assign_qvals, distinct_pvals_k,
-                           merge_fisher, rle_pv, rle_runs)
+                           merge_fisher, pileup_runs, rle_pv, rle_runs)
 from ..ops.peaks import TilePeaks, call_peaks
 from ..ops.pipeline import (TileResult, analyze_tile_core,
                             tile_class_totals, tile_coverage, tile_stats)
@@ -94,6 +94,9 @@ class ShardedKernels:
                 launch per tile with its own carry), per-tile fragment
                 sums gathered for the host's float64 lambda and control
                 factor (calcFactor, Genrich.c:1980-2046);
+      runs:     each tile's rows merged into the exact engine's
+                intervals (``pileup_runs``), and which tiles continue
+                the previous tile's last interval;
       stats:    -log10 p per interval (K2, one launch over the rank's
                 tiles: the function is elementwise);
       distinct: the rank's distinct (p, bp) table, fixed width k;
@@ -107,21 +110,55 @@ class ShardedKernels:
         self.tile_len = int(tile_len)
         self.k = int(k_distinct)
         self.group = group
+        self.rank = world_rank(group)[1]
 
     def gather(self, x):
         return gather_rows(x, self.group)
 
-    def cov(self, es, ee, ec, cs, ce, cc, excl, limit):
+    def cov(self, es, ee, ec, cs, ce, cc, excl, limit,
+            levels: bool = False):
         """[t, E] events (count 0 pads), [t, K, 2] exclusions, host
         ``limit`` [t] -> (starts, ends, ev, cr, excluded, live) [t, M]
-        and the gathered per-tile fragment sums [W*t] (expt, ctrl)."""
+        and the gathered per-tile fragment sums [W*t] (expt, ctrl);
+        with ``levels``, then the exact treatment levels [t, M]
+        (``tile_coverage``'s ninth array)."""
         carry_e = exclusive_carries(tile_class_totals(es, ee, ec), self.group)
         carry_c = exclusive_carries(tile_class_totals(cs, ce, cc), self.group)
         out = _stack(tile_coverage(es[i], ee[i], ec[i], cs[i], ce[i], cc[i],
                                    excl[i], self.tile_len, carry_e[i],
-                                   carry_c[i], int(limit[i]))
+                                   carry_c[i], int(limit[i]), levels)
                      for i in range(es.shape[0]))
-        return out[:6] + (self.gather(out[6]), self.gather(out[7]))
+        return out[:6] + (self.gather(out[6]), self.gather(out[7])) \
+            + out[8:]
+
+    def runs(self, starts, ends, ev, cr, excluded, live, level, excl,
+             tile_bound, lam, factor):
+        """Each tile's rows merged into the exact engine's intervals
+        (``pileup_runs``), in the [t, M] layout: dead rows of length 0
+        after each tile's count.  ``tile_bound`` [t] marks the tiles
+        whose start is an -E coordinate.  Returns (starts, ends, ev, cr,
+        excluded, counts [t], rows merged [t], cont [t]): ``cont`` is
+        True where a tile's first interval continues the previous tile's
+        last one (same exclusion state, and outside exclusions the same
+        exact treatment level and control value, with no -E coordinate
+        at the tile start): one interval of the exact engine that the
+        tile boundary cuts in two.  The previous tile may be on another
+        rank, so every tile's last interval is gathered."""
+        (s, e, v, c, x, w, net, n, n_rows) = _stack(
+            pileup_runs(starts[i], ends[i], ev[i], cr[i], excluded[i],
+                        live[i], level[i], excl[i], lam, factor)
+            for i in range(starts.shape[0]))
+        t = n.shape[0]
+        last = (n.long() - 1).clamp_min(0)[:, None]
+        prev = []
+        for a in (w, net, x):
+            g = self.gather(a.gather(1, last)[:, 0])
+            prev.append(torch.cat([g[:1], g[:-1]])[self.rank * t:
+                                                    (self.rank + 1) * t])
+        first_tile = torch.arange(t, device=n.device) + self.rank * t == 0
+        cont = ((n > 0) & ~first_tile & ~tile_bound & (x[:, 0] == prev[2])
+                & (x[:, 0] | ((w[:, 0] == prev[0]) & (net[:, 0] == prev[1]))))
+        return s, e, v, c, x, n, n_rows, cont
 
     @staticmethod
     def stats(ev, cr, excluded, lam, factor):

@@ -1,12 +1,13 @@
 """Where the device time goes on the port's main and Fisher paths.
 
     python -m genrich_tpu_torch.prof A.bam B.bam [--engine jax|sharded]
-        [--parent DIR]
+        [--parent DIR [--log-bam L.bam]]
 
-Runs ``-t A`` (main path) and ``-t A,B`` (Fisher) with ``-r -j -q 0.05
--a 20 --device cuda`` and the ``--engine`` given (default jax: the
-TorchEngine), each once cold and once warm under
-``torch.profiler``, and prints for the warm run: its wall, the
+Runs ``-t A`` (main path), ``-t A -c B`` (control) and ``-t A,B``
+(Fisher) with ``-r -j -q 0.05 -a 20 --device cuda`` and the
+``--engine`` given (default jax: the TorchEngine), each once cold and
+once warm under ``torch.profiler``, and prints for the warm run: its
+wall, the
 pipeline's ``perf`` dict, the device time (kernels and copies, summed
 from the profiler's device events), the card's idle share (1 - device
 time / wall) and the top device entries.
@@ -20,12 +21,14 @@ fails this check is reported and run again, up to ``ATTEMPTS`` times;
 then the profiler exits non-zero, naming the kernel and both counts.
 
 With ``--parent DIR``, another checkout of the repo (say the parent
-commit, unpacked with ``git archive``), it then runs the main path in
-child processes, parent / this tree / this tree / parent, each cold and
-warm, and prints each run's wall, peak device memory
-(``torch.cuda.max_memory_allocated``) and the md5 of its narrowPeak.
-Each child's CLI makes native ingest load through its own tree's
-``ingest.ensure_native()``; the child prints the library it used.
+commit, unpacked with ``git archive``), it then runs in child
+processes, parent / this tree / this tree / parent, the main path, the
+Fisher path with both engines and, with ``--log-bam``, the ``-f``/``-k``
+log run on that BAM, each cold and warm, and prints each run's wall,
+peak device memory (``torch.cuda.max_memory_allocated``) and the md5
+of each output file.  Each child's CLI makes native ingest load
+through its own tree's ``ingest.ensure_native()``; the child prints the
+library it used.
 """
 
 from __future__ import annotations
@@ -42,29 +45,34 @@ FLAGS = ["-r", "-j", "-q", "0.05", "-a", "20"]
 TOP = 18
 ATTEMPTS = 3
 
-# One tree's main path, cold then warm, in a fresh process: argv is
-# tree, BAM, output directory; prints one JSON line.
+# One tree's runs, each cold then warm, in a fresh process: argv is
+# tree, output directory, then a JSON list of (name, arguments, output
+# flags); prints one JSON line per run.
 _CHILD = """
 import hashlib, json, os, sys, time
-tree, bam, out_dir = sys.argv[1:4]
+tree, out_dir, runs = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
 sys.path.insert(0, tree)
 import torch
 from genrich_tpu_torch import cli
 from genrich_tpu_torch.ingest import ensure_native
-res = {}
-for label in ("cold", "warm"):
-    out = os.path.join(out_dir, label + ".np")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    rc = cli.main(["-t", bam, "-o", out] + sys.argv[4:]
-                  + ["--device", "cuda"])
-    torch.cuda.synchronize()
-    res[label] = {"rc": rc, "wall_s": time.perf_counter() - t0,
-                  "max_memory_allocated": torch.cuda.max_memory_allocated(),
-                  "md5": hashlib.md5(open(out, "rb").read()).hexdigest(),
-                  "native_ingest": ensure_native()["path"]}
-print(json.dumps(res))
+for name, args, flags in runs:
+    res = {}
+    for label in ("cold", "warm"):
+        outs = {f: os.path.join(out_dir, name + "_" + label + f)
+                for f in flags}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rc = cli.main(args + [x for f in flags for x in (f, outs[f])]
+                      + ["--device", "cuda"])
+        torch.cuda.synchronize()
+        res[label] = {
+            "rc": rc, "wall_s": time.perf_counter() - t0,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "md5": {f: hashlib.md5(open(o, "rb").read()).hexdigest()
+                    for f, o in outs.items()},
+            "native_ingest": ensure_native()["path"]}
+    print(name + " " + json.dumps(res), flush=True)
 """
 
 
@@ -101,7 +109,7 @@ def record_shortfall(records, launches):
     return bad
 
 
-def profile_path(name, ts, engine="jax"):
+def profile_path(name, ts, engine="jax", extra=()):
     """Cold run, then the warm run under torch.profiler, again while the
     profiler's hand-kernel records disagree with the launches (at most
     ATTEMPTS runs)."""
@@ -110,8 +118,8 @@ def profile_path(name, ts, engine="jax"):
 
     from . import cli, kernels
     out = os.path.join(tempfile.mkdtemp(), "out.np")
-    args = ["-t", ts, "-o", out] + FLAGS + ["--engine", engine,
-                                             "--device", "cuda"]
+    args = ["-t", ts, "-o", out, *extra] + FLAGS + [
+        "--engine", engine, "--device", "cuda"]
     if cli.main(args) != 0:
         raise SystemExit(f"{name}: cold run failed")
     for attempt in range(1, ATTEMPTS + 1):
@@ -149,17 +157,25 @@ def profile_path(name, ts, engine="jax"):
               f"{key[:90]}")
 
 
-def compare_trees(parent, bam):
+def compare_trees(parent, bam_a, bam_b, log_bam=None):
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    fisher = ["-t", f"{bam_a},{bam_b}"] + FLAGS
+    runs = [("main", ["-t", bam_a] + FLAGS, ["-o"]),
+            ("fisher", fisher, ["-o"]),
+            ("sharded_fisher", fisher + ["--engine", "sharded"], ["-o"])]
+    if log_bam:
+        runs.append(("logs", ["-t", log_bam] + FLAGS, ["-o", "-f", "-k"]))
     for label, tree in (("parent", parent), ("this", here),
                         ("this", here), ("parent", parent)):
         out_dir = tempfile.mkdtemp()
         r = subprocess.run([sys.executable, "-c", _CHILD,
-                            os.path.abspath(tree), bam, out_dir]
-                           + FLAGS, capture_output=True, text=True)
+                            os.path.abspath(tree), out_dir,
+                            json.dumps(runs)], capture_output=True,
+                           text=True)
         if r.returncode != 0:
             raise SystemExit(f"{label} tree failed: {r.stderr[-2000:]}")
-        print(f"tree {label} " + r.stdout.strip().splitlines()[-1])
+        for line in r.stdout.strip().splitlines():
+            print(f"tree {label} {line}")
 
 
 def main(argv=None) -> int:
@@ -168,6 +184,8 @@ def main(argv=None) -> int:
     ap.add_argument("bam_b")
     ap.add_argument("--engine", choices=("jax", "sharded"), default="jax")
     ap.add_argument("--parent", help="another checkout to compare with")
+    ap.add_argument("--log-bam", help="with --parent: the BAM of the "
+                    "-f/-k log run")
     a = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -180,9 +198,10 @@ def main(argv=None) -> int:
                          text=True).stdout.strip()
     print(f"card {smi}")
     profile_path("main", a.bam_a, a.engine)
+    profile_path("control", a.bam_a, a.engine, ["-c", a.bam_b])
     profile_path("fisher", f"{a.bam_a},{a.bam_b}", a.engine)
     if a.parent:
-        compare_trees(a.parent, a.bam_a)
+        compare_trees(a.parent, a.bam_a, a.bam_b, a.log_bam)
     return 0
 
 

@@ -5,7 +5,9 @@ comparison rules (narrowPeak columns 1-6 identical, float columns
 within 1e-4 relative; the ctrl + -E case threshold-aware), plus the
 >2^31-bp host-fallback chromosome and a run against ``--engine jax``.
 Column 10 (summit offset) is held to the exact engine's on every
-matched row (``testing.check_summits``): equal, or a near tie that the
+matched row (``testing.check_summits``): equal on the single-replicate
+device paths, whose interval rows are the exact engine's intervals
+(``compact.pileup_runs``); on the others equal, or a near tie that the
 exact engine's ``-f`` log shows (its run writes one: ``summit.log``
 unless the case asks for a log of its own).
 """
@@ -60,7 +62,8 @@ def _run(tmp_path, name, extra, infile="in.sam", torch_port=False):
 
 def _close_rows(exact, fast, cols=(6, 7), tol=1e-4, log=None):
     """Columns 1-6 identical, ``cols`` within ``tol``; with the exact
-    engine's -f ``log``, column 10 by ``check_summits``."""
+    engine's -f ``log``, column 10 equal on every row (``check_summits``
+    finds no tie)."""
     assert len(exact) == len(fast)
     for a, b in zip(exact, fast):
         fa, fb = a.split("\t"), b.split("\t")
@@ -69,7 +72,7 @@ def _close_rows(exact, fast, cols=(6, 7), tol=1e-4, log=None):
             x, y = float(fa[i]), float(fb[i])
             assert abs(x - y) <= tol * max(1.0, abs(x)), (a, b)
     if log is not None:
-        assert check_summits(exact, fast, log, tol)[0] == len(exact)
+        assert check_summits(exact, fast, log, tol) == (len(exact), 0)
 
 
 def test_torch_port_matches_exact_boundaries(tmp_path):
@@ -88,7 +91,8 @@ def test_torch_port_bam_input(tmp_path):
     assert exact and len(exact) == len(fast)
     for a, b in zip(exact, fast):
         assert a.split("\t")[:6] == b.split("\t")[:6], (a, b)
-    check_summits(exact, fast, tmp_path / "exact" / SUMMIT_LOG, 1e-4)
+    assert check_summits(exact, fast, tmp_path / "exact" / SUMMIT_LOG,
+                         1e-4) == (len(exact), 0)
 
 
 def test_torch_port_with_ctrl_and_exclusions(tmp_path):
@@ -125,7 +129,7 @@ def test_torch_port_with_ctrl_and_exclusions(tmp_path):
     check_only(fk.keys() - ek.keys(), fk, spans(exact))
     assert exact and len(ek.keys() & fk.keys()) >= len(exact) * 0.95
     assert check_summits(exact, fast, tmp_path / "exact" / SUMMIT_LOG,
-                         1e-4)[0] == len(ek.keys() & fk.keys())
+                         1e-4) == (len(ek.keys() & fk.keys()), 0)
 
 
 def test_torch_port_big_chrom_host_fallback(tmp_path):
@@ -308,13 +312,12 @@ def test_torch_port_main_path_flags_summit_ties(tmp_path, monkeypatch):
     """The main path's flags (``-r -j -q 0.05 -a 20``) on a dense ATAC
     BAM from scripts/perf_synth.py, against the port's ``--engine exact``
     (byte-identical to the JAX package's, test_torch_exact.py): columns
-    1-6 identical, column 10 equal or a tie, and ties there are.  The
-    device's rows break at every event position, also where the pileup
-    value does not change, so where several of the exact engine's
-    intervals share a peak's maximum -log(q) (the top plateau of BH),
-    the longest-interval rule of the summit sees pieces of them.  With
-    ``-f`` the port calls peaks on the host from RLE runs merged by
-    p-value, and every summit is the exact engine's."""
+    1-6 identical and column 10 equal on every row, with no tie, on the
+    device path and on the ``-f`` path.  The fixture has the teeth: its
+    peaks' maximum -log(q) is shared by several of the exact engine's
+    intervals (plateaus of BH), so the longest-interval rule of the
+    summit picks another row wherever the device's rows are pieces of
+    those intervals (``compact.pileup_runs`` merges them)."""
     sys.path.insert(0, os.path.join(oracle.REPO, "scripts"))
     import perf_synth
     from genrich_tpu_torch import cli
@@ -330,8 +333,9 @@ def test_torch_port_main_path_flags_summit_ties(tmp_path, monkeypatch):
                            for n in ("exact", "device", "host"))
     _close_rows(exact, device)
     _close_rows(exact, host)
-    n, ties = check_summits(exact, device, tmp_path / "exact.log", 1e-4)
-    assert n == len(exact) > 20 and ties > 0
+    assert len(exact) > 20
+    assert check_summits(exact, device, tmp_path / "exact.log", 0.0) \
+        == (len(exact), 0)
     assert check_summits(exact, host, tmp_path / "exact.log", 0.0) \
         == (len(exact), 0)
 

@@ -33,7 +33,9 @@ def _events(seed, length, n=1200):
     return s, e, c
 
 
-def _replicate(eng, seed, with_ctrl=False):
+def _replicate(eng, seed, with_ctrl=False, widths=None):
+    """Coverage and p-values of one replicate; ``widths`` (a dict) gets
+    each chromosome's row count before ``stats_all`` merges the rows."""
     beds = ([2000, 5000], [])
     handles = []
     for cidx, length in enumerate(LENS):
@@ -45,6 +47,9 @@ def _replicate(eng, seed, with_ctrl=False):
     frag, cfrag = eng.coverage_finish(handles)
     lam = np.float32(frag / sum(LENS))
     factor = np.float32(1.0) if cfrag == 0.0 else np.float32(frag / cfrag)
+    if widths is not None:
+        widths.update({c: st["starts"].shape[0]
+                       for c, st in eng._chrom.items()})
     eng.stats_all(float(lam), float(factor))
 
 
@@ -93,8 +98,8 @@ def test_pvalue_pileups_match_jax_engine(with_ctrl):
 
 def test_archive_keeps_runs_only():
     eng = TorchEngine("cpu")
-    _replicate(eng, 11)
-    widths = {c: st["starts"].shape[0] for c, st in eng._chrom.items()}
+    widths = {}
+    _replicate(eng, 11, widths=widths)
     eng.archive_replicate()
     assert not eng._chrom and len(eng._reps) == 1
     for cidx, (ends, pv, length) in eng._reps[0].items():
