@@ -32,16 +32,18 @@ non-zero, and the result line is printed only when every phase passed:
    in this process (host code only), each writing an -f log too:
    narrowPeak, log and -v stderr byte-identical, both walls printed.
    Then the port twice in this process (cold, warm) with ``-r -j -q
-   0.05 -a 20 --device cuda``.  Checks: K1, K2 and K4 launched in each
-   run, native ingest in every run, the peak rows against the exact
-   engine by bench_e2e's rule (match_frac >= 0.99,
+   0.05 -a 20 --device cuda``.  Checks: K1, K2, K5 and K4 launched in
+   each run, the fragment sums, lambda and factor each device run
+   takes beside the port's exact engine's (equal: every term of these
+   BAMs is an integer), native ingest in every run, the peak rows
+   against the exact engine by bench_e2e's rule (match_frac >= 0.99,
    worst_unmatched_margin <= 0.02), column 10 (summit offset) of every
    matched row equal to the exact engine's or a near tie that its -f log
    shows (``testing.check_summits``, stats within SUMMIT_TOL), cold and
    warm narrowPeak byte-identical; the interval rows before and after
    the engine merged them into the exact engine's intervals
    (``compact.pileup_runs``) are printed.  One more run keeps the inputs
-   of the main path's own K1, merge, K2 and K4 calls.  The merge (plain
+   of the main path's own K1, merge, K2, K5 and K4 calls.  The merge (plain
    PyTorch, no kernel) on them: every output on the card bitwise to the
    same code on the CPU, times.  Every kernel on its path's calls
    launches the device kernels
@@ -56,29 +58,33 @@ non-zero, and the result line is printed only when every phase passed:
    about 30,000 short peaks: against its plain version (summit fields
    exact, AUC rtol 1e-5), against the exact engine's float32 row-order
    sum (AUC bitwise), and all six outputs bitwise to its first
-   design.
+   design.  K5 (the gap-join) on them and on 2^23 synthetic rows
+   (``testing.gap_join_rows``) holding far more peaks than the 4,096
+   slots: every output bitwise to its plain version, twice in a row,
+   times.
 5. Control: ``-t A -c B`` (B the second 2M-pair BAM, seed 8), the
    same flags; both exact engines once, the port cold and warm, the
    same checks as the main path.  One more run keeps the inputs of its
-   merge, K2 and K4 calls (its K2 calls are the only ones where the
-   control varies from row to row): each on them as on the main
+   merge, K2, K5 and K4 calls (its K2 calls are the only ones where
+   the control varies from row to row): each on them as on the main
    path's.
 6. Fisher: ``-t A,B``, the same flags; both exact engines once, the
    port cold and warm.  Checks: the same row rule, cold == warm bytes,
-   K1 and K2 launched 6 times, K3 3 times, K4 at least 3 times per
-   run.  One more run keeps the inputs of its K3 calls: K3 on them
-   against its float64 plain version and its first design (bitwise),
-   times.
+   K1 and K2 launched 6 times, K3 3 times, K4 and K5 at least 3 times
+   per run.  One more run keeps the inputs of its K3 and K5 calls: K3
+   on them against its float64 plain version and its first design
+   (bitwise), K5 as on the main path's, times.
 7. Sharded main path: the main path's BAM and flags with ``--engine
    sharded`` under a one-rank NCCL process group (MASTER_ADDR,
    MASTER_PORT, RANK=0, WORLD_SIZE=1 set for the phase, so the
    collectives run through NCCL on the card), cold and warm, against
    phase 4's exact file.  Prints the grid (2^28-bp tiles, 5 per
    chromosome), the merged peaks that straddle a tile boundary and the
-   chromosomes the host peak caller finished.  Checks: K1, K2 and K4
+   chromosomes the host peak caller finished.  Checks: K1, K2, K5 and K4
    launched in each run, the row rule, the summits, cold == warm bytes.
    One more run keeps the inputs of its K1, merge (one call per tile),
-   K2 and K4 calls; the merge as on the main path's.  K1 (one call per
+   K2, K5 and K4 calls; the merge and K5 (one call per tile) as on the
+   main path's.  K1 (one call per
    tile, each from its carry): bitwise to its plain version and its
    first design, one kernel per call, times; every carry of this BAM is
    zero (all its weights are whole), so each call is held once more
@@ -87,10 +93,12 @@ non-zero, and the result line is printed only when every phase passed:
    (one call per tile, the tiles past a chromosome's end among them) as
    on the main path's calls.
 8. Sharded Fisher: ``-t A,B --engine sharded`` under the same group,
-   cold and warm, against phase 6's exact files by the same rules; K3
-   launched; cold == warm.  One more run keeps the inputs of its K3
-   calls (one per tile, RLEs padded with (limit, SKIP) rows): K3 on
-   them as on the Fisher path's calls.
+   cold and warm, against phase 6's exact files by the same rules (each
+   straddling peak's summit taken again over its rows, the tiles'
+   ``cont`` from each replicate's runs); K3 launched; cold == warm.
+   One more run keeps the inputs of its K3 and K5 calls (one per tile,
+   K3's RLEs padded with (limit, SKIP) rows): each on them as on the
+   Fisher path's calls.
 9. Serve: a child ``python -m genrich_tpu_torch --serve --device cuda``
    fed ``--engine jax`` twice, ``--engine sharded`` twice, a bogus line,
    ``--engine jax`` again and ``--engine exact``, on the main path's
@@ -113,7 +121,9 @@ non-zero, and the result line is printed only when every phase passed:
    ``testing``'s counters (``bound_by`` says which term binds; the
    entry carries ``bytes``, ``fp32_ops`` and ``fp64_ops``); its
    ``launches`` are those of the main path (the Fisher path's for K3),
-   and ``launches_by_path`` gives every path's.
+   and ``launches_by_path`` gives every path's.  K5's entry
+   (``gap_join``) adds its control, Fisher, sharded and sharded Fisher
+   calls' sums and the synthetic rows'.
 """
 
 from __future__ import annotations
@@ -635,7 +645,7 @@ def fisher_phase():
 
 def _k4_first_design(args):
     from genrich_tpu_torch import testing
-    starts, ends, stat, pval, qval, sig, _, first, last, min_pq = args
+    starts, ends, stat, pval, qval, sig, first, last, min_pq = args
     return testing.peak_reduce_first_design(starts, ends, stat, pval, qval,
                                             sig, first, last, min_pq)
 
@@ -644,7 +654,7 @@ def _k4_bytes(args):
     """K4's bytes on these inputs: 13 per row of an existing peak
     (starts, ends, stat, sig; the summit's p and q are two rows more),
     16 per candidate in and 24 out."""
-    first, last = args[7], args[8]
+    first, last = args[6], args[7]
     rows = int((last - first + 1).clamp_min(0).sum())
     return 13 * rows + 40 * first.shape[0]
 
@@ -658,7 +668,7 @@ def _hold_k4(args, min_pq):
     import torch
     from genrich_tpu_torch import testing
     from genrich_tpu_torch.ops import peaks
-    starts, ends, stat, _, _, sig, _, first, last, _ = args
+    starts, ends, stat, _, _, sig, first, last, _ = args
     got = peaks.peak_reduce(*args)
     want = peaks.peak_reduce_plain(*args)
     again = peaks.peak_reduce(*args)
@@ -770,7 +780,7 @@ def peaks_phase(main_calls):
         min_pq=min_pq)]
     live = torch.ones(M_MAIN, dtype=torch.bool, device=dev)
     c = peaks.peak_candidates(*rows[:3], live, min_pq, 100, 1 << 16)
-    args = rows + [c.sig, c.pid, c.first, c.last, min_pq]
+    args = rows + [c.sig, c.first, c.last, min_pq]
     syn = _hold_k4(args, min_pq)
     syn.update(rows=M_MAIN,
                ms=_median_ms(lambda: peaks.peak_reduce(*args)),
@@ -794,6 +804,99 @@ def peaks_phase(main_calls):
             "synthetic": {k: syn[k] for k in (
                 "rows", "peaks", "ms", "call_ms", "first_design_ms",
                 "first_design_call_ms", "plain_ms", "bound_ms")}}
+
+
+def _hold_k5(args, where):
+    """K5 (``peak_candidates`` on the card) against its plain version on
+    the same inputs, every output bitwise, and twice in a row (bitwise);
+    returns its output."""
+    import torch
+    from genrich_tpu_torch.ops import peaks
+    got = peaks.peak_candidates(*args)
+    again = peaks.peak_candidates(*args)
+    want = peaks.peak_candidates_plain(*args)
+    torch.cuda.synchronize()
+    for name, g, a, w in zip(got._fields, got, again, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"gap_join, {where}: {name} differs from "
+                                 f"the plain version")
+        if not torch.equal(g, a):
+            raise AssertionError(f"gap_join, {where}: {name} differs "
+                                 f"between two runs")
+    return got
+
+
+def _k5_times(args, got, where):
+    """K5's times, its plain version's, its bound and its device kernels
+    per call (graph capture) on these inputs."""
+    from genrich_tpu_torch import testing
+    from genrich_tpu_torch.ops import peaks
+    m, k, n = args[0].shape[0], got.first.shape[0], int(got.n)
+    res = {"rows": m, "slots": k, "peaks": n,
+           "sig_rows": int(got.sig.sum()), "skp_rows": int(got.skp.sum()),
+           "ms": _median_ms(lambda: peaks.peak_candidates(*args)),
+           "call_ms": _median_ms(lambda: peaks.peak_candidates(*args),
+                                 busy=False),
+           "plain_ms": _median_ms(
+               lambda: peaks.peak_candidates_plain(*args)),
+           **_bound(testing.gap_join_bytes(m, k)),
+           "kernels_per_call": _kernels_per_call(
+               "gap_join", lambda: peaks.peak_candidates(*args), where)}
+    return res
+
+
+def k5_path_phase(calls, path):
+    """K5 on the inputs of a path's own calls (host copies of
+    peak_candidates' arguments), bitwise to its plain version, with the
+    device kernels of each call read by graph capture; returns the sums
+    over the calls."""
+    import torch
+    dev = torch.device(DEV)
+    parts = []
+    for i, call in enumerate(calls):
+        args = [a.to(dev) if torch.is_tensor(a) else a for a in call]
+        where = f"{path} path call {i}"
+        res = _k5_times(args, _hold_k5(args, where), where)
+        parts.append(res)
+        say("kernels", kernel="gap_join", inputs=where, **res)
+        del args
+    torch.cuda.empty_cache()
+    return dict({key: sum(p[key] for p in parts)
+                 for key in ("ms", "call_ms", "plain_ms", "rows", "peaks")},
+                **_sum_bounds(parts), max_abs_err=0.0,
+                mode=f"sum over the {path} path's {len(calls)} calls, its "
+                     f"own inputs; every output bitwise to the plain "
+                     f"version")
+
+
+def gap_join_phase(main_calls):
+    """K5 on the inputs of the main path's own calls and on 2^23
+    synthetic rows (``testing.gap_join_rows``: SKIP, dead and
+    zero-length rows, gaps of exactly max_gap, a dead tail) holding far
+    more peaks than the engines' 4,096 slots; returns a JSON entry whose
+    times are the main path's."""
+    import torch
+    from genrich_tpu_torch import testing
+    main = k5_path_phase(main_calls, "main")
+    rows = testing.gap_join_rows(np.random.RandomState(3), M_MAIN, 100,
+                                 400_000, dead_tail=5_000)
+    args = [torch.from_numpy(a).to(torch.device(DEV)) for a in rows] \
+        + [2.0, 100, 4096]
+    got = _hold_k5(args, "synthetic")
+    if int(got.n) <= 4096 or int(got.exists.sum()) != 4096:
+        raise AssertionError(f"gap_join synthetic: {int(got.n)} peaks, "
+                             f"not more than the 4,096 slots")
+    syn = _k5_times(args, got, "synthetic")
+    say("kernels", kernel="gap_join", inputs="synthetic", **syn)
+    del args, got
+    torch.cuda.empty_cache()
+    return {"name": "gap_join", "route": "cuda",
+            "source": "genrich_tpu_torch/csrc/gapjoin.cu",
+            "replaces": "genrich_tpu/ops/peaks_jax.py:54",
+            "launches": 0, "library_ms": None, **main,
+            "synthetic": {k: syn[k] for k in (
+                "rows", "peaks", "ms", "call_ms", "plain_ms", "bound_ms",
+                "bound_by", "bytes")}}
 
 
 # --- end-to-end runs --------------------------------------------------------
@@ -902,7 +1005,8 @@ def exact_pair(label: str, args, outputs):
         return args + [x for flag, paths in outputs.items()
                        for x in (flag, paths[side])]
     jax_wall, jax_err = run_exact(label, with_outputs(0))
-    port_wall, port_err = run_port_exact(label, with_outputs(1))
+    with probe(EXACT_LAMBDA.setdefault(label, {})):
+        port_wall, port_err = run_port_exact(label, with_outputs(1))
     same = {flag: open(a, "rb").read() == open(b, "rb").read()
             for flag, (a, b) in outputs.items()}
     say(f"{label}_exact", jax_wall_s=jax_wall, port_wall_s=port_wall,
@@ -922,8 +1026,48 @@ def exact_pair(label: str, args, outputs):
     return jax_wall, port_wall
 
 
-def run_port(label: str, args):
-    """One port run on the card; returns (wall, launches, perf, memory)."""
+@contextmanager
+def probe(seen):
+    """While the block runs, ``seen`` gets the fragment sums, lambda and
+    control factor each engine takes (the device engines'
+    ``coverage_finish`` and ``stats_all``, the port's exact engine's
+    ``_calc_lambda`` and ``calc_factor``)."""
+    from genrich_tpu_torch import pipeline
+    from genrich_tpu_torch.engine.sharded_bridge import ShardedTorchEngine
+    from genrich_tpu_torch.engine.torch_bridge import TorchEngine
+    real = []
+
+    def patch(obj, name, keep):
+        fn = getattr(obj, name)
+        real.append((obj, name, fn))
+
+        def wrapped(*args):
+            out = fn(*args)
+            keep(args, out)
+            return out
+        setattr(obj, name, wrapped)
+
+    def add(key, value):
+        seen.setdefault(key, []).append(value)
+    for cls in (TorchEngine, ShardedTorchEngine):
+        patch(cls, "coverage_finish",
+              lambda a, out: add("frag", [float(x) for x in out]))
+        patch(cls, "stats_all", lambda a, out: add("lam_factor", [
+            float(np.float32(a[1])), float(np.float32(a[2]))]))
+    patch(pipeline, "_calc_lambda", lambda a, out: (
+        add("frag", [float(a[1])]), add("lam_factor", [float(out)])))
+    patch(pipeline, "calc_factor", lambda a, out: (
+        add("ctrl_frag", float(a[1])), add("factor", float(out))))
+    try:
+        yield seen
+    finally:
+        for obj, name, fn in reversed(real):
+            setattr(obj, name, fn)
+
+
+def run_port(label: str, args, seen=None):
+    """One port run on the card; returns (wall, launches, perf, memory).
+    ``seen`` gets what ``probe`` records."""
     import torch
     from genrich_tpu_torch import cli, kernels
     perf = {}
@@ -931,7 +1075,8 @@ def run_port(label: str, args):
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    rc = cli.main(args + ["--device", DEV], perf=perf)
+    with probe({} if seen is None else seen):
+        rc = cli.main(args + ["--device", DEV], perf=perf)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(kernels.LAUNCHES)
@@ -940,6 +1085,27 @@ def run_port(label: str, args):
     if not _native_used():
         raise AssertionError(f"port run ({label}) used Python ingest")
     return wall, counts, perf, torch.cuda.max_memory_allocated()
+
+
+EXACT_LAMBDA = {}    # path -> the port's exact engine's probe record
+
+
+def _lambda_line(name, ref, seen):
+    """The device engine's fragment sums, lambda and factor beside the
+    port's exact engine's on the same input; they must be equal: every
+    term of the ATAC BAMs is an integer, so both float64 sums are exact
+    (``ops/pipeline.frag_sum``)."""
+    exact = EXACT_LAMBDA[ref]
+    # the exact engine records lambda per replicate and the factor apart
+    want_lf = [[lf[0], f] for lf, f in zip(
+        exact["lam_factor"], exact.get("factor", [1.0] * 8))]
+    same = seen["lam_factor"] == want_lf
+    say(f"{name}_lambda", device=seen["lam_factor"], exact=want_lf,
+        device_frag=seen["frag"], exact_frag=exact["frag"],
+        exact_ctrl_frag=exact.get("ctrl_frag"), equal=same)
+    if not same:
+        raise AssertionError(f"{name}: lambda or factor differs from the "
+                             f"exact engine's")
 
 
 def peak_runs(name: str, ts, need, extra=(), ref=None):
@@ -961,8 +1127,11 @@ def peak_runs(name: str, ts, need, extra=(), ref=None):
     counts = {}
     for label in ("cold", "warm"):
         out_np = os.path.join(run_dir, f"{name}_port_{label}.np")
+        seen = {}
         wall, counts, perf, mem = run_port(
-            f"{name} {label}", ["-t", ts, "-o", out_np, *extra] + FLAGS)
+            f"{name} {label}", ["-t", ts, "-o", out_np, *extra] + FLAGS,
+            seen)
+        _lambda_line(f"{name}_{label}", ref or name, seen)
         rows = _verify_rows(ref_np, out_np, thresh=Q_THRESH)
         diffs = _rel_diffs(ref_np, out_np)
         say(f"{name}_port_{label}", wall_s=wall, launches=counts,
@@ -991,8 +1160,8 @@ def peak_runs(name: str, ts, need, extra=(), ref=None):
 
 
 def _need_main(c):
-    missing = [k for k in ("coverage_scan", "tile_stats", "peak_reduce")
-               if c[k] <= 0]
+    missing = [k for k in ("coverage_scan", "tile_stats", "gap_join",
+                           "peak_reduce") if c[k] <= 0]
     return f"kernels not launched: {missing}" if missing else None
 
 
@@ -1049,6 +1218,7 @@ def main_kernel_inputs(bam):
     return kernel_inputs("main", bam, [(pipeline, "coverage_scan"),
                                        (compact, "pileup_runs"),
                                        (torch_bridge, "tile_stats"),
+                                       (peaks, "peak_candidates"),
                                        (peaks, "peak_reduce")])
 
 
@@ -1058,6 +1228,7 @@ def control_kernel_inputs(bam_t, bam_c):
     from genrich_tpu_torch.ops import compact, peaks
     return kernel_inputs("control", bam_t, [(compact, "pileup_runs"),
                                             (torch_bridge, "tile_stats"),
+                                            (peaks, "peak_candidates"),
                                             (peaks, "peak_reduce")],
                          ["-c", bam_c])
 
@@ -1093,10 +1264,11 @@ def merge_phase(calls, path):
 
 
 def fisher_kernel_inputs(bam_a, bam_b):
-    """The arguments of the Fisher path's K3 calls."""
-    from genrich_tpu_torch.ops import compact
+    """The arguments of the Fisher path's K3 and K5 calls."""
+    from genrich_tpu_torch.ops import compact, peaks
     return kernel_inputs("fisher", f"{bam_a},{bam_b}",
-                         [(compact, "fisher_combine")])["fisher_combine"]
+                         [(compact, "fisher_combine"),
+                          (peaks, "peak_candidates")])
 
 
 def k2_path_phase(calls, path):
@@ -1212,8 +1384,9 @@ def fisher_path(bam_a, bam_b):
     def need(c):
         want = {"coverage_scan": 6, "tile_stats": 6, "fisher_combine": 3}
         bad = {k: c[k] for k, v in want.items() if c[k] != v}
-        if bad or c["peak_reduce"] < 3:
-            return (f"launches differ from {want} and peak_reduce >= 3")
+        if bad or c["peak_reduce"] < 3 or c["gap_join"] < 3:
+            return (f"launches differ from {want} and peak_reduce, "
+                    f"gap_join >= 3")
         return None
     return peak_runs("fisher", f"{bam_a},{bam_b}", need)[0]
 
@@ -1266,6 +1439,7 @@ def sharded_path(bam):
         calls = kernel_inputs("sharded", bam, [(pipeline, "coverage_scan"),
                                                (mesh, "pileup_runs"),
                                                (mesh, "tile_stats"),
+                                               (peaks, "peak_candidates"),
                                                (peaks, "peak_reduce")],
                               ["--engine", "sharded"])
     merge_phase(calls.pop("pileup_runs"), "sharded")
@@ -1281,27 +1455,32 @@ def sharded_path(bam):
     sums = {"coverage_scan": k1_path_phase(calls["coverage_scan"],
                                            "sharded"),
             "tile_stats": k2_path_phase(calls["tile_stats"], "sharded"),
+            "gap_join": k5_path_phase(calls["peak_candidates"], "sharded"),
             "peak_reduce": k4_path_phase(calls["peak_reduce"], "sharded")}
     return counts, sums
 
 
 def sharded_fisher_path(bam_a, bam_b):
     """``-t A,B --engine sharded`` under one-rank NCCL, against the
-    Fisher path's exact file, then K3 on the inputs of its own calls (one
-    per tile, on RLEs padded with (limit, SKIP) rows).  Returns the warm
-    run's counts and K3's sums."""
-    from genrich_tpu_torch.ops import compact
+    Fisher path's exact file, then K3 and K5 on the inputs of its own
+    calls (one per tile; K3's on RLEs padded with (limit, SKIP) rows).
+    Returns the warm run's counts and K3's and K5's sums."""
+    from genrich_tpu_torch.ops import compact, peaks
     with one_rank_nccl():
         counts, perf = peak_runs("sharded_fisher", f"{bam_a},{bam_b}",
                                  _need_every, ["--engine", "sharded"],
                                  ref="fisher")
         _need_nccl()
         calls = kernel_inputs("sharded_fisher", f"{bam_a},{bam_b}",
-                              [(compact, "fisher_combine")],
-                              ["--engine", "sharded"])["fisher_combine"]
+                              [(compact, "fisher_combine"),
+                               (peaks, "peak_candidates")],
+                              ["--engine", "sharded"])
     say("sharded_fisher_grid", straddling_peaks=perf["straddling_peaks"],
-        host_peak_chroms=perf["host_peak_chroms"], k3_calls=len(calls))
-    return counts, k3_path_phase(calls, "sharded_fisher")
+        host_peak_chroms=perf["host_peak_chroms"],
+        k3_calls=len(calls["fisher_combine"]),
+        k5_calls=len(calls["peak_candidates"]))
+    return counts, k3_path_phase(calls["fisher_combine"], "sharded_fisher"), \
+        k5_path_phase(calls["peak_candidates"], "sharded_fisher")
 
 
 SERVE_LINES = [("jax_cold", "jax"), ("jax_warm", "jax"),
@@ -1410,6 +1589,7 @@ def main() -> int:
     entries[1].update(k2, max_abs_err=max(entries[1]["max_abs_err"],
                                           k2["max_abs_err"]))
     entries.append(peaks_phase(calls["peak_reduce"]))
+    entries.append(gap_join_phase(calls["peak_candidates"]))
     del calls
     bam_b = synth_bam("b")
     control_path(bam_a, bam_b)
@@ -1423,14 +1603,21 @@ def main() -> int:
     entries[3]["control_path"] = k4
     entries[3]["max_abs_err"] = max(entries[3]["max_abs_err"],
                                     k4["max_abs_err"])
+    entries[4]["control_path"] = k5_path_phase(calls["peak_candidates"],
+                                               "control")
     del calls
     fisher_counts = fisher_path(bam_a, bam_b)
-    k3 = k3_path_phase(fisher_kernel_inputs(bam_a, bam_b), "fisher")
+    calls = fisher_kernel_inputs(bam_a, bam_b)
+    k3 = k3_path_phase(calls["fisher_combine"], "fisher")
     entries[2].update(k3, max_abs_err=max(entries[2]["max_abs_err"],
                                           k3["max_abs_err"]))
+    entries[4]["fisher_path"] = k5_path_phase(calls["peak_candidates"],
+                                              "fisher")
+    del calls
     sharded_counts, sharded = sharded_path(bam_a)
-    sharded_fisher_counts, k3 = sharded_fisher_path(bam_a, bam_b)
+    sharded_fisher_counts, k3, k5 = sharded_fisher_path(bam_a, bam_b)
     sharded["fisher_combine"] = k3
+    entries[4]["sharded_fisher_path"] = k5
     for e in entries:
         e["sharded_path"] = sharded[e["name"]]
         e["max_abs_err"] = max(e["max_abs_err"],

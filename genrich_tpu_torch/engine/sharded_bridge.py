@@ -308,21 +308,29 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
     # --- multi-replicate: archive + per-tile Fisher --------------------------
 
     def archive_replicate(self) -> None:
-        """Per-tile p-value RLE compaction; coverage arrays released."""
+        """Per-tile p-value RLE compaction, with each tile's first run's p
+        and the previous tile's last run's p (``ShardedKernels.run_edges``);
+        coverage arrays released."""
         rep: Dict[int, tuple] = {}
         for cidx, st in self._chrom.items():
             if st.get("host"):
                 rep[cidx] = self.host_archive(st)
                 continue
-            e_b, pv_b, _ = self._call(ShardedKernels.rle_pv, st["starts"],
+            e_b, pv_b, b = self._call(ShardedKernels.rle_pv, st["starts"],
                                       st["ends"], st["pv"], st["live"],
                                       st["limit"])
-            rep[cidx] = (e_b, pv_b, st["len"], st["tile_len"], st["limit"])
+            edges = self._call(self._kern(st["tile_len"]).run_edges, pv_b, b)
+            rep[cidx] = (e_b, pv_b, st["len"], st["tile_len"], st["limit"],
+                         edges)
         self._reps.append(rep)
         self._chrom.clear()
 
     def finalize_fisher(self) -> None:
-        """combinePval across replicates, tile by tile (K3)."""
+        """combinePval across replicates, tile by tile (K3).  A tile's
+        first combined interval continues the previous tile's last one
+        (``cont``) iff in every replicate the tile's first run has the p
+        of the previous tile's last run: the boundary cut one run of each,
+        and the exact engine has no break there."""
         chroms = sorted({c for rep in self._reps for c in rep})
         for cidx in chroms:
             present = [rep[cidx] for rep in self._reps if cidx in rep]
@@ -333,10 +341,13 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
             starts, ends, comb, live = self._call(
                 kern.fisher(len(present)), *(p[0] for p in present),
                 *(p[1] for p in present))
+            cont = torch.stack([both & (first == prev_last) for *_, (
+                first, prev_last, both) in present]).all(0)
             self._chrom[cidx] = {
                 "starts": starts, "ends": ends, "pv": comb,
                 "live": live, "len": present[0][2],
                 "tile_len": present[0][3], "limit": present[0][4],
+                "cont": cont,
             }
         self._reps.clear()
 
@@ -517,9 +528,7 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
         if strad.any():
             got = self._row_order_peaks(st, starts[strad], ends[strad],
                                         min_pq, use_q)
-            aucs[strad] = got[0]
-            if "cont" in st:
-                spv[strad], sqv[strad], spos[strad] = got[1:]
+            aucs[strad], spv[strad], sqv[strad], spos[strad] = got
         keep = aucs >= F32(min_auc)
         self.perf["straddling_peaks"] += int((strad & keep).sum())
         return (starts[keep], ends[keep], aucs[keep], spv[keep], sqv[keep],
@@ -534,13 +543,11 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
         the first row of maximum stat for its p and q, and the longest
         such row, the first of equal length, for its position (the
         row's midpoint, relative to p_start).  A row that a tile boundary
-        cut in two (``cont`` of the later tile, from ``merge_rows``)
-        counts as the one interval it is, at its full length.  The Fisher
-        path's rows have no ``cont``: there a cut is told by an equal
-        stat on both sides (the rule of ``_stitch``), and the caller
-        keeps ``merge_tile_peaks``' summits.  Each rank
-        selects the rows of its own tiles; ranks hold consecutive tiles,
-        so the gathered rows are in genomic order.  Returns (auc,
+        cut in two (``cont`` of the later tile, from ``merge_rows`` or,
+        on the Fisher path, ``finalize_fisher``) counts as the one
+        interval it is, at its full length.  Each rank selects the rows
+        of its own tiles; ranks hold consecutive tiles, so the gathered
+        rows are in genomic order.  Returns (auc,
         summit p, summit q, summit offset) arrays."""
         tl = st["tile_len"]
         starts, ends, pv = st["starts"], st["ends"], st["pv"]
@@ -553,10 +560,7 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
                + self.rank * t)[:, None] * tl
         g_start = (starts + off).reshape(-1)
         g_end = (ends + off).reshape(-1)
-        cont = st.get("cont")
-        if cont is None:
-            cont = torch.ones(t, dtype=torch.bool, device=dev)
-        cont = ((starts == 0) & cont[:, None]).reshape(-1)
+        cont = ((starts == 0) & st["cont"][:, None]).reshape(-1)
         sig = st["live"] & (ends > starts) & (stat > float(thr))
         peak = torch.searchsorted(torch.as_tensor(p_start, device=dev),
                                   g_start, right=True) - 1
@@ -574,8 +578,6 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
         if not len(peak):
             return out
         cut = (g_end[:-1] == g_start[1:]) & cont[1:] & (peak[:-1] == peak[1:])
-        if "cont" not in st:
-            cut &= stat[:-1] == stat[1:]
         head = np.flatnonzero(np.concatenate([[True], ~cut]))
         g_end = g_end[np.concatenate([head[1:] - 1, [len(g_end) - 1]])]
         g_start, stat, pv, peak = (a[head] for a in (g_start, stat, pv, peak))

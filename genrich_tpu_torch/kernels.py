@@ -20,7 +20,7 @@ launched it on the card (the wrappers in ``ops/scan.py``,
 ``ops/pipeline.py``, ``ops/chisq.py`` and ``ops/peaks.py`` add one each
 time); a run reads the counts to show that its main path went through
 the kernels.  ``KERNELS_PER_CALL`` names the device kernels that one
-such call runs.
+such call runs (K2 and K5 run two each).
 """
 
 from __future__ import annotations
@@ -52,7 +52,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v"]
 
 LAUNCHES: Dict[str, int] = {"coverage_scan": 0, "tile_stats": 0,
-                            "fisher_combine": 0, "peak_reduce": 0}
+                            "fisher_combine": 0, "gap_join": 0,
+                            "peak_reduce": 0}
 
 # The device kernels that one counted call of each wrapper runs
 # (chip_smoke.py checks them by CUDA graph capture on the paths' own
@@ -61,6 +62,7 @@ KERNELS_PER_CALL: Dict[str, Tuple[str, ...]] = {
     "coverage_scan": ("coverage_scan_kernel",),
     "tile_stats": ("tile_stats_table_kernel", "tile_stats_kernel"),
     "fisher_combine": ("fisher_combine_kernel",),
+    "gap_join": ("gap_join_kernel", "gap_join_finish_kernel"),
     "peak_reduce": ("peak_reduce_kernel",)}
 
 
@@ -168,6 +170,11 @@ def library() -> ctypes.CDLL:
         lib.peak_reduce_launch.argtypes = [p, p, p, p, p, p, p, p, i64,
                                            i64, f32, p, p, p, p, p, p, p]
         lib.peak_reduce_launch.restype = ctypes.c_int
+        lib.gap_join_scratch.argtypes = [i64]
+        lib.gap_join_scratch.restype = i64
+        lib.gap_join_launch.argtypes = [p, p, p, p, i64, f32, i64, i64, p,
+                                        p, p, p, p, p, p, p]
+        lib.gap_join_launch.restype = ctypes.c_int
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
         _lib = lib

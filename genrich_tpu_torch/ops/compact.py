@@ -1,8 +1,8 @@
 """Device-side compaction (twin of ops/compact_jax.py).
 
-Plain PyTorch: ``torch.sort``, ``cumsum``, ``cummax`` and
-``searchsorted`` stand in for the XLA programs the JAX package left to
-the compiler; ``merge_fisher`` combines through kernel K3
+Plain PyTorch: ``torch.sort``, ``cumsum`` and ``searchsorted`` stand
+in for the XLA programs the JAX package left to the compiler;
+``merge_fisher`` combines through kernel K3
 (``ops/chisq.fisher_combine``).  ``pileup_runs``, which merges the
 device's interval rows into the exact engine's intervals, is the port's
 own: the JAX package keeps one row per event.  Shapes stay static (a
@@ -167,12 +167,11 @@ def distinct_pvals(starts, ends, pv, live):
 
     hashPval/collectPval (Genrich.c:277-347): sort intervals by p,
     segment the equal-value runs, return (p ascending, int32 bp per p,
-    count).  SKIP intervals and zero-length rows carry no weight and
-    sort to +inf.  Per-chromosome bp sums are below 2^31.
+    count); rows past the count are unspecified.  SKIP intervals and
+    zero-length rows carry no weight and sort to +inf.  Per-chromosome
+    bp sums are below 2^31.
     """
-    key_s, run_w, keep = _distinct_runs(starts, ends, pv, live, torch.int32)
-    (pv_d, w_d), d = compact(keep, (key_s, run_w))
-    return pv_d, w_d, d
+    return _distinct_runs(starts, ends, pv, live, torch.int32)
 
 
 def distinct_pvals_k(starts, ends, pv, live, k: int):
@@ -184,8 +183,7 @@ def distinct_pvals_k(starts, ends, pv, live, k: int):
     checks and re-runs with a wider k, never truncating silently.  The
     bp sums are int64 (a rank's tiles are flattened into one call).
     """
-    key_s, run_w, keep = _distinct_runs(starts, ends, pv, live, torch.int64)
-    (pv_d, w_d), d = compact(keep, (key_s, run_w))
+    pv_d, w_d, d = _distinct_runs(starts, ends, pv, live, torch.int64)
     n = pv_d.shape[0]
     if n < k:
         pv_d = torch.cat([pv_d, pv_d.new_full((k - n,), float("inf"))])
@@ -197,22 +195,23 @@ def distinct_pvals_k(starts, ends, pv, live, k: int):
 
 
 def _distinct_runs(starts, ends, pv, live, dtype):
-    """Rows sorted by p: (p, bp of the run ending at the row as
-    ``dtype``, mask of each run's last row with a finite p)."""
+    """Rows sorted by p, each run of equal p compacted to its last row:
+    (p, bp of the run as ``dtype``, count of the runs whose p is
+    finite).  A run's bp is the difference between consecutive run
+    ends of the cumulative bp; the finite runs come first (+inf sorts
+    last), so the count's rows are the table."""
     lens = ends - starts
     real = live & (lens > 0) & (pv != SKIP)
     key = torch.where(real, pv, torch.full_like(pv, float("inf")))
     w = torch.where(real, lens, torch.zeros_like(lens)).to(torch.int64)
     key_s, order = torch.sort(key)
     cum = torch.cumsum(w[order], dim=0)
-    dev = pv.device
     is_last = torch.cat([key_s[1:] != key_s[:-1],
-                         torch.ones(1, dtype=torch.bool, device=dev)])
-    run_end = torch.cummax(torch.where(is_last, cum,
-                                       torch.zeros_like(cum)), dim=0)
-    prev = torch.cat([torch.zeros(1, dtype=cum.dtype, device=dev),
-                      run_end.values[:-1]])
-    return key_s, (cum - prev).to(dtype), is_last & torch.isfinite(key_s)
+                         torch.ones(1, dtype=torch.bool, device=pv.device)])
+    (key_r, cum_r), _ = compact(is_last, (key_s, cum))
+    run_w = cum_r - torch.cat([cum_r.new_zeros(1), cum_r[:-1]])
+    return (key_r, run_w.to(dtype),
+            (is_last & torch.isfinite(key_s)).sum(dtype=torch.int32))
 
 
 def assign_qvals(pv, table_p, table_q):

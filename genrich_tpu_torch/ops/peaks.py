@@ -1,18 +1,22 @@
 """Peak calling by masked scans (twin of ops/peaks_jax.py).
 
-callPeaks (Genrich.c:977-1069) as vectorised passes: a significant
-interval joins the previous one iff the gap is within maxGap and no
-SKIP interval lies between; connected components are peaks with
-non-decreasing ids.  The gap-join scans are plain PyTorch.
+callPeaks (Genrich.c:977-1069) in two steps.  ``peak_candidates``, the
+gap-join: a significant interval joins the previous one iff the gap is
+within maxGap and no SKIP interval lies between; connected components
+are peaks, and each candidate is its first row and last significant
+row, compacted in genomic order at the end of K slots.  Kernel K5
+(``csrc/gapjoin.cu``, one pass with decoupled look-back) on CUDA
+tensors; its plain version, for CPU tensors, is the JAX twin's masked
+scans (``cummax``, ``cumsum``) and ``topk``.
 
 Each peak's AUC and summit come from ``peak_reduce``: kernel K4
 (``csrc/peaks.cu``) on CUDA tensors, which walks each peak's rows in
 order and sums AUC in float32 in the exact engine's order, so a run
 gives the same bytes every time.  Its plain version, for CPU tensors,
 takes AUC as a difference of float64 prefix sums rounded to float32,
-and the summit by segmented arg-maxima over the peak id with
-``scatter_reduce`` (the JAX twin uses two lexicographic sorts; torch
-has no multi-key sort).  Both keep the tie rules of updatePeak
+and the summit by segmented arg-maxima over the candidates' row ranges
+with ``scatter_reduce`` (the JAX twin uses two lexicographic sorts;
+torch has no multi-key sort).  Both keep the tie rules of updatePeak
 (Genrich.c:948-964): the summit *position* goes to max stat, then
 longest, then earliest; the summit p/q come from the *first* max-stat
 row.
@@ -59,10 +63,11 @@ def _seg_reduce(seg, src, n_seg, reduce, init):
                               include_self=True)
 
 
-def peak_reduce_plain(starts, ends, stat, pval, qval, sig, pid, first,
-                      last, min_pq):
+def peak_reduce_plain(starts, ends, stat, pval, qval, sig, first, last,
+                      min_pq):
     """Plain PyTorch version of kernel K4 (see ``peak_reduce``)."""
     m = starts.shape[0]
+    k = first.shape[0]
     idx = torch.arange(m, dtype=torch.int64, device=starts.device)
     lens = ends - starts
     contrib = torch.where(sig, lens.to(torch.float32) * (stat - min_pq),
@@ -72,10 +77,16 @@ def peak_reduce_plain(starts, ends, stat, pval, qval, sig, pid, first,
     csum0 = torch.cat([zero, csum])           # csum0[i] = sum of rows < i
     auc = (csum0[last + 1] - csum0[first]).to(torch.float32)
 
-    # segmented arg-maxima over seg = pid + 1 (segment 0 holds the rows
-    # before the first peak and is never read)
-    seg = pid + 1
-    n_seg = m + 1
+    # segmented arg-maxima: segment j + 1 holds the rows from the j-th
+    # real candidate's first row to the next one's (the candidates are
+    # consecutive peaks, so every sig row there is that peak's); segment
+    # 0 holds the rows before the first and is never read
+    ex = last >= first
+    mark = torch.zeros(m + 1, dtype=torch.int64, device=starts.device)
+    mark.scatter_add_(0, torch.where(ex, first, torch.full_like(first, m)),
+                      ex.to(torch.int64))
+    seg = torch.cumsum(mark[:m], dim=0)
+    n_seg = k + 1
     stat_m = torch.where(sig, stat, torch.full_like(stat, -float("inf")))
     seg_max = _seg_reduce(seg, stat_m, n_seg, "amax", -float("inf"))
     at_max = sig & (stat_m == seg_max[seg])
@@ -125,13 +136,13 @@ def _peak_reduce_cuda(starts, ends, stat, pval, qval, sig, first, last,
     return auc, max_stat, spv, sqv, spos, slen
 
 
-def peak_reduce(starts, ends, stat, pval, qval, sig, pid, first, last,
+def peak_reduce(starts, ends, stat, pval, qval, sig, first, last,
                 min_pq):
     """Per-peak AUC and summit over rows in genomic order.
 
     Rows: starts/ends int32 [M], stat/pval/qval f32 [M], sig bool [M]
-    (live, non-empty and above ``min_pq``), pid int64 [M] (peak id,
-    read by the plain version only).  Candidates: first/last int64 [K],
+    (live, non-empty and above ``min_pq``).  Candidates: first/last
+    int64 [K], consecutive peaks in genomic order (``peak_candidates``),
     each peak's first row and last significant row; last < first marks
     a candidate with no rows.  Returns (auc, max_stat, summit_pval,
     summit_qval, summit_pos, summit_len) [K]; summit_pos is relative
@@ -152,26 +163,24 @@ def peak_reduce(starts, ends, stat, pval, qval, sig, pid, first, last,
                                  first, last, min_pq)
     if starts.device.type != "cpu":
         raise ValueError(f"unsupported device {starts.device}")
-    return peak_reduce_plain(starts, ends, stat, pval, qval, sig, pid,
-                             first, last, min_pq)
+    return peak_reduce_plain(starts, ends, stat, pval, qval, sig, first,
+                             last, min_pq)
 
 
 class PeakRows(NamedTuple):
     sig: torch.Tensor      # bool [M]: live, non-empty, above min_pq
     skp: torch.Tensor      # bool [M]: live SKIP rows
-    pid: torch.Tensor      # int64 [M]: peak id, -1 before the first
-    first: torch.Tensor    # int64 [K]: each candidate's first row
-    last: torch.Tensor     # int64 [K]: its last sig row; first - 1 if none
+    first: torch.Tensor    # int64 [K]: each candidate's first row, 0 if none
+    last: torch.Tensor     # int64 [K]: its last sig row, -1 if none
     exists: torch.Tensor   # bool [K]: a real candidate
+    n: torch.Tensor        # int64 []: every candidate, also past K
 
 
-def peak_candidates(starts, ends, stat, live, min_pq, max_gap,
-                    k_peaks: int) -> PeakRows:
-    """The gap-join of call_peaks: peak ids and each candidate's rows.
-
-    Candidates are compacted with ``topk`` in genomic order at the END
-    of the K = min(k_peaks, M) rows.
-    """
+def peak_candidates_plain(starts, ends, stat, live, min_pq, max_gap,
+                          k_peaks: int) -> PeakRows:
+    """Plain PyTorch version of kernel K5 (see ``peak_candidates``):
+    the JAX twin's masked scans, with the candidates compacted by
+    ``topk``."""
     m = starts.shape[0]
     dev = starts.device
     idx = torch.arange(m, dtype=torch.int64, device=dev)
@@ -210,9 +219,66 @@ def peak_candidates(starts, ends, stat, live, min_pq, max_gap,
     rows = torch.flip(rows, dims=[0]).clamp(0, m - 1)
     exists = torch.flip(top, dims=[0]) >= 0
 
-    fi = first_idx[rows].clamp(0, m - 1)
-    li = torch.where(exists, lastsig_inc[rows].clamp(0, m - 1), fi - 1)
-    return PeakRows(sig, skp, pid, fi, li, exists)
+    # an empty slot's row is any of topk's ties: it gets (0, -1)
+    fi = torch.where(exists, first_idx[rows].clamp(0, m - 1), 0)
+    li = torch.where(exists, lastsig_inc[rows].clamp(0, m - 1), -1)
+    return PeakRows(sig, skp, fi, li, exists,
+                    torch.clamp_min(pid[-1] + 1, 0))
+
+
+def _gap_join_cuda(starts, ends, stat, live, min_pq, max_gap, k):
+    """Launch csrc/gapjoin.cu on the card (see its header)."""
+    m = starts.shape[0]
+    dev = starts.device
+    # the columns take 16-byte loads, live 8-byte ones
+    args = [kernels.aligned(t.contiguous(), 16) for t in (starts, ends, stat)]
+    args.append(kernels.aligned(live.contiguous().view(torch.uint8), 16))
+    with torch.cuda.device(dev):
+        lib = kernels.library()
+        sig = torch.empty(m, dtype=torch.uint8, device=dev)
+        skp = torch.empty(m, dtype=torch.uint8, device=dev)
+        cand = torch.empty((2, k), dtype=torch.int64, device=dev)
+        exists = torch.empty(k, dtype=torch.uint8, device=dev)
+        n = torch.empty((), dtype=torch.int64, device=dev)
+        scratch = torch.empty(lib.gap_join_scratch(m), dtype=torch.int32,
+                              device=dev)
+        rc = lib.gap_join_launch(
+            *(t.data_ptr() for t in args), m, float(np.float32(min_pq)),
+            int(max_gap), k, sig.data_ptr(), skp.data_ptr(),
+            cand[0].data_ptr(), cand[1].data_ptr(), exists.data_ptr(),
+            n.data_ptr(), scratch.data_ptr(), kernels.stream_of(starts))
+        kernels.check(rc, "gap_join")
+    kernels.LAUNCHES["gap_join"] += 1
+    return PeakRows(sig.view(torch.bool), skp.view(torch.bool), cand[0],
+                    cand[1], exists.view(torch.bool), n)
+
+
+def peak_candidates(starts, ends, stat, live, min_pq, max_gap,
+                    k_peaks: int) -> PeakRows:
+    """The gap-join of call_peaks: each row's flags and the candidates.
+
+    Rows in genomic order: starts/ends int32 [M], stat f32 [M], live
+    bool [M]; a significant row's end is not below an earlier one's.
+    The last min(n, K) candidates, K = min(k_peaks, M), fill the end of
+    the K slots in genomic order, empty slots (0, -1) before them; ``n``
+    counts every candidate, so a caller sees that the cap dropped some.
+    Kernel K5 on CUDA tensors, the plain version on CPU tensors; both
+    give the same bits.
+    """
+    for t, dt in ((starts, torch.int32), (ends, torch.int32),
+                  (stat, torch.float32), (live, torch.bool)):
+        if t.dtype != dt or t.dim() != 1 or t.shape != starts.shape:
+            raise TypeError("peak_candidates takes int32 starts/ends, f32 "
+                            "stat and bool live, all [M]")
+        if t.device != starts.device:
+            raise ValueError("peak_candidates inputs must share a device")
+    if starts.device.type == "cuda":
+        return _gap_join_cuda(starts, ends, stat, live, min_pq, max_gap,
+                              min(k_peaks, starts.shape[0]))
+    if starts.device.type != "cpu":
+        raise ValueError(f"unsupported device {starts.device}")
+    return peak_candidates_plain(starts, ends, stat, live, min_pq, max_gap,
+                                 k_peaks)
 
 
 def call_peaks(starts, ends, stat, pval, qval, live, min_pq, min_auc,
@@ -226,13 +292,13 @@ def call_peaks(starts, ends, stat, pval, qval, live, min_pq, min_auc,
     that the cap dropped some.
     """
     m = starts.shape[0]
-    sig, skp, pid, fi, li, exists = peak_candidates(
+    sig, skp, fi, li, exists, n = peak_candidates(
         starts, ends, stat, live, min_pq, max_gap, k_peaks)
     p_start = starts[fi]
     p_end = ends[li.clamp(0, m - 1)]
     (auc, max_stat, summit_pval, summit_qval, summit_pos,
-     summit_len) = peak_reduce(starts, ends, stat, pval, qval, sig, pid,
-                               fi, li, min_pq)
+     summit_len) = peak_reduce(starts, ends, stat, pval, qval, sig, fi, li,
+                               min_pq)
 
     valid = (exists & (auc >= min_auc) & ((p_end - p_start) >= min_len))
 
@@ -245,7 +311,7 @@ def call_peaks(starts, ends, stat, pval, qval, live, min_pq, min_auc,
     skip_head = (skp & (idx < first_sig)).any() & any_sig
     skip_tail = (skp & (idx > last_sig)).any() & any_sig
 
-    n_peaks = torch.clamp_min(pid[-1] + 1, 0).to(torch.int32)
+    n_peaks = n.to(torch.int32)
     return TilePeaks(p_start, p_end, auc, summit_pval, summit_qval,
                      summit_pos, valid, exists, max_stat, summit_len,
                      skip_head, skip_tail, n_peaks)

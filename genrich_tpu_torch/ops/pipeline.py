@@ -75,8 +75,9 @@ def tile_coverage(es, ee, ec, cs, ce, cc, excl, tile_len, carry_e,
     dtype, padding rows have code 0); likewise cs/ce/cc for control.
     Returns (starts, ends, expt_val, ctrl_raw, excluded, live,
     frag_len, ctrl_frag) like the JAX twin; ctrl_raw is the unscaled
-    control coverage.  ``limit`` (default tile_len) clips the analysed
-    span.  Rows that share a position come out of the (unstable) sort
+    control coverage, and the two fragment sums are float64 scalars
+    (``frag_sum``; the JAX twin's are float32).  ``limit`` (default
+    tile_len) clips the analysed span.  Rows that share a position come out of the (unstable) sort
     in any order; consumers mask rows of length 0.  With ``levels``
     a ninth array follows: ``expt_level``, 120 times the treatment's
     exact pileup value at each row as int64 (``expt_levels``), which
@@ -111,13 +112,35 @@ def tile_coverage(es, ee, ec, cs, ce, cc, excl, tile_len, carry_e,
     live = starts < int(limit)
     lens = torch.clamp_min(ends - starts, 0).to(torch.float32)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    frag_len = torch.where(excluded, zero, lens * expt_val).sum()
-    ctrl_frag = torch.where(excluded, zero, lens * ctrl_raw).sum()
+    frag_len = frag_sum(torch.where(excluded, zero, lens * expt_val))
+    ctrl_frag = frag_sum(torch.where(excluded, zero, lens * ctrl_raw))
     out = (starts, ends, expt_val, ctrl_raw, excluded, live, frag_len,
            ctrl_frag)
     if levels:
         out += (expt_levels(packed, carry_e),)
     return out
+
+
+FRAG_CHUNK = 1 << 12    # terms per partial of ``frag_sum``
+
+
+def frag_sum(terms):
+    """float64 sum of float32 terms in an order fixed by their count.
+
+    The terms go in chunks of FRAG_CHUNK, each summed by one thread
+    (``sum(dim=1)`` splits its work over the chunks, never inside one),
+    then the partials are added in order (``cumsum``).  A plain
+    ``.sum()`` splits its work by ``torch.get_num_threads()``, and a
+    float32 sum of ~10^5 terms then changes in the last bit with the
+    thread count.  The exact engine adds the same float32 terms
+    ``f32(len) * val`` one by one in float64
+    (``engine/pileup.py::exact_sum_f64``); where every term is an
+    integer (ATAC pileups of whole weights) both sums are exact and
+    equal.  Returns a float64 scalar tensor.
+    """
+    pad = (-terms.shape[0]) % FRAG_CHUNK
+    chunks = torch.cat([terms, terms.new_zeros(pad)]).view(-1, FRAG_CHUNK)
+    return torch.cumsum(chunks.sum(dim=1, dtype=torch.float64), 0)[-1]
 
 
 # 120 x (cov + e8/8 + s6/6 + t10/10): the class sums' rational value as
@@ -272,8 +295,9 @@ def analyze_tile_ctrl(es, ee, ec, cs, ce, cc, excl, tile_len, carry_e,
     peaks = call_peaks(starts, ends, pval, pval, torch.full_like(pval, -1.0),
                        live, float(np.float32(min_pq)),
                        float(np.float32(min_auc)), min_len, max_gap)
-    return (TileResult(peaks, frag_len, live.sum(dtype=torch.int32)),
-            ctrl_frag, pval, starts, ends, live)
+    return (TileResult(peaks, frag_len.to(torch.float32),
+                       live.sum(dtype=torch.int32)),
+            ctrl_frag.to(torch.float32), pval, starts, ends, live)
 
 
 def random_events(generator: torch.Generator, n_events: int, tile_len: int,

@@ -97,6 +97,8 @@ class ShardedKernels:
       runs:     each tile's rows merged into the exact engine's
                 intervals (``pileup_runs``), and which tiles continue
                 the previous tile's last interval;
+      run_edges: the first and last p-value runs of a replicate's
+                tiles, from which the Fisher rows' ``cont`` follows;
       stats:    -log10 p per interval (K2, one launch over the rank's
                 tiles: the function is elementwise);
       distinct: the rank's distinct (p, bp) table, fixed width k;
@@ -184,6 +186,23 @@ class ShardedKernels:
         return _stack(rle_pv(starts[i], ends[i], pv[i], live[i],
                              int(limit[i]))
                       for i in range(starts.shape[0]))
+
+    def run_edges(self, pv_b, b):
+        """One replicate's per-tile RLE (``rle_pv``: p [t, M], run counts
+        [t]) -> (each tile's first run's p, the last run's p of the tile
+        before it, and whether both exist) [t]; the padding rows are no
+        runs.  The tile before may be on another rank, so every tile's
+        last run is gathered."""
+        t = b.shape[0]
+        has = b > 0
+        last = pv_b.gather(1, (b.long() - 1).clamp_min(0)[:, None])[:, 0]
+        prev = []
+        for a in (last, has):
+            g = self.gather(a)
+            prev.append(torch.cat([g[:1], g[:-1]])[self.rank * t:
+                                                    (self.rank + 1) * t])
+        first_tile = torch.arange(t, device=b.device) + self.rank * t == 0
+        return pv_b[:, 0], prev[0], has & prev[1] & ~first_tile
 
     def peaks(self, use_q: bool, min_len: int, max_gap: int,
               replicated: bool = False):

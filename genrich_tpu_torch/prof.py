@@ -12,6 +12,11 @@ pipeline's ``perf`` dict, the device time (kernels and copies, summed
 from the profiler's device events), the card's idle share (1 - device
 time / wall) and the top device entries.
 
+No device path calls ``torch.cummax`` (PyTorch's
+``tensor_kernel_scan_innermost_dim_with_indices``): the gap-join runs
+as kernel K5 and the distinct-p table without a scan of maxima, so a
+warm run with such a record exits non-zero (``cummax_records``).
+
 torch.profiler has been seen to drop device records on the H100 host,
 so a breakdown is printed only when the profiler recorded every hand
 kernel that the run launched: each device kernel of
@@ -109,6 +114,15 @@ def record_shortfall(records, launches):
     return bad
 
 
+CUMMAX_KERNEL = "scan_innermost_dim_with_indices"
+
+
+def cummax_records(records):
+    """Device records of PyTorch's cummax/cummin scan kernel among
+    (kernel name, record count) pairs."""
+    return sum(n for key, n in records if CUMMAX_KERNEL in key)
+
+
 def profile_path(name, ts, engine="jax", extra=()):
     """Cold run, then the warm run under torch.profiler, again while the
     profiler's hand-kernel records disagree with the launches (at most
@@ -148,13 +162,17 @@ def profile_path(name, ts, engine="jax", extra=()):
                          f"disagreed with the launches in all {ATTEMPTS} "
                          f"warm runs; no breakdown")
     device_ms = sum(ms for ms, _, _ in evs)
+    scans = cummax_records([(key, n) for _, n, key in evs])
     print(f"profile {name} " + json.dumps(
         {"engine": engine, "wall_s": wall, "device_ms": device_ms,
          "idle_share": 1.0 - device_ms / 1e3 / wall, "attempt": attempt,
-         "launches": dict(kernels.LAUNCHES), "perf": perf}))
+         "cummax_records": scans, "launches": dict(kernels.LAUNCHES),
+         "perf": perf}))
     for ms, n, key in evs[:TOP]:
         print(f"  {ms:10.3f} ms {100 * ms / device_ms:5.1f}% x{n:<5d} "
               f"{key[:90]}")
+    if scans:
+        raise SystemExit(f"{name}: {scans} torch.cummax device records")
 
 
 def compare_trees(parent, bam_a, bam_b, log_bam=None):

@@ -2,8 +2,10 @@
 
 ``peak_rows`` makes a synthetic chromosome of coverage rows holding
 peaks, and ``peak_row_columns`` the same rows as ``peak_reduce``'s
-int32/float32 columns; ``auc_rowwise`` is the exact engine's AUC on the
-host (a float32 sum in row order); ``check_log`` holds a port's
+int32/float32 columns; ``gap_join_rows`` makes rows for the gap-join
+and ``gap_join_blocked`` transcribes kernel K5's design in numpy;
+``auc_rowwise`` is the exact engine's AUC on the host (a float32 sum in
+row order); ``check_log`` holds a port's
 ``-f``/``-k`` log to the exact engine's, and ``check_summits`` its
 narrowPeak column 10 (summit offset).  numpy only, except
 the ``*_first_design`` helpers, which launch the first designs of
@@ -68,7 +70,7 @@ def peak_row_columns(rng, m, n_regions, **kw):
 def peak_reduce_first_design(starts, ends, stat, pval, qval, sig, first,
                              last, min_pq):
     """Kernel K4's first design (one warp per peak) on CUDA tensors,
-    with ``peak_reduce``'s arguments (less ``pid``) and outputs.  Not
+    with ``peak_reduce``'s arguments and outputs.  Not
     counted in ``kernels.LAUNCHES``."""
     import torch
 
@@ -177,6 +179,166 @@ def auc_rowwise(starts, ends, stat, sig, first, last, min_pq):
     return out
 
 
+# --- kernel K5's design (csrc/gapjoin.cu), transcribed ---------------------
+
+GJ_HAS, GJ_F_SKIP, GJ_T_SKIP = 1, 2, 4      # gapjoin.cu's State::bits
+GJ_IDENTITY = (0, 0, -1, -1, 0)             # (bits, f_start, l_end, l_idx,
+                                            #  npk)
+
+
+def _sub32(a, b):
+    """a - b in int32, wrapping."""
+    return (int(a) - int(b) + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+def _gj_joins(a, start, skip_before, gap):
+    return (a[2] >= 0 and _sub32(start, a[2]) <= gap
+            and not a[0] & GJ_T_SKIP and not skip_before)
+
+
+def gj_combine(a, b, gap):
+    """gapjoin.cu's ``combine``: the state of segment a, then b."""
+    ah, bh = a[0] & GJ_HAS, b[0] & GJ_HAS
+    bits = GJ_HAS if ah or bh else 0
+    f_start = 0
+    if ah:
+        f_start = a[1]
+        bits |= a[0] & GJ_F_SKIP
+    elif bh:
+        f_start = b[1]
+        if a[0] & GJ_T_SKIP or b[0] & GJ_F_SKIP:
+            bits |= GJ_F_SKIP
+    bits |= b[0] & GJ_T_SKIP if bh else (a[0] | b[0]) & GJ_T_SKIP
+    opens = ah and bh and not _gj_joins(a, b[1], b[0] & GJ_F_SKIP, gap)
+    return (bits, f_start, max(a[2], b[2]), b[3] if bh else a[3],
+            a[4] + b[4] + int(opens))
+
+
+def _gj_row(sig, skp, start, end, row):
+    if sig:
+        return (GJ_HAS | (GJ_F_SKIP if skp else 0), int(start), int(end),
+                row, 0)
+    return (GJ_T_SKIP if skp else 0, 0, -1, -1, 0)
+
+
+def _gj_window(states, gap):
+    """Warp 0's tree of shuffles in ``look_back``: lane l holds states[l]
+    (tile win - l); lane 0 ends with lanes 31..0 combined in that
+    order."""
+    v = list(states)
+    off = 1
+    while off < 32:
+        v = [gj_combine(v[lane + off], v[lane], gap) if lane + off < 32
+             else v[lane] for lane in range(32)]
+        off <<= 1
+    return v[0]
+
+
+GJ_INC_EVERY = 5     # gap_join_blocked: tiles whose prefix is out early
+
+
+def gap_join_blocked(starts, ends, stat, live, min_pq, max_gap, k_peaks,
+                     tile):
+    """Kernel K5 (``csrc/gapjoin.cu``) with ``tile`` rows per tile, in
+    numpy: each tile's aggregate folded from its rows' states by
+    ``gj_combine``; each tile's exclusive prefix by the kernel's
+    look-back, windows of 32 predecessors reduced as warp 0 reduces
+    them, where only every GJ_INC_EVERY-th tile's inclusive prefix is
+    out yet (the others give their aggregates); each tile's rows walked
+    from its prefix, writing first_s and prev_s at the rows that open a
+    peak; then the finish kernel's K slots.  The kernel's split of a tile
+    into threads and warps is the same fold by the same combine.
+    Returns (sig, skp, first [K], last [K], exists [K], n) as
+    ``ops/peaks.peak_candidates``."""
+    m = len(starts)
+    gap = int(max_gap)
+    thr = F32(min_pq)
+    lens = np.array([_sub32(e, s) for s, e in zip(starts, ends)])
+    lv = np.asarray(live, bool) & (lens > 0)
+    sig = lv & (np.asarray(stat, F32) > thr)
+    skp = lv & (np.asarray(stat, F32) == F32(-1.0))
+    ntiles = -(-m // tile)
+    agg = []
+    for t in range(ntiles):
+        a = GJ_IDENTITY
+        for i in range(t * tile, min(m, (t + 1) * tile)):
+            a = gj_combine(a, _gj_row(sig[i], skp[i], starts[i], ends[i], i),
+                           gap)
+        agg.append(a)
+    inc, prefix = [], []
+    for t in range(ntiles):
+        excl = GJ_IDENTITY
+        win = t - 1
+        while t > 0:
+            tiles = [win - lane for lane in range(32)]
+            out = [b >= 0 and b % GJ_INC_EVERY == 0 for b in tiles]
+            nearest = out.index(True) if any(out) else 32
+            excl = gj_combine(_gj_window(
+                [(inc[b] if out[lane] else agg[b])
+                 if b >= 0 and lane <= nearest else GJ_IDENTITY
+                 for lane, b in enumerate(tiles)], gap), excl, gap)
+            if nearest < 32:
+                break
+            win -= 32
+        prefix.append(excl)
+        inc.append(gj_combine(excl, agg[t], gap))
+    first_s = np.zeros(m, np.int64)
+    prev_s = np.zeros(m, np.int64)
+    for t in range(ntiles):
+        bits, _, l_end, l_idx, npk = prefix[t]
+        count = 1 + npk if bits & GJ_HAS else 0
+        tskip = bool(bits & GJ_T_SKIP)
+        for i in range(t * tile, min(m, (t + 1) * tile)):
+            if sig[i]:
+                if not (l_end >= 0 and _sub32(starts[i], l_end) <= gap
+                        and not tskip and not skp[i]):
+                    first_s[count] = i
+                    if count > 0:
+                        prev_s[count] = l_idx
+                    count += 1
+                l_end, l_idx, tskip = max(l_end, int(ends[i])), i, False
+            elif skp[i]:
+                tskip = True
+    bits, _, _, l_idx, npk = inc[-1]
+    n = 1 + npk if bits & GJ_HAS else 0
+    k = min(k_peaks, m)
+    p = np.arange(k) + n - k
+    exists = p >= 0
+    first = np.where(exists, first_s[p.clip(0)], 0)
+    last = np.where(p == n - 1, l_idx, prev_s[(p + 1).clip(0, m - 1)])
+    return sig, skp, first, np.where(exists, last, -1), exists, n
+
+
+def gap_join_rows(rng, m, max_gap, n_regions, skip_frac=0.02,
+                  dead_frac=0.05, dead_tail=0):
+    """Rows in genomic order for the gap-join: (starts, ends int32, stat
+    f32, live bool), numpy.  Rows are 0-40 bp (zero-length ones
+    included); between two rows a hole of 0, max_gap - 1, max_gap,
+    max_gap + 1 or up to 3 max_gap bp; ``n_regions`` runs of 1-30 rows
+    above 2.0 over a background below it, stat exactly 2.0 on some rows
+    (not significant); a ``skip_frac`` share SKIP, a ``dead_frac``
+    share not live, and the last ``dead_tail`` rows dead padding of
+    length 0 at the last end, as the sharded engine's [t, M] rows."""
+    lens = rng.randint(0, 41, m)
+    holes = rng.choice([0, 0, 0, max_gap - 1, max_gap, max_gap + 1, -1], m)
+    holes = np.where(holes < 0, rng.randint(0, 3 * max_gap + 1, m), holes)
+    holes[0] = rng.randint(0, 50)
+    starts = np.cumsum(holes + np.concatenate([[0], lens[:-1]]))
+    ends = starts + lens
+    stat = rng.uniform(0.0, 2.0, m).astype(F32)
+    for s in rng.choice(m, n_regions, replace=False):
+        n = rng.randint(1, 31)
+        stat[s:s + n] = rng.uniform(2.0, 9.0, len(stat[s:s + n]))
+    stat[rng.rand(m) < 0.01] = F32(2.0)
+    stat[rng.rand(m) < skip_frac] = F32(-1.0)
+    live = rng.rand(m) >= dead_frac
+    if dead_tail:
+        starts[-dead_tail:] = ends[-dead_tail - 1]
+        ends[-dead_tail:] = ends[-dead_tail - 1]
+        live[-dead_tail:] = False
+    return (starts.astype(np.int32), ends.astype(np.int32), stat, live)
+
+
 def _log_rows(path):
     with open(path) as f:
         return [ln.rstrip("\n").split("\t") for ln in f
@@ -280,6 +442,14 @@ LIBM_OPS = {
     "sqrtf": (7, 0), "fdiv": (12, 0),
     "log": (3, 47), "log1p": (9, 86), "expm1": (9, 36), "exp": (4, 32),
     "lgamma": (10, 97), "ddiv": (4, 16)}
+
+
+def gap_join_bytes(m, k):
+    """The gap-join's bytes on m rows and k slots: starts, ends, stat
+    and live in (13 per row), sig and skp out (2 per row), first, last
+    and exists out (17 per slot), and the count.  Its operations (a few
+    integer compares per row) bind far below its bytes."""
+    return 15 * m + 17 * k + 8
 
 
 def bound(nbytes, fp32_ops=0, fp64_ops=0):

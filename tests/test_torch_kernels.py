@@ -11,7 +11,8 @@ against the plain version (a float32 sum in row order against a
 float64 prefix difference) and bitwise against the exact engine's
 row-order float32 sum (``testing.auc_rowwise``).  K1-K4 are also held
 bitwise to their first designs (``csrc/reference``), K4 on all six
-outputs of every candidate.
+outputs of every candidate.  The gap-join (K5) is bitwise to its plain
+version on every output: the rows' flags, every slot and the count.
 """
 
 from __future__ import annotations
@@ -353,6 +354,7 @@ def test_peak_reduce_kernel(cuda, m, regions):
                            *args, k_peaks=m)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["peak_reduce"] == 1
+    assert kernels.LAUNCHES["gap_join"] == 1
     assert _check_peaks(got, want) >= regions // 2
 
 
@@ -369,8 +371,7 @@ def test_peak_reduce_kernel_auc_in_row_order(cuda, m, regions,
     c = peaks.peak_candidates(*(t.to(cuda) for t in rows[:3]),
                               torch.ones(m, dtype=torch.bool, device=cuda),
                               2.0, max_gap, 4096)
-    args = [t.to(cuda) for t in rows] + [c.sig, c.pid, c.first, c.last,
-                                         2.0]
+    args = [t.to(cuda) for t in rows] + [c.sig, c.first, c.last, 2.0]
     got = [t.cpu() for t in peaks.peak_reduce(*args)]
     want = [t.cpu() for t in peaks.peak_reduce_plain(*args)]
     ex = c.exists.cpu()
@@ -424,7 +425,7 @@ def test_peak_reduce_kernel_matches_first_design(cuda, m, regions,
                                                     device=cuda),
                               2.0, max_gap, 4096)
     kernels.reset_launches()
-    got = peaks.peak_reduce(*rows, c.sig, c.pid, c.first, c.last, 2.0)
+    got = peaks.peak_reduce(*rows, c.sig, c.first, c.last, 2.0)
     want = testing.peak_reduce_first_design(*rows, c.sig, c.first,
                                             c.last, 2.0)
     torch.cuda.synchronize()
@@ -480,3 +481,71 @@ def test_fisher_cli_on_card_matches_cpu(cuda, tmp_path):
         for i in (6, 7, 8):
             assert abs(float(fa[i]) - float(fb[i])) \
                 <= 1e-4 * max(1.0, abs(float(fa[i]))), (a, b)
+
+
+def _gap_join_both(cuda, rows, gap, k):
+    """K5 on the card and its plain version on the CPU, same rows; every
+    output bitwise.  Returns the plain version's."""
+    args = [torch.from_numpy(a) for a in rows]
+    want = peaks.peak_candidates(*args, 2.0, gap, k)
+    kernels.reset_launches()
+    got = peaks.peak_candidates(*(t.to(cuda) for t in args), 2.0, gap, k)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["gap_join"] == 1
+    for name, g, w in zip(got._fields, got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w), name
+    return want
+
+
+# (seed, rows, max_gap, peak regions, k_peaks, dead tail rows): sizes
+# around the 1,024-row tile, more peaks than slots, a dead tail
+@pytest.mark.parametrize("case", [
+    (1, 1, 10, 1, 4096, 0), (2, 1023, 10, 40, 4096, 0),
+    (3, 1024, 100, 60, 17, 0), (4, 1025, 0, 60, 4096, 100),
+    (5, 300_007, 100, 20_000, 4096, 0), (6, 2_000_001, 50, 120_000, 4096,
+                                        3000)])
+def test_gap_join_kernel_matches_plain(cuda, case):
+    seed, m, gap, regions, k, tail = case
+    rows = testing.gap_join_rows(np.random.RandomState(seed), m, gap,
+                                 regions, dead_tail=tail)
+    want = _gap_join_both(cuda, rows, gap, k)
+    if m > 1000:
+        assert int(want.n) > min(k, 10)
+
+
+def test_gap_join_kernel_long_peak_and_empty_tiles(cuda):
+    """A peak over ~150 tiles of 1,024 rows, a tile with SKIP rows and
+    no significant one between two peaks, and tiles of dead rows only
+    (a chromosome's end in the sharded layout)."""
+    m = 400_000
+    starts = np.arange(m, dtype=np.int32) * 10
+    ends = starts + 10
+    stat = np.full(m, 0.5, np.float32)
+    stat[1000:155_000] = 5.0
+    stat[200_000:201_024:97] = -1.0
+    stat[[199_999, 201_100]] = 7.0
+    live = np.ones(m, bool)
+    live[300_000:] = False
+    starts[300_000:] = ends[300_000:] = ends[299_999]
+    want = _gap_join_both(cuda, (starts, ends, stat, live), 100, 64)
+    ex = want.exists.numpy()
+    assert int(want.n) == 3
+    np.testing.assert_array_equal(want.first.numpy()[ex],
+                                  [1000, 199_999, 201_100])
+    np.testing.assert_array_equal(want.last.numpy()[ex],
+                                  [154_999, 199_999, 201_100])
+
+
+def test_gap_join_kernel_unaligned_rows(cuda):
+    """Columns that start off a 16-byte boundary give the outputs of
+    aligned copies."""
+    rows = [torch.from_numpy(a).to(cuda) for a in testing.gap_join_rows(
+        np.random.RandomState(9), 50_001, 100, 3000)]
+    views = [t[1:] for t in rows]
+    copies = [t.clone() for t in views]
+    assert views[0].data_ptr() % 16 != 0
+    a = peaks.peak_candidates(*views, 2.0, 100, 4096)
+    b = peaks.peak_candidates(*copies, 2.0, 100, 4096)
+    assert int(b.n) > 100
+    for f in a._fields:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f

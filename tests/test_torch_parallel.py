@@ -15,7 +15,9 @@ the process boundary present.  Last, ``ShardedTorchEngine`` through
 ``pipeline.run`` on two gloo ranks against one process, on peaks that
 straddle a tile boundary inside a rank and the boundary between the
 ranks: the same narrowPeak bytes (the row-order AUC gathers each
-straddling peak's rows from both ranks).
+straddling peak's rows from both ranks); and on two replicates whose
+Fisher peak straddles the ranks' boundary, column 10 equal to the exact
+engine's (each tile's ``cont`` from the previous rank's last run).
 """
 
 from __future__ import annotations
@@ -38,9 +40,11 @@ from genrich_tpu.parallel import mesh as jmesh
 from genrich_tpu_torch.engine.sharded_bridge import ShardedTorchEngine
 from genrich_tpu_torch.parallel import distributed as tdist
 from genrich_tpu_torch.parallel import mesh as tmesh
+from genrich_tpu_torch.testing import check_summits
 from test_mesh_merge import _rand_tilepeaks
 from test_tile_split import _random_events
-from test_torch_sharded import _straddle_sam
+from test_torch_lambda import fisher_straddle_args
+from test_torch_sharded import _exact, _straddle_sam
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
@@ -370,10 +374,9 @@ td.destroy_process_group()
 """
 
 
-def test_two_gloo_ranks_sharded_engine_match_one_process(tmp_path):
-    sam = _straddle_sam(str(tmp_path / "in.sam"),
-                        centers=(131_072, 524_288, 800_000))
-    args = ["-t", sam, "-y", "-p", "0.01", "-a", "20"]
+def _two_ranks(tmp_path, args):
+    """``args`` through ShardedTorchEngine on two gloo ranks (processes),
+    each writing tmp/r{rank}.np; returns their stdout."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("XLA_FLAGS", "PYTHONPATH")}
     env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
@@ -386,7 +389,15 @@ def test_two_gloo_ranks_sharded_engine_match_one_process(tmp_path):
     logs = [p.communicate(timeout=300) for p in procs]
     for i, p in enumerate(procs):
         assert p.returncode == 0, f"rank {i}:\n{logs[i][1][-2000:]}"
-        assert "RUN 2 2" in logs[i][0], logs[i][0]
+    return [out for out, _ in logs]
+
+
+def test_two_gloo_ranks_sharded_engine_match_one_process(tmp_path):
+    sam = _straddle_sam(str(tmp_path / "in.sam"),
+                        centers=(131_072, 524_288, 800_000))
+    args = ["-t", sam, "-y", "-p", "0.01", "-a", "20"]
+    for out in _two_ranks(tmp_path, args):
+        assert "RUN 2 2" in out, out
     from genrich_tpu_torch import params, pipeline
     pipeline.run(params.parse_args(args + ["-o", str(tmp_path / "one.np")]),
                  engine=ShardedTorchEngine("cpu", n_shards=8))
@@ -397,6 +408,27 @@ def test_two_gloo_ranks_sharded_engine_match_one_process(tmp_path):
              (ln.split("\t") for ln in one.decode().splitlines())]
     assert any(s < 131_072 < e for s, e in spans)
     assert any(s < 524_288 < e for s, e in spans), spans
+
+
+def test_two_gloo_ranks_sharded_fisher_straddle(tmp_path):
+    """Two replicates whose Fisher peak straddles the boundary between
+    the two ranks' tiles (524,288), its highest interval cut there: the
+    ``cont`` of the later rank's first tile comes from the earlier
+    rank's last run.  Both ranks write one process's bytes, and column
+    10 equals the exact engine's on every row, with no near tie."""
+    args = fisher_straddle_args(tmp_path)
+    for out in _two_ranks(tmp_path, args):
+        assert "RUN 2 " in out and int(out.split()[-1]) >= 1, out
+    from genrich_tpu_torch import params, pipeline
+    pipeline.run(params.parse_args(args + ["-o", str(tmp_path / "one.np")]),
+                 engine=ShardedTorchEngine("cpu", n_shards=8))
+    one = (tmp_path / "one.np").read_bytes()
+    assert (tmp_path / "r0.np").read_bytes() == one \
+        == (tmp_path / "r1.np").read_bytes()
+    exact, log = _exact(tmp_path, args + ["-o", "out.np"])
+    got = one.decode().splitlines()
+    assert any(ln.split("\t")[1:3] == ["524119", "524457"] for ln in got)
+    assert check_summits(exact, got, log, 1e-4) == (len(exact), 0)
 
 
 def test_distributed_layer_is_local_without_a_group():

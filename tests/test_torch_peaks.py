@@ -1,4 +1,12 @@
-"""Per-peak reduction (plain version of kernel K4) against the references.
+"""The gap-join (kernel K5's design) and the per-peak reduction (plain
+version of kernel K4) against the references.
+
+``testing.gap_join_blocked``, a numpy transcription of K5's per-tile
+aggregate, its combine, its look-back and its candidate writes, equals
+the plain ``peak_candidates`` bitwise for tiles of 1, 7, 32 and 1,024
+rows, on rows with SKIP rows, dead rows, zero-length rows, gaps of
+exactly max_gap and more candidates than K; the plain version holds to
+``peaks_jax.call_peaks`` (the candidates' starts, ends and count).
 
 ``ops/peaks.call_peaks`` takes each peak's AUC as a difference of
 float64 prefix sums rounded to float32, and its summit by segmented
@@ -24,7 +32,8 @@ from genrich_tpu.engine import peaks as epeaks
 from genrich_tpu.ops import peaks_jax
 from genrich_tpu_torch import kernels
 from genrich_tpu_torch.ops import peaks
-from genrich_tpu_torch.testing import auc_rowwise, peak_rows
+from genrich_tpu_torch.testing import (auc_rowwise, gap_join_blocked,
+                                       gap_join_rows, peak_rows)
 
 F32 = np.float32
 
@@ -98,7 +107,7 @@ def test_auc_rowwise_is_the_exact_engines_sum():
     want = _exact_peaks(ends, stat, pval, qval, 2.0, 0.0, 0, 100)["auc"]
     assert len(want) > 30 and np.median(last - first) > 100
     np.testing.assert_array_equal(got, want)
-    plain = peaks.peak_reduce_plain(*t, c.sig, c.pid, c.first, c.last,
+    plain = peaks.peak_reduce_plain(*t, c.sig, c.first, c.last,
                                     2.0)[0].numpy()[ex]
     # float32 rounding drifts over hundreds of adds: rtol 1e-5, as K4
     # against the plain version on the card
@@ -185,7 +194,84 @@ def test_peak_reduce_cpu_runs_plain_and_checks_types():
     b = torch.zeros(4, dtype=torch.bool)
     with pytest.raises(TypeError):
         peaks.peak_reduce(i32, i32, f32.double(), f32, f32, b, i64, i64,
-                          i64, 1.0)
+                          1.0)
     with pytest.raises(TypeError):
-        peaks.peak_reduce(i32, i32, f32, f32, f32, b, i64,
-                          i64.int(), i64, 1.0)
+        peaks.peak_reduce(i32, i32, f32, f32, f32, b, i64.int(), i64, 1.0)
+
+
+# (seed, rows, max_gap, peak regions, k_peaks, dead tail rows)
+GAP_JOIN_CASES = [(1, 3000, 10, 150, 4096, 0), (2, 2500, 100, 200, 17, 0),
+                  (3, 2047, 0, 120, 64, 300), (4, 1, 10, 1, 4096, 0),
+                  (5, 600, 50, 0, 8, 0)]
+
+
+def _gap_join_plain(case):
+    seed, m, gap, regions, k, tail = case
+    rows = gap_join_rows(np.random.RandomState(seed), m, gap, regions,
+                         dead_tail=tail)
+    got = peaks.peak_candidates(*(torch.from_numpy(a) for a in rows), 2.0,
+                                gap, k)
+    return rows, got
+
+
+@pytest.mark.parametrize("tile", [1, 7, 32, 1024])
+@pytest.mark.parametrize("case", GAP_JOIN_CASES)
+def test_gap_join_blocked_matches_plain(case, tile):
+    """K5's design, transcribed, gives the plain version's bits: the sig
+    and skp rows, first/last/exists of every slot (empty ones (0, -1))
+    and the count, also where the count exceeds K."""
+    seed, m, gap, regions, k, tail = case
+    rows, want = _gap_join_plain(case)
+    got = gap_join_blocked(*rows, 2.0, gap, k, tile)
+    for name, g, w in zip(("sig", "skp", "first", "last", "exists", "n"),
+                          got, want):
+        np.testing.assert_array_equal(np.asarray(g), w.numpy(), name)
+    assert want.first.dtype == want.last.dtype == torch.int64
+    n, k_eff = int(want.n), min(k, m)
+    assert int(want.exists.sum()) == min(n, k_eff)
+    if seed == 2:
+        assert n > k_eff                      # the cap drops candidates
+    if regions > 50:
+        assert n > 20 and bool(want.skp.any())
+
+
+@pytest.mark.parametrize("case", GAP_JOIN_CASES[:3])
+def test_gap_join_plain_matches_jax(case):
+    """The plain gap-join against ``peaks_jax.call_peaks``: each slot's
+    start (row first) and end (row last), the slots that are
+    candidates, and the count."""
+    seed, m, gap, regions, k, tail = case
+    (s, e, st, lv), got = _gap_join_plain(case)
+    ref = peaks_jax.call_peaks(
+        jnp.asarray(s), jnp.asarray(e), jnp.asarray(st), jnp.asarray(st),
+        jnp.asarray(st), jnp.asarray(lv), jnp.float32(2.0),
+        jnp.float32(0.0), 0, gap, k_peaks=k)
+    ex = got.exists.numpy()
+    np.testing.assert_array_equal(ex, np.asarray(ref.cand))
+    np.testing.assert_array_equal(s[got.first.numpy()][ex],
+                                  np.asarray(ref.start)[ex])
+    np.testing.assert_array_equal(e[got.last.numpy()][ex],
+                                  np.asarray(ref.end)[ex])
+    assert int(got.n) == int(ref.n_peaks) > 20
+
+
+def test_gap_join_breaks_and_joins():
+    """One bp over max_gap breaks and a gap of exactly max_gap joins; a
+    live SKIP row between two significant rows breaks although they are
+    4 bp apart; a zero-length SKIP row and a dead row above the
+    threshold in between do not."""
+    starts = np.array([0, 21, 31, 31, 51, 61, 70, 72, 74, 95, 97], np.int32)
+    ends = np.array([10, 31, 31, 41, 61, 70, 72, 74, 95, 97, 99], np.int32)
+    stat = np.array([5, 5, -1, 5, 5, 5, -1, 0, 5, 5, 5], np.float32)
+    live = np.ones(11, bool)
+    live[9] = False
+    got = peaks.peak_candidates(*(torch.from_numpy(a) for a in
+                                  (starts, ends, stat, live)), 2.0, 10, 8)
+    ex = got.exists.numpy()
+    assert int(got.n) == 3 and ex.tolist() == [False] * 5 + [True] * 3
+    np.testing.assert_array_equal(got.first.numpy(), [0] * 5 + [0, 1, 8])
+    np.testing.assert_array_equal(got.last.numpy(), [-1] * 5 + [0, 5, 10])
+    for tile in (1, 2, 3):
+        blk = gap_join_blocked(starts, ends, stat, live, 2.0, 10, 8, tile)
+        np.testing.assert_array_equal(blk[2], got.first.numpy())
+        np.testing.assert_array_equal(blk[3], got.last.numpy())

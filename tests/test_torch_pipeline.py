@@ -179,6 +179,51 @@ def test_distinct_pvals_matches_jax():
     assert wd.dtype == torch.int32
 
 
+def _distinct_cummax(starts, ends, pv, live, dtype):
+    """The cummax form of ``compact._distinct_runs`` before it was
+    rewritten (each run's bp from the running maximum of the run ends'
+    cumulative bp), then compacted as distinct_pvals did."""
+    lens = ends - starts
+    real = live & (lens > 0) & (pv != -1.0)
+    key = torch.where(real, pv, torch.full_like(pv, float("inf")))
+    w = torch.where(real, lens, torch.zeros_like(lens)).to(torch.int64)
+    key_s, order = torch.sort(key)
+    cum = torch.cumsum(w[order], dim=0)
+    is_last = torch.cat([key_s[1:] != key_s[:-1],
+                         torch.ones(1, dtype=torch.bool)])
+    run_end = torch.cummax(torch.where(is_last, cum, torch.zeros_like(cum)),
+                           dim=0).values
+    prev = torch.cat([torch.zeros(1, dtype=cum.dtype), run_end[:-1]])
+    (pv_d, w_d), d = compact.compact(is_last & torch.isfinite(key_s),
+                                     (key_s, (cum - prev).to(dtype)))
+    return pv_d, w_d, d
+
+
+@pytest.mark.parametrize("seed,k", [(31, 1 << 13), (32, 64), (33, 1 << 15)])
+def test_distinct_runs_without_cummax_is_bitwise(seed, k):
+    """distinct_pvals and distinct_pvals_k are bitwise what the cummax
+    form gave: the table rows, the count and (for the [k] table, an
+    overflowing one included) every padding row."""
+    s, e, pv, lv = (T(a) for a in _jax_pvals(seed))
+    pv = pv.clone()
+    pv[::97] = -1.0                      # SKIP rows carry no weight
+    for dtype in (torch.int32, torch.int64):
+        want = _distinct_cummax(s, e, pv, lv, dtype)
+        d = int(want[2])
+        got = (compact.distinct_pvals(s, e, pv, lv) if dtype == torch.int32
+               else compact.distinct_pvals_k(s, e, pv, lv, max(d, 1)))
+        assert int(got[2]) == d > 10
+        assert torch.equal(got[0][:d], want[0][:d])
+        assert torch.equal(got[1][:d], want[1][:d])
+        assert got[1].dtype == dtype
+    pk, wk, dk = compact.distinct_pvals_k(s, e, pv, lv, k)
+    n = min(k, d)
+    assert int(dk) == d
+    assert torch.equal(pk[:n], want[0][:n]) and torch.equal(wk[:n],
+                                                            want[1][:n])
+    assert bool(torch.isinf(pk[n:]).all()) and not bool(wk[n:].any())
+
+
 def test_assign_qvals_matches_jax():
     s, e, pv, lv = _jax_pvals()
     pd_r, wd_r, d_r = (np.asarray(x) for x in compact_jax.distinct_pvals(

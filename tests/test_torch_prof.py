@@ -7,20 +7,31 @@ from __future__ import annotations
 import pytest
 
 from genrich_tpu_torch import kernels
-from genrich_tpu_torch.prof import record_shortfall
+from genrich_tpu_torch.prof import cummax_records, record_shortfall
 
-# a warm main-path run: K1 3 calls, K2 3 (two kernels each), K4 3
+# a warm main-path run: K1 3 calls, K2 3 (two kernels each), K5 3 (two
+# kernels each), K4 3
 LAUNCHES = {"coverage_scan": 3, "tile_stats": 3, "fisher_combine": 0,
-            "peak_reduce": 3}
+            "gap_join": 3, "peak_reduce": 3}
 RECORDS = [
     ("void coverage_scan_kernel<2, false>(int const*, long, int const*, "
      "float, float*, float*, int*, long)", 3),
     ("tile_stats_table_kernel(float, float, Tables*)", 3),
     ("tile_stats_kernel(float const*, float const*, unsigned char const*, "
      "float, float, Tables const*, float*, long)", 3),
+    ("gap_join_kernel(Rows, int*, long, unsigned char*, unsigned char*, "
+     "int*, int*)", 3),
+    ("gap_join_finish_kernel(int const*, long, int const*, int const*, "
+     "long, long*, long*, unsigned char*, long*)", 3),
     ("peak_reduce_kernel(Rows, long const*, long const*, long, Out)", 3),
-    ("void at::native::tensor_kernel_scan_innermost_dim<long, "
-     "at::native::cummax_helper>(...)", 48),
+    ("Memcpy HtoD (Pageable -> Device)", 20),
+]
+# the parent's main path, where the gap-join ran as torch.cummax
+CUMMAX = [
+    ("void at::native::tensor_kernel_scan_innermost_dim_with_indices<long, "
+     "long, std::greater_equal<long> >(...)", 12),
+    ("void at::native::tensor_kernel_scan_innermost_dim_with_indices<int, "
+     "long, std::greater_equal<int> >(...)", 3),
     ("Memcpy HtoD (Pageable -> Device)", 20),
 ]
 
@@ -35,11 +46,20 @@ def _drop(name, n=1):
     (_drop("void coverage_scan_kernel"), [("coverage_scan_kernel", 2, 3)]),
     (_drop("tile_stats_table_kernel"), [("tile_stats_table_kernel", 2, 3)]),
     (_drop("peak_reduce_kernel", 3), [("peak_reduce_kernel", 0, 3)]),
+    (_drop("gap_join_finish_kernel"), [("gap_join_finish_kernel", 2, 3)]),
     (RECORDS + [("fisher_combine_kernel(float const*, int, long, float*)",
                  1)], [("fisher_combine_kernel", 1, 0)]),
-], ids=["complete", "K1 lost", "K2 table lost", "K4 lost", "extra K3"])
+], ids=["complete", "K1 lost", "K2 table lost", "K4 lost", "K5 finish lost",
+        "extra K3"])
 def test_record_shortfall(records, want):
     assert record_shortfall(records, LAUNCHES) == want
+
+
+def test_cummax_records():
+    """prof.py refuses a device run that still scans with torch.cummax."""
+    assert cummax_records(RECORDS) == 0
+    assert cummax_records(RECORDS + CUMMAX) == 15
+    assert record_shortfall(RECORDS + CUMMAX, LAUNCHES) == []
 
 
 def test_kernel_names_mangled_and_demangled():
@@ -56,4 +76,8 @@ def test_kernel_names_mangled_and_demangled():
                                  "tile_stats_kernel")
     assert kernels.is_kernel("tile_stats_table_kernel(float, float)",
                              "tile_stats_table_kernel")
-    assert sum(len(v) for v in kernels.KERNELS_PER_CALL.values()) == 5
+    assert kernels.is_kernel("_Z15gap_join_kernel4RowsPilPhS1_S_S_",
+                             "gap_join_kernel")
+    assert not kernels.is_kernel("gap_join_finish_kernel(int const*)",
+                                 "gap_join_kernel")
+    assert sum(len(v) for v in kernels.KERNELS_PER_CALL.values()) == 7

@@ -257,12 +257,16 @@ def test_distinct_pvals_k_matches_jax(k):
     assert bool(torch.isinf(pv[n:]).all()) and not bool(w[n:].any())
 
 
-def _straddle_sam(path, centers=(131_072, 400_000, 655_360)):
+def _straddle_sam(path, centers=(131_072, 400_000, 655_360), seed=3,
+                  spanning=0, span_at=524_288):
     """One 1 Mbp chromosome: background pairs, clusters at ``centers``
     (by default one across the tile boundary at 131,072: n_shards=8
     gives 2^17-bp tiles) and multimapped pairs of equal score (weight
-    1/2, so the tiles' carries are not zero)."""
-    b = oracle.SamBuilder([("chr1", 1_000_000)], seed=3)
+    1/2, so the tiles' carries are not zero), drawn from ``seed``; then
+    ``spanning`` pairs that each cover 150 bp on both sides of
+    ``span_at`` (a tile boundary, and with two ranks the ranks'), so
+    the highest interval of that peak crosses it."""
+    b = oracle.SamBuilder([("chr1", 1_000_000)], seed=seed)
     rng = b.rng
     for center in centers:
         for _ in range(400):
@@ -275,6 +279,9 @@ def _straddle_sam(path, centers=(131_072, 400_000, 655_360)):
             p2 = rng.randrange(0, 999_000)
             b.add_pair("chr1", p2, p2 + 150, score=0, secondary=True,
                        qname=q)
+    for _ in range(spanning):
+        b.add_pair("chr1", span_at - rng.randrange(150, 170),
+                   span_at + rng.randrange(100, 120), score=0)
     return b.write(path)
 
 
@@ -295,7 +302,7 @@ def _torch_engine_row_order_aucs(tmp_path, args, monkeypatch):
     d, _ = _port(tmp_path, args, TorchEngine("cpu"), "torch")
     monkeypatch.setattr(peaks, "peak_reduce", real)
     aucs = {}         # one chromosome: rows are in its coordinates
-    for starts, ends, stat, _, _, sig, _, first, last, min_pq in calls:
+    for starts, ends, stat, _, _, sig, first, last, min_pq in calls:
         host = [t.numpy() for t in (starts, ends, stat, sig, first, last)]
         ex = host[5] >= host[4]
         auc = testing.auc_rowwise(*host, min_pq)
