@@ -11,7 +11,7 @@ non-zero, and the result line is printed only when every phase passed:
    ingest library load (building native/ingest.cpp into the git-ignored
    genrich_tpu_torch/_build/ if the committed one does not), then nvcc
    builds genrich_tpu_torch/csrc there (one process per source, all at
-   once), and csrc/reference (the first designs of K1-K4, which the
+   once), and csrc/reference (the first designs of K1-K5, which the
    port never loads); seconds and whether the ingest build has
    libdeflate are printed.
 3. Kernels: each hand-written kernel against its plain PyTorch version
@@ -60,8 +60,9 @@ non-zero, and the result line is printed only when every phase passed:
    sum (AUC bitwise), and all six outputs bitwise to its first
    design.  K5 (the gap-join) on them and on 2^23 synthetic rows
    (``testing.gap_join_rows``) holding far more peaks than the 4,096
-   slots: every output bitwise to its plain version, twice in a row,
-   times.
+   slots: every output bitwise to its plain version and its first
+   design (``csrc/reference/gapjoin_first.cu``), twice in a row, one
+   kernel and no memset per call, times beside the first design's.
 5. Control: ``-t A -c B`` (B the second 2M-pair BAM, seed 8), the
    same flags; both exact engines once, the port cold and warm, the
    same checks as the main path.  One more run keeps the inputs of its
@@ -230,27 +231,11 @@ def build():
 # --- kernels against their plain versions ---------------------------------
 
 def _median_ms(fn, n=20, busy=True):
-    """Median milliseconds of ``fn`` between two CUDA events.  With
-    ``busy`` the card first spins about a millisecond, so the host has
-    queued all of ``fn``'s work before the first event runs: the time is
-    the device's alone.  Without it, the time of the call, the host's
-    launch work included where the device waits on it."""
-    import torch
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(n):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        if busy:
-            torch.cuda._sleep(BUSY_CYCLES)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2]
+    """Median milliseconds of ``fn`` between two CUDA events
+    (``testing.median_ms``): with ``busy`` the device's time alone,
+    without it the call's."""
+    from genrich_tpu_torch import testing
+    return testing.median_ms(fn, n, busy, BUSY_CYCLES)
 
 
 def _close(a, b, rtol=TOL, atol=TOL):
@@ -450,30 +435,40 @@ def _cu(rc, what):
         raise RuntimeError(f"{what}: CUDA driver error {rc}")
 
 
+_CAPTURE = {}     # the side stream every capture runs on
+
+
 def _kernel_launches(fn):
-    """Names of the kernels (memsets and copies aside) that one call of
-    ``fn`` launches: the call is captured into a CUDA graph, not run,
-    and the graph's kernel nodes are read with the driver API.
-    torch.profiler cannot be trusted with this count on the H100 host:
-    after the smoke's end-to-end runs it often recorded a call's launch
-    but not the kernel's device record (PERF.md, section 7)."""
+    """Names of the kernels that one call of ``fn`` launches, and the
+    number of its memset nodes: ``fn`` runs once on a side stream (as
+    CUDA graph capture asks), then the call is captured on that stream
+    into a CUDA graph, not run, and the graph's nodes are read with the
+    driver API.  torch.profiler cannot be trusted with this count on the
+    H100 host: after the smoke's end-to-end runs it often recorded a
+    call's launch but not the kernel's device record (PERF.md, section
+    7)."""
     import ctypes
     import torch
     cu = ctypes.CDLL("libcuda.so.1")
-    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    side = _CAPTURE.setdefault("stream", torch.cuda.Stream())
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
     torch.cuda.synchronize()
-    with torch.cuda.graph(graph):
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side):
         fn()
     raw = ctypes.c_void_p(graph.raw_cuda_graph())
     n = ctypes.c_size_t(0)
     _cu(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
     nodes = (ctypes.c_void_p * n.value)()
     _cu(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
-    names = []
+    names, memsets = [], 0
     for node in nodes:
         kind = ctypes.c_int()
         _cu(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
             "cuGraphNodeGetType")
+        memsets += kind.value == 2           # CU_GRAPH_NODE_TYPE_MEMSET
         if kind.value != 0:                  # CU_GRAPH_NODE_TYPE_KERNEL
             continue
         # CUDA_KERNEL_NODE_PARAMS_v2: func at word 0, kern at word 7
@@ -490,21 +485,25 @@ def _kernel_launches(fn):
                 "cuKernelGetName")
         names.append(name.value.decode())
     graph.reset()
-    return names
+    return names, memsets
 
 
-def _kernels_per_call(name, fn, where):
+def _kernels_per_call(name, fn, where, memsets=None):
     """The kernels one call of ``fn`` (a wrapper of kernel ``name``)
     launches, by graph capture; they must be
     ``kernels.KERNELS_PER_CALL[name]``, the table prof.py holds the
-    profiler's records to."""
+    profiler's records to, and where ``memsets`` is given, the call's
+    memset nodes that many."""
     from genrich_tpu_torch import kernels
-    ran = _kernel_launches(fn)
+    ran, ran_memsets = _kernel_launches(fn)
     want = kernels.KERNELS_PER_CALL[name]
     if len(ran) != len(want) or not all(
             kernels.is_kernel(r, w) for r, w in zip(ran, want)):
         raise AssertionError(f"{name}, {where}: launched {ran}, not "
                              f"{list(want)}")
+    if memsets is not None and ran_memsets != memsets:
+        raise AssertionError(f"{name}, {where}: {ran_memsets} memsets per "
+                             f"call, not {memsets}")
     return ran
 
 
@@ -806,29 +805,39 @@ def peaks_phase(main_calls):
                 "first_design_call_ms", "plain_ms", "bound_ms")}}
 
 
+def _k5_first_design(args):
+    from genrich_tpu_torch import testing
+    return testing.gap_join_first_design(*args)
+
+
 def _hold_k5(args, where):
-    """K5 (``peak_candidates`` on the card) against its plain version on
-    the same inputs, every output bitwise, and twice in a row (bitwise);
-    returns its output."""
+    """K5 (``peak_candidates`` on the card) against its plain version and
+    its first design on the same inputs, every output bitwise, and twice
+    in a row (bitwise); returns its output."""
     import torch
     from genrich_tpu_torch.ops import peaks
     got = peaks.peak_candidates(*args)
     again = peaks.peak_candidates(*args)
     want = peaks.peak_candidates_plain(*args)
+    old = _k5_first_design(args)
     torch.cuda.synchronize()
-    for name, g, a, w in zip(got._fields, got, again, want):
+    for name, g, a, w, o in zip(got._fields, got, again, want, old):
         if not torch.equal(g, w):
             raise AssertionError(f"gap_join, {where}: {name} differs from "
                                  f"the plain version")
         if not torch.equal(g, a):
             raise AssertionError(f"gap_join, {where}: {name} differs "
                                  f"between two runs")
+        if not torch.equal(g, o):
+            raise AssertionError(f"gap_join, {where}: {name} differs from "
+                                 f"the first design")
     return got
 
 
 def _k5_times(args, got, where):
-    """K5's times, its plain version's, its bound and its device kernels
-    per call (graph capture) on these inputs."""
+    """K5's times, its first design's and its plain version's, its bound
+    and its device kernels per call (graph capture: one kernel, no
+    memset) on these inputs."""
     from genrich_tpu_torch import testing
     from genrich_tpu_torch.ops import peaks
     m, k, n = args[0].shape[0], got.first.shape[0], int(got.n)
@@ -837,19 +846,24 @@ def _k5_times(args, got, where):
            "ms": _median_ms(lambda: peaks.peak_candidates(*args)),
            "call_ms": _median_ms(lambda: peaks.peak_candidates(*args),
                                  busy=False),
+           "first_design_ms": _median_ms(lambda: _k5_first_design(args)),
+           "first_design_call_ms": _median_ms(
+               lambda: _k5_first_design(args), busy=False),
            "plain_ms": _median_ms(
                lambda: peaks.peak_candidates_plain(*args)),
            **_bound(testing.gap_join_bytes(m, k)),
            "kernels_per_call": _kernels_per_call(
-               "gap_join", lambda: peaks.peak_candidates(*args), where)}
+               "gap_join", lambda: peaks.peak_candidates(*args), where,
+               memsets=0),
+           "memsets_per_call": 0}
     return res
 
 
 def k5_path_phase(calls, path):
     """K5 on the inputs of a path's own calls (host copies of
-    peak_candidates' arguments), bitwise to its plain version, with the
-    device kernels of each call read by graph capture; returns the sums
-    over the calls."""
+    peak_candidates' arguments), bitwise to its plain version and its
+    first design, with the device kernels of each call read by graph
+    capture; returns the sums over the calls."""
     import torch
     dev = torch.device(DEV)
     parts = []
@@ -862,11 +876,13 @@ def k5_path_phase(calls, path):
         del args
     torch.cuda.empty_cache()
     return dict({key: sum(p[key] for p in parts)
-                 for key in ("ms", "call_ms", "plain_ms", "rows", "peaks")},
+                 for key in ("ms", "call_ms", "first_design_ms",
+                             "first_design_call_ms", "plain_ms", "rows",
+                             "peaks")},
                 **_sum_bounds(parts), max_abs_err=0.0,
                 mode=f"sum over the {path} path's {len(calls)} calls, its "
                      f"own inputs; every output bitwise to the plain "
-                     f"version")
+                     f"version and the first design")
 
 
 def gap_join_phase(main_calls):
@@ -895,8 +911,9 @@ def gap_join_phase(main_calls):
             "replaces": "genrich_tpu/ops/peaks_jax.py:54",
             "launches": 0, "library_ms": None, **main,
             "synthetic": {k: syn[k] for k in (
-                "rows", "peaks", "ms", "call_ms", "plain_ms", "bound_ms",
-                "bound_by", "bytes")}}
+                "rows", "peaks", "ms", "call_ms", "first_design_ms",
+                "first_design_call_ms", "plain_ms", "bound_ms", "bound_by",
+                "bytes")}}
 
 
 # --- end-to-end runs --------------------------------------------------------

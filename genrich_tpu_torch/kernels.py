@@ -12,15 +12,15 @@ package.
 ``csrc/reference/*.cu`` holds earlier designs of the kernels, which the
 card tests and chip_smoke.py hold the current ones to; they build into
 a library of their own (``reference_library()``) that the port never
-loads.  They include ``csrc/reference/pval_first.cuh``, a frozen copy
-of the p-value header, not ``csrc/pval.cuh``.
+loads.  Those of K1-K3 include ``csrc/reference/pval_first.cuh``, a
+frozen copy of the p-value header, not ``csrc/pval.cuh``.
 
 ``LAUNCHES`` counts, per kernel, the calls of its wrapper that
 launched it on the card (the wrappers in ``ops/scan.py``,
 ``ops/pipeline.py``, ``ops/chisq.py`` and ``ops/peaks.py`` add one each
 time); a run reads the counts to show that its main path went through
 the kernels.  ``KERNELS_PER_CALL`` names the device kernels that one
-such call runs (K2 and K5 run two each).
+such call runs (K2 runs two, the others one each).
 """
 
 from __future__ import annotations
@@ -62,7 +62,7 @@ KERNELS_PER_CALL: Dict[str, Tuple[str, ...]] = {
     "coverage_scan": ("coverage_scan_kernel",),
     "tile_stats": ("tile_stats_table_kernel", "tile_stats_kernel"),
     "fisher_combine": ("fisher_combine_kernel",),
-    "gap_join": ("gap_join_kernel", "gap_join_finish_kernel"),
+    "gap_join": ("gap_join_kernel",),
     "peak_reduce": ("peak_reduce_kernel",)}
 
 
@@ -100,13 +100,16 @@ def _nvcc() -> str:
 
 
 def build(src_dir: Path = CSRC, name: str = "genrich_kernels",
-          info: Optional[Dict[str, object]] = None) -> Path:
+          info: Optional[Dict[str, object]] = None,
+          flags: Tuple[str, ...] = ()) -> Path:
     """Compile ``src_dir/*.cu`` into one shared library (cached by
-    hash); ``info`` (``BUILD_INFO`` by default) gets its path, seconds
-    and ptxas report."""
+    hash), with ``flags`` added to ``NVCC_FLAGS``; ``info``
+    (``BUILD_INFO`` by default) gets its path, seconds and ptxas
+    report."""
     info = BUILD_INFO if info is None else info
     cus, cuhs = _sources(src_dir)
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    nvcc_flags = NVCC_FLAGS + list(flags)
+    h = hashlib.sha256(" ".join(nvcc_flags).encode())
     for f in cus + cuhs:
         h.update(f.name.encode())
         h.update(f.read_bytes())
@@ -121,7 +124,7 @@ def build(src_dir: Path = CSRC, name: str = "genrich_kernels",
     try:
         procs = []
         for f in cus:
-            cmd = [nvcc] + NVCC_FLAGS + ["-I", str(CSRC), "-c", "-o",
+            cmd = [nvcc] + nvcc_flags + ["-I", str(CSRC), "-c", "-o",
                                          str(tmp / (f.stem + ".o")), str(f)]
             procs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -170,15 +173,25 @@ def library() -> ctypes.CDLL:
         lib.peak_reduce_launch.argtypes = [p, p, p, p, p, p, p, p, i64,
                                            i64, f32, p, p, p, p, p, p, p]
         lib.peak_reduce_launch.restype = ctypes.c_int
-        lib.gap_join_scratch.argtypes = [i64]
-        lib.gap_join_scratch.restype = i64
-        lib.gap_join_launch.argtypes = [p, p, p, p, i64, f32, i64, i64, p,
-                                        p, p, p, p, p, p, p]
-        lib.gap_join_launch.restype = ctypes.c_int
+        bind_gap_join(lib)
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def bind_gap_join(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the gap-join's entry points (csrc/gapjoin.cu) on ``lib``:
+    the port's library, or a build of gapjoin.cu alone."""
+    p, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+    lib.gap_join_state_ints.argtypes = [i64]
+    lib.gap_join_state_ints.restype = i64
+    lib.gap_join_grid.argtypes = [i64]
+    lib.gap_join_grid.restype = i64
+    lib.gap_join_launch.argtypes = [p, p, p, p, i64, f32, i64, i64, p, p, p,
+                                    p, p, p, p, p, p]
+    lib.gap_join_launch.restype = ctypes.c_int
+    return lib
 
 
 def reference_library() -> ctypes.CDLL:
@@ -203,6 +216,13 @@ def reference_library() -> ctypes.CDLL:
         lib.fisher_combine_first_launch.argtypes = [p, ctypes.c_int, i64, p,
                                                     p]
         lib.fisher_combine_first_launch.restype = ctypes.c_int
+        lib.gap_join_first_scratch.argtypes = [i64]
+        lib.gap_join_first_scratch.restype = i64
+        gap_join = [p, p, p, p, i64, f32, i64, i64, p, p, p, p, p, p, p, p]
+        lib.gap_join_first_launch.argtypes = gap_join
+        lib.gap_join_first_launch.restype = ctypes.c_int
+        lib.gap_join_first_part.argtypes = [ctypes.c_int] + gap_join
+        lib.gap_join_first_part.restype = ctypes.c_int
         _ref_lib = lib
     return _ref_lib
 

@@ -5,9 +5,10 @@ gap-join: a significant interval joins the previous one iff the gap is
 within maxGap and no SKIP interval lies between; connected components
 are peaks, and each candidate is its first row and last significant
 row, compacted in genomic order at the end of K slots.  Kernel K5
-(``csrc/gapjoin.cu``, one pass with decoupled look-back) on CUDA
-tensors; its plain version, for CPU tensors, is the JAX twin's masked
-scans (``cummax``, ``cumsum``) and ``topk``.
+(``csrc/gapjoin.cu``: one launch per call, persistent blocks fed by TMA
+bulk copies, one pass with decoupled look-back, the K slots placed by
+the last block) on CUDA tensors; its plain version, for CPU tensors, is
+the JAX twin's masked scans (``cummax``, ``cumsum``) and ``topk``.
 
 Each peak's AUC and summit come from ``peak_reduce``: kernel K4
 (``csrc/peaks.cu``) on CUDA tensors, which walks each peak's rows in
@@ -24,7 +25,7 @@ row.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -226,27 +227,48 @@ def peak_candidates_plain(starts, ends, stat, live, min_pq, max_gap,
                     torch.clamp_min(pid[-1] + 1, 0))
 
 
-def _gap_join_cuda(starts, ends, stat, live, min_pq, max_gap, k):
-    """Launch csrc/gapjoin.cu on the card (see its header)."""
+# K5's zeroed scratch (its tile counter, done counter and the tiles'
+# flags) per (device index, stream): a call leaves it zeroed for the next
+# call on its stream, so no call clears it, and two streams never share
+# one.  A scratch that grows keeps the smaller ones alive, so a CUDA graph
+# captured on one stays valid.
+SCRATCH: Dict[Tuple[int, int], List[torch.Tensor]] = {}
+
+
+def _gap_join_state(lib, dev, stream: int, m: int) -> torch.Tensor:
+    """The scratch of the calls on ``stream``, at least K5's size for m
+    rows (a power of two of int32s); a new one is zeroed on the stream."""
+    need = lib.gap_join_state_ints(m)
+    held = SCRATCH.setdefault((dev.index, stream), [])
+    if not held or held[-1].numel() < need:
+        held.append(torch.zeros(1 << (need - 1).bit_length(),
+                                dtype=torch.int32, device=dev))
+    return held[-1]
+
+
+def _gap_join_cuda(starts, ends, stat, live, min_pq, max_gap, k, lib=None):
+    """Launch csrc/gapjoin.cu on the card (see its header); ``lib``, a
+    build of it (default ``kernels.library()``)."""
     m = starts.shape[0]
     dev = starts.device
-    # the columns take 16-byte loads, live 8-byte ones
+    # the columns take bulk copies of 16-byte aligned ranges
     args = [kernels.aligned(t.contiguous(), 16) for t in (starts, ends, stat)]
     args.append(kernels.aligned(live.contiguous().view(torch.uint8), 16))
     with torch.cuda.device(dev):
-        lib = kernels.library()
+        lib = lib or kernels.library()
+        stream = kernels.stream_of(starts)
         sig = torch.empty(m, dtype=torch.uint8, device=dev)
         skp = torch.empty(m, dtype=torch.uint8, device=dev)
         cand = torch.empty((2, k), dtype=torch.int64, device=dev)
         exists = torch.empty(k, dtype=torch.uint8, device=dev)
         n = torch.empty((), dtype=torch.int64, device=dev)
-        scratch = torch.empty(lib.gap_join_scratch(m), dtype=torch.int32,
-                              device=dev)
+        pairs = torch.empty(2 * m, dtype=torch.int32, device=dev)
+        state = _gap_join_state(lib, dev, stream.value or 0, m)
         rc = lib.gap_join_launch(
             *(t.data_ptr() for t in args), m, float(np.float32(min_pq)),
             int(max_gap), k, sig.data_ptr(), skp.data_ptr(),
             cand[0].data_ptr(), cand[1].data_ptr(), exists.data_ptr(),
-            n.data_ptr(), scratch.data_ptr(), kernels.stream_of(starts))
+            n.data_ptr(), state.data_ptr(), pairs.data_ptr(), stream)
         kernels.check(rc, "gap_join")
     kernels.LAUNCHES["gap_join"] += 1
     return PeakRows(sig.view(torch.bool), skp.view(torch.bool), cand[0],

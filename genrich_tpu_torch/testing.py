@@ -9,8 +9,9 @@ row order); ``check_log`` holds a port's
 ``-f``/``-k`` log to the exact engine's, and ``check_summits`` its
 narrowPeak column 10 (summit offset).  numpy only, except
 the ``*_first_design`` helpers, which launch the first designs of
-kernels K1-K4 (``csrc/reference/``) on the card so that the current
-ones can be held to them, and the operation counters.
+kernels K1-K5 (``csrc/reference/``) on the card so that the current
+ones can be held to them, ``median_ms`` (device time by CUDA events),
+and the operation counters.
 
 ``calc_pval_opcount``, ``tile_stats_opcount``, ``coverage_scan_opcount``
 and ``fisher_combine_opcount`` tally, on a call's own inputs, the
@@ -162,6 +163,71 @@ def fisher_combine_first_design(pvals):
     return out
 
 
+def gap_join_first_design(starts, ends, stat, live, min_pq, max_gap,
+                           k_peaks, part=-1, bufs=None):
+    """Kernel K5's first design (a memset, the scan kernel and a finish
+    kernel per call) on CUDA tensors, with ``peak_candidates``'
+    arguments and outputs (a ``PeakRows``), allocated as its wrapper
+    allocated them.  ``part`` 0, 1 or 2 launches only the memset, the
+    scan or the finish (-1: all three), on the outputs and scratch of
+    ``bufs``, which a call returns beside its ``PeakRows`` when ``part``
+    is not -1.  Not counted in ``kernels.LAUNCHES``."""
+    import torch
+
+    from . import kernels
+    from .ops.peaks import PeakRows
+    m = starts.shape[0]
+    k = min(k_peaks, m)
+    dev = starts.device
+    args = [kernels.aligned(t.contiguous(), 16) for t in (starts, ends, stat)]
+    args.append(kernels.aligned(live.contiguous().view(torch.uint8), 16))
+    with torch.cuda.device(dev):
+        lib = kernels.reference_library()
+        if bufs is None:
+            bufs = (torch.empty(m, dtype=torch.uint8, device=dev),
+                    torch.empty(m, dtype=torch.uint8, device=dev),
+                    torch.empty((2, k), dtype=torch.int64, device=dev),
+                    torch.empty(k, dtype=torch.uint8, device=dev),
+                    torch.empty((), dtype=torch.int64, device=dev),
+                    torch.empty(lib.gap_join_first_scratch(m),
+                                dtype=torch.int32, device=dev))
+        sig, skp, cand, exists, n, scratch = bufs
+        rc = lib.gap_join_first_part(
+            part, *(t.data_ptr() for t in args), m, float(F32(min_pq)),
+            int(max_gap), k, sig.data_ptr(), skp.data_ptr(),
+            cand[0].data_ptr(), cand[1].data_ptr(), exists.data_ptr(),
+            n.data_ptr(), scratch.data_ptr(), kernels.stream_of(starts))
+        kernels.check(rc, "gap_join_first")
+    rows = PeakRows(sig.view(torch.bool), skp.view(torch.bool), cand[0],
+                    cand[1], exists.view(torch.bool), n)
+    return rows if part == -1 else (rows, bufs)
+
+
+def median_ms(fn, n=20, busy=True, spin_cycles=2_000_000):
+    """Median milliseconds of ``fn`` between two CUDA events, after 3
+    calls to warm up.  With ``busy`` the card first spins
+    ``spin_cycles`` (about a millisecond), so the host has queued all of
+    ``fn``'s work before the first event runs: the time is the
+    device's alone.  Without it, the time of the call, the host's
+    launch work included where the device waits on it."""
+    import torch
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        if busy:
+            torch.cuda._sleep(spin_cycles)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
 def auc_rowwise(starts, ends, stat, sig, first, last, min_pq):
     """Each candidate's AUC as updatePeak adds it (Genrich.c:948-964,
     ``genrich_tpu/engine/peaks.py:107-131``): float32 (len * (stat -
@@ -181,9 +247,12 @@ def auc_rowwise(starts, ends, stat, sig, first, last, min_pq):
 
 # --- kernel K5's design (csrc/gapjoin.cu), transcribed ---------------------
 
-GJ_HAS, GJ_F_SKIP, GJ_T_SKIP = 1, 2, 4      # gapjoin.cu's State::bits
-GJ_IDENTITY = (0, 0, -1, -1, 0)             # (bits, f_start, l_end, l_idx,
-                                            #  npk)
+GJ_TOP, GJ_LOW = 1 << 31, (1 << 31) - 1
+GJ_IDENTITY = (0, -1, 0, 0)   # gapjoin.cu's packed State: (f_start, l_end,
+                              # 1 + last sig row | skip before the first,
+                              # peaks after the first | skip after the last)
+GJ_THREADS = 256              # gapjoin.cu's threads per block
+GJ_WARP = 32
 
 
 def _sub32(a, b):
@@ -191,122 +260,228 @@ def _sub32(a, b):
     return (int(a) - int(b) + (1 << 31)) % (1 << 32) - (1 << 31)
 
 
+def _gj_has(a):
+    return a[2] & GJ_LOW != 0
+
+
 def _gj_joins(a, start, skip_before, gap):
-    return (a[2] >= 0 and _sub32(start, a[2]) <= gap
-            and not a[0] & GJ_T_SKIP and not skip_before)
+    return (a[1] >= 0 and _sub32(start, a[1]) <= gap
+            and not a[3] & GJ_TOP and not skip_before)
 
 
 def gj_combine(a, b, gap):
     """gapjoin.cu's ``combine``: the state of segment a, then b."""
-    ah, bh = a[0] & GJ_HAS, b[0] & GJ_HAS
-    bits = GJ_HAS if ah or bh else 0
-    f_start = 0
-    if ah:
-        f_start = a[1]
-        bits |= a[0] & GJ_F_SKIP
-    elif bh:
-        f_start = b[1]
-        if a[0] & GJ_T_SKIP or b[0] & GJ_F_SKIP:
-            bits |= GJ_F_SKIP
-    bits |= b[0] & GJ_T_SKIP if bh else (a[0] | b[0]) & GJ_T_SKIP
-    opens = ah and bh and not _gj_joins(a, b[1], b[0] & GJ_F_SKIP, gap)
-    return (bits, f_start, max(a[2], b[2]), b[3] if bh else a[3],
-            a[4] + b[4] + int(opens))
+    ah, bh = _gj_has(a), _gj_has(b)
+    f_skip = a[2] & GJ_TOP if ah else ((a[3] | b[2]) & GJ_TOP if bh else 0)
+    opens = ah and bh and not _gj_joins(a, b[0], b[2] & GJ_TOP, gap)
+    npk = ((a[3] & GJ_LOW) + (b[3] & GJ_LOW) + int(opens)) & GJ_LOW
+    return (a[0] if ah else b[0], max(a[1], b[1]),
+            ((b[2] if bh else a[2]) & GJ_LOW) | f_skip,
+            npk | ((b[3] if bh else a[3] | b[3]) & GJ_TOP))
 
 
-def _gj_row(sig, skp, start, end, row):
-    if sig:
-        return (GJ_HAS | (GJ_F_SKIP if skp else 0), int(start), int(end),
-                row, 0)
-    return (GJ_T_SKIP if skp else 0, 0, -1, -1, 0)
+def _gj_upto(k):
+    """Rows 0..k of a thread's mask."""
+    return (2 << k) - 1
+
+
+def _gj_thread(sig, skp, starts, ends, lo, n_rows, gap):
+    """gapjoin.cu's pass 1 for one thread's rows lo .. lo + n_rows - 1:
+    its sig and skp masks, ``opens`` (bit k: sig row lo + k, not the
+    thread's first, opens a peak, judged by the largest end of the sig
+    rows before it in the thread and the skp rows since the last of
+    them) and the thread's packed State."""
+    g = sum(int(sig[lo + k]) << k for k in range(n_rows))
+    x = sum(int(skp[lo + k]) << k for k in range(n_rows))
+    opens, l_end = 0, -1
+    for k in range(n_rows):
+        below = g & (_gj_upto(k) >> 1)
+        if g >> k & 1 and below:
+            p = below.bit_length() - 1
+            join = (l_end >= 0 and _sub32(starts[lo + k], l_end) <= gap
+                    and x & _gj_upto(k) & ~_gj_upto(p) == 0)
+            opens |= (0 if join else 1) << k
+        if g >> k & 1:
+            l_end = max(l_end, int(ends[lo + k]))
+    if not g:
+        return g, x, opens, (0, -1, 0, GJ_TOP if x else 0)
+    f, last = (g & -g).bit_length() - 1, g.bit_length() - 1
+    return g, x, opens, (
+        int(starts[lo + f]), l_end,
+        (lo + last + 1) | (GJ_TOP if x & _gj_upto(f) else 0),
+        bin(opens).count("1") | (GJ_TOP if x >> (last + 1) else 0))
 
 
 def _gj_window(states, gap):
-    """Warp 0's tree of shuffles in ``look_back``: lane l holds states[l]
-    (tile win - l); lane 0 ends with lanes 31..0 combined in that
-    order."""
-    v = list(states)
-    off = 1
-    while off < 32:
-        v = [gj_combine(v[lane + off], v[lane], gap) if lane + off < 32
-             else v[lane] for lane in range(32)]
-        off <<= 1
-    return v[0]
-
-
-GJ_INC_EVERY = 5     # gap_join_blocked: tiles whose prefix is out early
+    """``look_back``'s reduction of one window: thread j holds states[j]
+    (tile win - j); each warp's lane 0 ends with lanes 31..0 combined in
+    that order by a tree of shuffles, then the warps are combined oldest
+    first."""
+    all_ = GJ_IDENTITY
+    warps = [list(states[w:w + GJ_WARP])
+             for w in range(0, len(states), GJ_WARP)]
+    for v in reversed(warps):
+        v += [GJ_IDENTITY] * (GJ_WARP - len(v))
+        off = 1
+        while off < GJ_WARP:
+            v = [gj_combine(v[lane + off], v[lane], gap)
+                 if lane + off < GJ_WARP else v[lane]
+                 for lane in range(GJ_WARP)]
+            off <<= 1
+        all_ = gj_combine(all_, v[0], gap)
+    return all_
 
 
 def gap_join_blocked(starts, ends, stat, live, min_pq, max_gap, k_peaks,
-                     tile):
-    """Kernel K5 (``csrc/gapjoin.cu``) with ``tile`` rows per tile, in
-    numpy: each tile's aggregate folded from its rows' states by
-    ``gj_combine``; each tile's exclusive prefix by the kernel's
-    look-back, windows of 32 predecessors reduced as warp 0 reduces
-    them, where only every GJ_INC_EVERY-th tile's inclusive prefix is
-    out yet (the others give their aggregates); each tile's rows walked
-    from its prefix, writing first_s and prev_s at the rows that open a
-    peak; then the finish kernel's K slots.  The kernel's split of a tile
-    into threads and warps is the same fold by the same combine.
-    Returns (sig, skp, first [K], last [K], exists [K], n) as
+                     tile, blocks=264, seed=0):
+    """Kernel K5 (``csrc/gapjoin.cu``) in numpy, with ``tile`` rows per
+    tile (min(tile, 256) threads of tile / threads rows each) and
+    ``blocks`` persistent blocks (at most one per tile), each with a
+    ring of two tiles.  Each block is a generator that yields where the
+    kernel's blocks may interleave, and a scheduler seeded by ``seed``
+    steps them in a random order each round; a round in which every
+    block waits is a deadlock and raises.  A block takes its first tile
+    from the counter, and for each tile, once its data landed, the next
+    one; for each tile each thread judges its rows (``_gj_thread``), the
+    block scans the threads' states, publishes the tile's aggregate
+    (tile 0: its inclusive prefix), looks back over windows of
+    ``threads`` predecessors that all have a flag (``_gj_window``) down
+    to the nearest inclusive prefix, publishes its own, and each thread
+    writes first_s and prev_s for the peaks its rows open from its exact
+    prefix.  Each block writes its share of the K slots as empty before
+    it counts itself done; the last block done (every walk is out)
+    writes the slots that hold peaks, from the last tile's inclusive
+    prefix, and zeroes the counters and flags.  Returns (sig, skp,
+    first [K], last [K], exists [K], n) as
     ``ops/peaks.peak_candidates``."""
     m = len(starts)
     gap = int(max_gap)
+    threads = min(tile, GJ_THREADS)
+    items = tile // threads
+    assert threads * items == tile
     thr = F32(min_pq)
     lens = np.array([_sub32(e, s) for s, e in zip(starts, ends)])
     lv = np.asarray(live, bool) & (lens > 0)
     sig = lv & (np.asarray(stat, F32) > thr)
     skp = lv & (np.asarray(stat, F32) == F32(-1.0))
     ntiles = -(-m // tile)
-    agg = []
-    for t in range(ntiles):
-        a = GJ_IDENTITY
-        for i in range(t * tile, min(m, (t + 1) * tile)):
-            a = gj_combine(a, _gj_row(sig[i], skp[i], starts[i], ends[i], i),
-                           gap)
-        agg.append(a)
-    inc, prefix = [], []
-    for t in range(ntiles):
-        excl = GJ_IDENTITY
-        win = t - 1
-        while t > 0:
-            tiles = [win - lane for lane in range(32)]
-            out = [b >= 0 and b % GJ_INC_EVERY == 0 for b in tiles]
-            nearest = out.index(True) if any(out) else 32
-            excl = gj_combine(_gj_window(
-                [(inc[b] if out[lane] else agg[b])
-                 if b >= 0 and lane <= nearest else GJ_IDENTITY
-                 for lane, b in enumerate(tiles)], gap), excl, gap)
-            if nearest < 32:
-                break
-            win -= 32
-        prefix.append(excl)
-        inc.append(gj_combine(excl, agg[t], gap))
+    grid = min(ntiles, blocks)
+    mem = {"ticket": 0, "done": 0}
+    flag = [0] * ntiles
+    agg = [None] * ntiles
+    inc = [None] * ntiles
     first_s = np.zeros(m, np.int64)
     prev_s = np.zeros(m, np.int64)
-    for t in range(ntiles):
-        bits, _, l_end, l_idx, npk = prefix[t]
-        count = 1 + npk if bits & GJ_HAS else 0
-        tskip = bool(bits & GJ_T_SKIP)
-        for i in range(t * tile, min(m, (t + 1) * tile)):
-            if sig[i]:
-                if not (l_end >= 0 and _sub32(starts[i], l_end) <= gap
-                        and not tskip and not skp[i]):
-                    first_s[count] = i
-                    if count > 0:
-                        prev_s[count] = l_idx
-                    count += 1
-                l_end, l_idx, tskip = max(l_end, int(ends[i])), i, False
-            elif skp[i]:
-                tskip = True
-    bits, _, _, l_idx, npk = inc[-1]
-    n = 1 + npk if bits & GJ_HAS else 0
     k = min(k_peaks, m)
-    p = np.arange(k) + n - k
-    exists = p >= 0
-    first = np.where(exists, first_s[p.clip(0)], 0)
-    last = np.where(p == n - 1, l_idx, prev_s[(p + 1).clip(0, m - 1)])
-    return sig, skp, first, np.where(exists, last, -1), exists, n
+    first = np.full(k, 7, np.int64)      # as torch.empty leaves them
+    last = np.full(k, 7, np.int64)
+    exists = np.ones(k, bool)
+    count = []
+
+    def look_back(t):
+        excl, win = GJ_IDENTITY, t - 1
+        while True:
+            lanes = [win - j for j in range(threads)]
+            while any(flag[b] == 0 for b in lanes if b >= 0):
+                yield True
+            fl = [flag[b] if b >= 0 else 2 for b in lanes]
+            nearest = fl.index(2) if 2 in fl else threads
+            excl = gj_combine(_gj_window(
+                [(inc[b] if fl[j] == 2 else agg[b])
+                 if b >= 0 and j <= nearest else GJ_IDENTITY
+                 for j, b in enumerate(lanes)], gap), excl, gap)
+            if nearest < threads:
+                return excl
+            win -= threads
+
+    def walk(cur, lo, g, x, opens):
+        count = 1 + (cur[3] & GJ_LOW) if _gj_has(cur) else 0
+        f = (g & -g).bit_length() - 1
+        if not (cur[1] >= 0 and _sub32(starts[lo + f], cur[1]) <= gap
+                and not cur[3] & GJ_TOP and x & _gj_upto(f) == 0):
+            first_s[count] = lo + f
+            if count > 0:
+                prev_s[count] = (cur[2] & GJ_LOW) - 1
+            count += 1
+        for kk in range(items):
+            if opens >> kk & 1:
+                first_s[count] = lo + kk
+                prev_s[count] = lo + (g & (_gj_upto(kk) >> 1)).bit_length() - 1
+                count += 1
+
+    def block(b):
+        more = True
+        ring = [ntiles, ntiles]
+
+        def take():
+            nonlocal more
+            if not more:
+                return ntiles
+            t = mem["ticket"]
+            mem["ticket"] += 1
+            if t < ntiles:
+                return t
+            more = False
+            return ntiles
+        ring[0] = take()
+        yield False
+        i = 0
+        while ring[i % 2] < ntiles:
+            t = ring[i % 2]
+            ring[(i + 1) % 2] = take()      # the data of tile t landed
+            yield False
+            base = t * tile
+            per = [_gj_thread(sig, skp, starts, ends, base + j * items,
+                              max(0, min(items, m - base - j * items)), gap)
+                   for j in range(threads)]
+            excl_t, total = [], GJ_IDENTITY
+            for *_, a in per:
+                excl_t.append(total)
+                total = gj_combine(total, a, gap)
+            if t == 0:
+                prefix = GJ_IDENTITY
+                inc[t], flag[t] = total, 2
+            else:
+                agg[t], flag[t] = total, 1
+                yield False
+                prefix = yield from look_back(t)
+                inc[t], flag[t] = gj_combine(prefix, total, gap), 2
+            yield False
+            for j, (g, x, opens, _) in enumerate(per):
+                if g:
+                    walk(gj_combine(prefix, excl_t[j], gap),
+                         base + j * items, g, x, opens)
+            i += 1
+        share = -(-k // grid)                # its share of slots, empty
+        for j in range(share * b, min(k, share * (b + 1))):
+            first[j], last[j], exists[j] = 0, -1, False
+        mem["done"] += 1
+        if mem["done"] < grid:
+            return
+        tot = inc[ntiles - 1]               # the last block done
+        n = 1 + (tot[3] & GJ_LOW) if _gj_has(tot) else 0
+        count.append(n)
+        for j in range(max(0, k - n), k):
+            p = j + n - k
+            first[j], exists[j] = first_s[p], True
+            last[j] = (tot[2] & GJ_LOW) - 1 if p == n - 1 else prev_s[p + 1]
+        flag[:] = [0] * ntiles
+        mem.update(ticket=0, done=0)
+
+    rng = np.random.RandomState(seed)
+    gens = [block(b) for b in range(grid)]
+    live_blocks = list(range(grid))
+    while live_blocks:
+        moved = False
+        for b in rng.permutation(live_blocks):
+            try:
+                moved |= not next(gens[b])
+            except StopIteration:
+                live_blocks.remove(b)
+                moved = True
+        if not moved:
+            raise RuntimeError("gap_join_blocked: every block waits")
+    return sig, skp, first, last, exists, count[0]
 
 
 def gap_join_rows(rng, m, max_gap, n_regions, skip_frac=0.02,

@@ -12,7 +12,9 @@ float64 prefix difference) and bitwise against the exact engine's
 row-order float32 sum (``testing.auc_rowwise``).  K1-K4 are also held
 bitwise to their first designs (``csrc/reference``), K4 on all six
 outputs of every candidate.  The gap-join (K5) is bitwise to its plain
-version on every output: the rows' flags, every slot and the count.
+version and its first design on every output (the rows' flags, every
+slot and the count), also when calls on one stream grow and shrink, on
+two streams at once, and replayed from a CUDA graph.
 """
 
 from __future__ import annotations
@@ -498,12 +500,20 @@ def _gap_join_both(cuda, rows, gap, k):
 
 
 # (seed, rows, max_gap, peak regions, k_peaks, dead tail rows): sizes
-# around the 1,024-row tile, more peaks than slots, a dead tail
-@pytest.mark.parametrize("case", [
+# around the first design's 1,024-row tile and K5's 4,096-row tile (one
+# tile, a ragged tail), more peaks than slots, a dead tail, and more
+# tiles than the card runs blocks at once (5M rows: 1,221 tiles)
+GAP_JOIN_CARD_CASES = [
     (1, 1, 10, 1, 4096, 0), (2, 1023, 10, 40, 4096, 0),
     (3, 1024, 100, 60, 17, 0), (4, 1025, 0, 60, 4096, 100),
     (5, 300_007, 100, 20_000, 4096, 0), (6, 2_000_001, 50, 120_000, 4096,
-                                        3000)])
+                                        3000),
+    (7, 4095, 10, 200, 4096, 0), (8, 4096, 100, 200, 17, 0),
+    (9, 4097, 0, 200, 4096, 100), (10, 5_000_000, 100, 300_000, 4096,
+                                   2000)]
+
+
+@pytest.mark.parametrize("case", GAP_JOIN_CARD_CASES)
 def test_gap_join_kernel_matches_plain(cuda, case):
     seed, m, gap, regions, k, tail = case
     rows = testing.gap_join_rows(np.random.RandomState(seed), m, gap,
@@ -511,6 +521,96 @@ def test_gap_join_kernel_matches_plain(cuda, case):
     want = _gap_join_both(cuda, rows, gap, k)
     if m > 1000:
         assert int(want.n) > min(k, 10)
+
+
+@pytest.mark.parametrize("case", GAP_JOIN_CARD_CASES)
+def test_gap_join_kernel_matches_first_design(cuda, case):
+    """K5 against its first design (csrc/reference/gapjoin_first.cu),
+    every output bitwise, on the same rows."""
+    seed, m, gap, regions, k, tail = case
+    rows = [torch.from_numpy(a).to(cuda) for a in testing.gap_join_rows(
+        np.random.RandomState(seed), m, gap, regions, dead_tail=tail)]
+    got = peaks.peak_candidates(*rows, 2.0, gap, k)
+    old = testing.gap_join_first_design(*rows, 2.0, gap, k)
+    torch.cuda.synchronize()
+    for name, g, o in zip(got._fields, got, old):
+        assert g.dtype == o.dtype and torch.equal(g, o), name
+
+
+def _scratch_zeroed(cuda, stream):
+    """K5's scratch for calls on ``stream`` has its counters and every
+    tile's flag at zero, as every call leaves it (gapjoin.cu: the tile
+    and done counters at [0] and [1], then 12 ints per tile, the flag
+    first, the tile's states after it)."""
+    key = (cuda.index or 0, stream.cuda_stream)
+    return all(int(t[:2].abs().sum()) == 0 and int(t[4::12].abs().sum()) == 0
+               for t in peaks.SCRATCH[key])
+
+
+def test_gap_join_kernel_scratch_grows_and_shrinks(cuda):
+    """Calls on one stream whose row count grows and shrinks share its
+    scratch (grown when a call needs more), each bitwise to the plain
+    version, and each leaves the scratch zeroed."""
+    stream = torch.cuda.current_stream(cuda)
+    for i, m in enumerate((5000, 2_000_000, 300, 1_000_003, 1, 70_000)):
+        rows = testing.gap_join_rows(np.random.RandomState(20 + i), m, 100,
+                                     max(1, m // 21))
+        _gap_join_both(cuda, rows, 100, 4096)
+        assert _scratch_zeroed(cuda, stream)
+
+
+def test_gap_join_kernel_two_streams(cuda):
+    """Calls queued on two streams at once, each on its own rows: each
+    stream has its own scratch, and every output is bitwise to the plain
+    version."""
+    inputs = [testing.gap_join_rows(np.random.RandomState(30 + i), m, 100,
+                                    m // 21)
+              for i, m in enumerate((3_000_000, 1_500_007))]
+    want = [peaks.peak_candidates(*(torch.from_numpy(a) for a in rows),
+                                  2.0, 100, 4096) for rows in inputs]
+    dev = [[torch.from_numpy(a).to(cuda) for a in rows] for rows in inputs]
+    streams = [torch.cuda.Stream(cuda) for _ in inputs]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(3):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[i].append(peaks.peak_candidates(*dev[i], 2.0, 100, 4096))
+    torch.cuda.synchronize()
+    for i, s in enumerate(streams):
+        assert _scratch_zeroed(cuda, s)
+        for out in got[i]:
+            for name, g, w in zip(out._fields, out, want[i]):
+                assert torch.equal(g.cpu(), w), (i, name)
+
+
+def test_gap_join_kernel_graph_replay(cuda):
+    """K5 captured into a CUDA graph (after a call on the capture stream)
+    and replayed on new rows of the same size: every replay's outputs
+    are bitwise to the plain version on its rows, and the scratch is
+    zeroed after each."""
+    m = 700_001
+    inputs = [testing.gap_join_rows(np.random.RandomState(40 + i), m, 100,
+                                    m // 21) for i in range(3)]
+    static = [torch.from_numpy(a).to(cuda) for a in inputs[0]]
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        peaks.peak_candidates(*static, 2.0, 100, 4096)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = peaks.peak_candidates(*static, 2.0, 100, 4096)
+    for rows in inputs[1:] + inputs[:1]:
+        for t, a in zip(static, rows):
+            t.copy_(torch.from_numpy(a))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = peaks.peak_candidates(*(torch.from_numpy(a) for a in rows),
+                                     2.0, 100, 4096)
+        for name, g, w in zip(out._fields, out, want):
+            assert torch.equal(g.cpu(), w), name
+        assert _scratch_zeroed(cuda, side)
 
 
 def test_gap_join_kernel_long_peak_and_empty_tiles(cuda):

@@ -1,12 +1,16 @@
 """The gap-join (kernel K5's design) and the per-peak reduction (plain
 version of kernel K4) against the references.
 
-``testing.gap_join_blocked``, a numpy transcription of K5's per-tile
-aggregate, its combine, its look-back and its candidate writes, equals
-the plain ``peak_candidates`` bitwise for tiles of 1, 7, 32 and 1,024
-rows, on rows with SKIP rows, dead rows, zero-length rows, gaps of
-exactly max_gap and more candidates than K; the plain version holds to
-``peaks_jax.call_peaks`` (the candidates' starts, ends and count).
+``testing.gap_join_blocked``, a numpy transcription of K5's design
+(persistent blocks taking tiles from a counter through a ring, each
+thread's fold, the packed State's combine, the block-wide look-back,
+the candidate writes and the last block's K slots), equals the plain
+``peak_candidates`` bitwise for tiles of 1, 7, 32, 1,024 and 4,096
+rows, with as many blocks as the H100 runs at once and with fewer
+blocks than tiles, on rows with SKIP rows, dead rows, zero-length rows,
+gaps of exactly max_gap and more candidates than K; the plain version
+holds to ``peaks_jax.call_peaks`` (the candidates' starts, ends and
+count).
 
 ``ops/peaks.call_peaks`` takes each peak's AUC as a difference of
 float64 prefix sums rounded to float32, and its summit by segmented
@@ -214,18 +218,30 @@ def _gap_join_plain(case):
     return rows, got
 
 
-@pytest.mark.parametrize("tile", [1, 7, 32, 1024])
+# the persistent blocks that gap_join_blocked runs each tile size with:
+# 264 is the H100's grid (two blocks on each of 132 SMs); the others give
+# more tiles than blocks, so blocks take tile after tile
+BLOCKS = {1: [4, 2], 7: [3, 264], 32: [8, 264], 1024: [264, 1],
+          4096: [264, 2]}
+
+
+@pytest.mark.parametrize("tile", [1, 7, 32, 1024, 4096])
 @pytest.mark.parametrize("case", GAP_JOIN_CASES)
 def test_gap_join_blocked_matches_plain(case, tile):
     """K5's design, transcribed, gives the plain version's bits: the sig
     and skp rows, first/last/exists of every slot (empty ones (0, -1))
-    and the count, also where the count exceeds K."""
+    and the count, also where the count exceeds K; for 4,096-row tiles
+    (K5's) on one tile, for tiles of 1-1,024 rows on many, with a ragged
+    last tile, and with more tiles than persistent blocks, each block
+    taking tile after tile through its ring."""
     seed, m, gap, regions, k, tail = case
     rows, want = _gap_join_plain(case)
-    got = gap_join_blocked(*rows, 2.0, gap, k, tile)
-    for name, g, w in zip(("sig", "skp", "first", "last", "exists", "n"),
-                          got, want):
-        np.testing.assert_array_equal(np.asarray(g), w.numpy(), name)
+    for i, blocks in enumerate(BLOCKS[tile]):
+        got = gap_join_blocked(*rows, 2.0, gap, k, tile, blocks, seed=i)
+        for name, g, w in zip(("sig", "skp", "first", "last", "exists",
+                               "n"), got, want):
+            np.testing.assert_array_equal(np.asarray(g), w.numpy(),
+                                          f"{name}, {blocks} blocks")
     assert want.first.dtype == want.last.dtype == torch.int64
     n, k_eff = int(want.n), min(k, m)
     assert int(want.exists.sum()) == min(n, k_eff)

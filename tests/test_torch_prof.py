@@ -9,8 +9,7 @@ import pytest
 from genrich_tpu_torch import kernels
 from genrich_tpu_torch.prof import cummax_records, record_shortfall
 
-# a warm main-path run: K1 3 calls, K2 3 (two kernels each), K5 3 (two
-# kernels each), K4 3
+# a warm main-path run: K1 3 calls, K2 3 (two kernels each), K5 3, K4 3
 LAUNCHES = {"coverage_scan": 3, "tile_stats": 3, "fisher_combine": 0,
             "gap_join": 3, "peak_reduce": 3}
 RECORDS = [
@@ -19,10 +18,8 @@ RECORDS = [
     ("tile_stats_table_kernel(float, float, Tables*)", 3),
     ("tile_stats_kernel(float const*, float const*, unsigned char const*, "
      "float, float, Tables const*, float*, long)", 3),
-    ("gap_join_kernel(Rows, int*, long, unsigned char*, unsigned char*, "
-     "int*, int*)", 3),
-    ("gap_join_finish_kernel(int const*, long, int const*, int const*, "
-     "long, long*, long*, unsigned char*, long*)", 3),
+    ("(anonymous namespace)::gap_join_kernel((anonymous namespace)::Rows, "
+     "int*, long, (anonymous namespace)::Out)", 3),
     ("peak_reduce_kernel(Rows, long const*, long const*, long, Out)", 3),
     ("Memcpy HtoD (Pageable -> Device)", 20),
 ]
@@ -46,11 +43,15 @@ def _drop(name, n=1):
     (_drop("void coverage_scan_kernel"), [("coverage_scan_kernel", 2, 3)]),
     (_drop("tile_stats_table_kernel"), [("tile_stats_table_kernel", 2, 3)]),
     (_drop("peak_reduce_kernel", 3), [("peak_reduce_kernel", 0, 3)]),
-    (_drop("gap_join_finish_kernel"), [("gap_join_finish_kernel", 2, 3)]),
+    (_drop("(anonymous namespace)::gap_join_kernel"),
+     [("gap_join_kernel", 2, 3)]),
     (RECORDS + [("fisher_combine_kernel(float const*, int, long, float*)",
                  1)], [("fisher_combine_kernel", 1, 0)]),
-], ids=["complete", "K1 lost", "K2 table lost", "K4 lost", "K5 finish lost",
-        "extra K3"])
+    (RECORDS + [("(anonymous namespace)::gap_join_first_finish_kernel(int "
+                 "const*, long, int const*, int const*, long, long*, long*, "
+                 "unsigned char*, long*)", 3)], []),
+], ids=["complete", "K1 lost", "K2 table lost", "K4 lost", "K5 lost",
+        "extra K3", "K5 first design's finish"])
 def test_record_shortfall(records, want):
     assert record_shortfall(records, LAUNCHES) == want
 
@@ -78,6 +79,13 @@ def test_kernel_names_mangled_and_demangled():
                              "tile_stats_table_kernel")
     assert kernels.is_kernel("_Z15gap_join_kernel4RowsPilPhS1_S_S_",
                              "gap_join_kernel")
+    assert kernels.is_kernel(
+        "_ZN12_GLOBAL__N_115gap_join_kernelENS_4RowsEPilNS_3OutE",
+        "gap_join_kernel")
     assert not kernels.is_kernel("gap_join_finish_kernel(int const*)",
                                  "gap_join_kernel")
-    assert sum(len(v) for v in kernels.KERNELS_PER_CALL.values()) == 7
+    assert not kernels.is_kernel(
+        "_ZN12_GLOBAL__N_121gap_join_first_kernelENS_4RowsEPilPhS2_PiS3_",
+        "gap_join_kernel")
+    assert kernels.KERNELS_PER_CALL["gap_join"] == ("gap_join_kernel",)
+    assert sum(len(v) for v in kernels.KERNELS_PER_CALL.values()) == 6
