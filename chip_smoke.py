@@ -22,9 +22,10 @@ non-zero, and the result line is printed only when every phase passed:
    fisher_combine (K3, R = 2 and 3, 2^23 lanes and a ragged size, 10%
    SKIP) rtol 1e-6 against the float64 plain version with SKIP lanes
    identical and bitwise to its first design; median times with CUDA
-   events.  The BAMs of phases 4-10 are synthesised by
+   events.  The BAMs of phases 4-12 are synthesised by
    scripts/perf_synth.py into the git-ignored .bench_cache/ when
-   missing.
+   missing, one child process each, all started before the build and
+   awaited before this phase.
 4. Main path: the 2M-pair ATAC BAM on the 2.75 Gbp human-scale genome
    of scripts/bench_e2e.py, the JAX package's ``--engine exact -v`` once
    (in a child process that loads the native library the port's
@@ -113,10 +114,34 @@ non-zero, and the result line is printed only when every phase passed:
    both sides): ``-f f.log -k k.log`` with the same flags; both exact
    engines byte-identical (narrowPeak, both logs, -v stderr), then the
    port on the card against the exact logs by ``testing.check_log``.
-11. The last lines: the kernels JSON, the nvidia-smi line and {"ok":
-   true, "device": {...}}; neither jax nor genrich_tpu is ever imported
-   in this process.  Each kernel's bound is the larger of its bytes
-   (each input read once, each output written once) over 3.35 TB/s and
+11. ChIP-seq: Genrich's ChIP flags (no -j, ``-r -p 0.01 -a 20 -E
+   blk.bed -e chr3``; chr3 stands in for chrM), the blacklist written
+   by ``testing.blacklist_regions`` (seed 10: 1,000 regions of 1-50 kb
+   on chr1 and chr2, overlapping and adjacent pairs, one across each
+   2^28-bp tile boundary, one at chr1's end, one from the midpoint of
+   the strongest main-path peak of chr1 and of chr2 on).  ``chip``:
+   ``-t A -c B``, both exact engines byte-identical, an exact peak
+   ending at each cut, TorchEngine cold and warm by the gates of phase
+   4, then K1, the merge, K2 (on rows with excluded flags; none is a
+   fault), K5 and K4 on its own calls.  ``chip_fisher``: ``-t A,B -c
+   C,C`` (C a third BAM, 1M pairs, seed 9), the port's exact engine
+   alone the oracle, then K1, the merge, K2 (excluded rows again
+   required), K3 over the controlled replicates, K5 and K4 on its own
+   calls.  ``chip_capped``:
+   the chip run once more with TorchEngine's PEAK_CAP set to 256: the
+   bytes of the uncapped run, no chromosome on the host peak caller, at
+   least one re-dispatch, every K5 and K4 call counted and the
+   re-dispatched ones held to their plain versions with their kernels
+   read by graph capture.
+12. The same three runs with ``--engine sharded`` under a one-rank NCCL
+   group (the capped one with 64 slots a tile).  No path may send a
+   chromosome to the host peak caller (``host_peak_chroms``).
+13. The last lines: the kernels JSON (``launches_by_path`` with the
+   ChIP paths, each kernel's sums on them under ``<path>_path``), the
+   nvidia-smi line and {"ok": true, "device": {...}}; neither jax nor
+   genrich_tpu is ever imported in this process.  Each kernel's bound
+   is the larger of its bytes (each input read once, each output
+   written once) over 3.35 TB/s and
    its operations over the peak of their unit (67 TFLOP/s float32, 34
    TFLOP/s float64), the operations counted on the same inputs by
    ``testing``'s counters (``bound_by`` says which term binds; the
@@ -161,8 +186,9 @@ SM_CLOCK_HZ = 1.98e9           # H100 SXM boost clock (data sheet)
 FADD_CYCLES = 4                # dependent float32 add latency
 BUSY_CYCLES = 2_000_000        # about 1 ms of spinning ahead of a timing
 # (pairs, seed) of each BAM: main path / Fisher replicate A, Fisher
-# replicate B, logs
-BAMS = {"a": (N_PAIRS, 7), "b": (N_PAIRS, 8), "log": (N_LOG_PAIRS, 7)}
+# replicate B, logs, and the control of the ChIP Fisher replicates
+BAMS = {"a": (N_PAIRS, 7), "b": (N_PAIRS, 8), "log": (N_LOG_PAIRS, 7),
+        "c": (N_PAIRS // 2, 9)}
 
 
 def say(phase: str, **kw) -> None:
@@ -184,19 +210,53 @@ def card():
     return smi.splitlines()[0]
 
 
-def synth_bam(key: str) -> str:
-    """The BAM of ``BAMS[key]`` in .bench_cache/, made if missing."""
-    import perf_synth
-    from bench_e2e import HG_CHROMS
+# perf_synth in a child process: argv is scripts/, the output path, the
+# pairs and the seed
+_SYNTH = ("import sys; sys.path.insert(0, sys.argv[1]); "
+          "import perf_synth; from bench_e2e import HG_CHROMS; "
+          "perf_synth.synth_bam(sys.argv[2], int(sys.argv[3]), "
+          "seed=int(sys.argv[4]), chroms=HG_CHROMS)")
+SYNTH = {}       # key -> (child process, start) of a BAM being made
+
+
+def _bam_path(key: str) -> str:
     n, seed = BAMS[key]
-    os.makedirs(WORK, exist_ok=True)
     tag = "" if seed == 7 else f"_seed{seed}"
-    path = os.path.join(WORK, f"atac_e2e_hg_{n}{tag}.bam")
-    if not os.path.exists(path):
-        t0 = time.perf_counter()
-        tmp = path + ".tmp"
-        perf_synth.synth_bam(tmp, n, seed=seed, chroms=HG_CHROMS)
-        os.replace(tmp, path)
+    return os.path.join(WORK, f"atac_e2e_hg_{n}{tag}.bam")
+
+
+def start_synth():
+    """Start scripts/perf_synth.py for every BAM of ``BAMS`` missing from
+    .bench_cache/, one child process each, all at once (about 40 s for
+    2M pairs; one after the other they took 105 s)."""
+    os.makedirs(WORK, exist_ok=True)
+    for key, (n, seed) in BAMS.items():
+        path = _bam_path(key)
+        if not os.path.exists(path):
+            SYNTH[key] = (subprocess.Popen(
+                [sys.executable, "-c", _SYNTH, SCRIPTS, path + ".tmp",
+                 str(n), str(seed)], stdout=subprocess.DEVNULL),
+                time.perf_counter())
+
+
+def stop_synth():
+    for proc, _ in SYNTH.values():
+        proc.kill()
+        proc.wait()
+    SYNTH.clear()
+
+
+def synth_bam(key: str) -> str:
+    """The BAM of ``BAMS[key]`` in .bench_cache/, waiting for its
+    ``start_synth`` child if it is still being made."""
+    path = _bam_path(key)
+    if key in SYNTH:
+        proc, t0 = SYNTH.pop(key)
+        if proc.wait() != 0:
+            raise AssertionError(f"perf_synth of BAM {key}: exit code "
+                                 f"{proc.returncode}")
+        os.replace(path + ".tmp", path)
+        n, seed = BAMS[key]
         say("synth", bam=key, pairs=n, seed=seed,
             seconds=time.perf_counter() - t0,
             mb=os.path.getsize(path) / 1e6)
@@ -1012,15 +1072,23 @@ def run_port_exact(label: str, args):
     return wall, err.getvalue()
 
 
-def exact_pair(label: str, args, outputs):
+def exact_pair(label: str, args, outputs, jax=True):
     """``--engine exact`` of the JAX package (child) and of the port (this
     process) on ``args``; ``outputs`` maps each output flag to the
     (JAX, port) paths.  Every output file and the -v stderr must be
     byte-identical.  Prints both walls: host seconds of each side's
-    ``cli.main`` call on the card's machine."""
+    ``cli.main`` call on the card's machine.  Without ``jax`` only the
+    port's runs, writing the first paths: it is the oracle."""
     def with_outputs(side):
         return args + [x for flag, paths in outputs.items()
                        for x in (flag, paths[side])]
+    if not jax:
+        with probe(EXACT_LAMBDA.setdefault(label, {})):
+            port_wall, _ = run_port_exact(label, with_outputs(0))
+        say(f"{label}_exact", port_wall_s=port_wall, jax="not run",
+            walls="host s of the port's cli.main", ingest="native",
+            peaks=sum(1 for _ in open(outputs["-o"][0])))
+        return None, port_wall
     jax_wall, jax_err = run_exact(label, with_outputs(0))
     with probe(EXACT_LAMBDA.setdefault(label, {})):
         port_wall, port_err = run_port_exact(label, with_outputs(1))
@@ -1125,31 +1193,37 @@ def _lambda_line(name, ref, seen):
                              f"exact engine's")
 
 
-def peak_runs(name: str, ts, need, extra=(), ref=None):
+def peak_runs(name: str, ts, need, extra=(), ref=None, flags=FLAGS,
+              thresh=Q_THRESH, jax_exact=True):
     """Exact once (unless ``ref`` names the exact engine's file of an
-    earlier phase on the same input), then the port cold and warm on
-    ``-t ts`` and the flags ``extra``; checks the rows, the launch counts
-    (``need(counts)`` returns a fault or None) and that cold and warm
-    wrote the same bytes.  Returns the counts and perf of the warm run."""
+    earlier phase on the same input; the JAX package's beside the port's
+    with ``jax_exact``), then the port cold and warm on ``-t ts``, the
+    flags ``extra`` and ``flags`` (whose significance threshold is
+    ``thresh``); checks the rows, the launch counts (``need(counts)``
+    returns a fault or None), that no chromosome went to the host peak
+    caller (every chromosome of the smoke is under 2^31 bp) and that
+    cold and warm wrote the same bytes.  Returns the counts and perf of
+    the warm run."""
     from bench_e2e import _verify_rows
     run_dir = os.path.join(WORK, "chip_smoke")
     os.makedirs(run_dir, exist_ok=True)
     ref_np = os.path.join(run_dir, f"{ref or name}_exact.np")
     ref_log = os.path.join(run_dir, f"{ref or name}_exact.log")
     if ref is None:
-        exact_pair(name, ["-t", ts, *extra] + FLAGS, {
+        exact_pair(name, ["-t", ts, *extra] + flags, {
             "-o": (ref_np, os.path.join(run_dir, f"{name}_port_exact.np")),
             "-f": (ref_log, os.path.join(run_dir,
-                                         f"{name}_port_exact.log"))})
+                                         f"{name}_port_exact.log"))},
+                   jax=jax_exact)
     counts = {}
     for label in ("cold", "warm"):
         out_np = os.path.join(run_dir, f"{name}_port_{label}.np")
         seen = {}
         wall, counts, perf, mem = run_port(
-            f"{name} {label}", ["-t", ts, "-o", out_np, *extra] + FLAGS,
+            f"{name} {label}", ["-t", ts, "-o", out_np, *extra] + flags,
             seen)
         _lambda_line(f"{name}_{label}", ref or name, seen)
-        rows = _verify_rows(ref_np, out_np, thresh=Q_THRESH)
+        rows = _verify_rows(ref_np, out_np, thresh=thresh)
         diffs = _rel_diffs(ref_np, out_np)
         say(f"{name}_port_{label}", wall_s=wall, launches=counts,
             ingest="native", max_memory_allocated=mem, rows=rows,
@@ -1158,6 +1232,10 @@ def peak_runs(name: str, ts, need, extra=(), ref=None):
         fault = need(counts)
         if fault:
             raise AssertionError(f"{name} ({label}): {fault}: {counts}")
+        if perf["host_peak_chroms"]:
+            raise AssertionError(f"{name} ({label}): the host peak caller "
+                                 f"finished {perf['host_peak_chroms']} "
+                                 f"chromosomes")
         if rows["match_frac"] < 0.99 \
                 or rows["worst_unmatched_margin"] > 0.02:
             raise AssertionError(f"{name} ({label}): rows disagree with "
@@ -1197,10 +1275,11 @@ def control_path(bam_t, bam_c):
     return peak_runs("control", bam_t, _need_main, ["-c", bam_c])[0]
 
 
-def kernel_inputs(label, ts, targets, extra=()):
-    """One more port run on ``-t ts`` and ``extra`` (untimed, its counts
-    unread) with each (module, name) of ``targets`` wrapped to keep host
-    copies of the arguments of its calls; returns {name: [args, ...]}."""
+@contextmanager
+def recording(targets):
+    """While the block runs, each (module, name) of ``targets`` is
+    wrapped to keep host copies of the arguments of its calls; yields
+    {name: [args, ...]}."""
     import torch
     calls = {name: [] for _, name in targets}
     real = {name: getattr(mod, name) for mod, name in targets}
@@ -1213,14 +1292,22 @@ def kernel_inputs(label, ts, targets, extra=()):
         return record
     for mod, name in targets:
         setattr(mod, name, wrap(name))
-    os.makedirs(os.path.join(WORK, "chip_smoke"), exist_ok=True)
     try:
-        run_port(f"{label}, kernel inputs", ["-t", ts, "-o", os.path.join(
-            WORK, "chip_smoke", f"{label}_kernel_inputs.np"), *extra]
-            + FLAGS)
+        yield calls
     finally:
         for mod, name in targets:
             setattr(mod, name, real[name])
+
+
+def kernel_inputs(label, ts, targets, extra=(), flags=FLAGS):
+    """One more port run on ``-t ts``, ``extra`` and ``flags`` (untimed,
+    its counts unread) ``recording`` the calls of ``targets``; returns
+    {name: [args, ...]}."""
+    os.makedirs(os.path.join(WORK, "chip_smoke"), exist_ok=True)
+    with recording(targets) as calls:
+        run_port(f"{label}, kernel inputs", ["-t", ts, "-o", os.path.join(
+            WORK, "chip_smoke", f"{label}_kernel_inputs.np"), *extra]
+            + flags)
     empty = [name for name, c in calls.items() if not c]
     if empty:
         raise AssertionError(f"{label}: no call of {empty}")
@@ -1297,9 +1384,11 @@ def k2_path_phase(calls, path):
     from genrich_tpu_torch.ops import pipeline
     dev = torch.device(DEV)
     ms = call_ms = plain_ms = first_ms = worst = 0.0
+    excluded = 0
     parts = []
     for i, call in enumerate(calls):
         args = [a.to(dev) if torch.is_tensor(a) else a for a in call]
+        excluded += int(call[2].sum())
         got = pipeline.tile_stats(*args)
         want = pipeline.tile_stats_plain(*args)
         first = testing.tile_stats_first_design(*args)
@@ -1312,7 +1401,8 @@ def k2_path_phase(calls, path):
             raise AssertionError(f"tile_stats, {path} path call {i}: "
                                  f"differs from the first design")
         m = args[0].shape[0]
-        res = {"rows": m, "max_abs_err": err,
+        res = {"rows": m, "excluded_rows": int(call[2].sum()),
+               "max_abs_err": err,
                "kernels_per_call": _kernels_per_call(
                    "tile_stats", lambda: pipeline.tile_stats(*args),
                    f"{path} path call {i}"),
@@ -1335,7 +1425,7 @@ def k2_path_phase(calls, path):
         del args, got, want, first
     torch.cuda.empty_cache()
     return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-                first_design_ms=first_ms,
+                first_design_ms=first_ms, excluded_rows=excluded,
                 **_sum_bounds(parts), max_abs_err=worst,
                 mode=f"sum over the {path} path's {len(calls)} calls, its "
                      f"own inputs")
@@ -1593,11 +1683,226 @@ def logs_path(bam):
     say("logs", pairs=N_LOG_PAIRS, ingest="native", **out, **checks)
 
 
+# --- ChIP-seq configuration ----------------------------------------------
+
+def chip_flags(bed):
+    """Genrich's ChIP-seq flags: no -j, an -E blacklist, -e of a
+    chromosome (chr3 stands in for chrM) and the default -p 0.01."""
+    return ["-r", "-p", "0.01", "-a", "20", "-E", bed, "-e", "chr3"]
+
+
+CHIP_THRESH = 2.0                                 # -log10(0.01)
+CHIP_CAP = 256          # chip_capped's slots a chromosome (TorchEngine)
+CHIP_TILE_CAP = 64      # and a tile (the sharded engine)
+
+
+def write_blacklist():
+    """blk.bed (``testing.blacklist_regions``, seed 10): 1,000 regions of
+    1-50 kb on chr1 and chr2 with overlapping and adjacent pairs, one
+    across each 2^28-bp tile boundary, one ending at chr1's end, and one
+    from the midpoint of the strongest peak of chr1 and of chr2 in the
+    main path's exact file (a perf_synth hotspot) on.  Returns its path
+    and those midpoints."""
+    from bench_e2e import HG_CHROMS
+    from genrich_tpu_torch import testing
+    run_dir = os.path.join(WORK, "chip_smoke")
+    rows = [ln.split("\t") for ln in open(os.path.join(
+        run_dir, "main_exact.np")).read().splitlines()]
+    cut = []
+    for name in ("chr1", "chr2"):
+        top = max((r for r in rows if r[0] == name),
+                  key=lambda r: float(r[6]))
+        cut.append((name, (int(top[1]) + int(top[2])) // 2))
+    regions = testing.blacklist_regions(
+        np.random.RandomState(10), HG_CHROMS[:2], 1000, (1_000, 50_000),
+        1 << 28, cut=cut)
+    path = testing.write_bed(os.path.join(run_dir, "blk.bed"), regions)
+    say("blacklist", regions=len(regions), cut=cut,
+        bp=sum(e - s for _, s, e in regions))
+    return path, cut
+
+
+def path_kernels(calls, path):
+    """Each kernel on the inputs of a path's own calls, held as on the
+    main path's (K2 also counts the excluded rows it read); returns
+    {kernel: sums}."""
+    phase = {"coverage_scan": k1_path_phase, "tile_stats": k2_path_phase,
+             "fisher_combine": k3_path_phase, "peak_candidates":
+             k5_path_phase, "peak_reduce": k4_path_phase}
+    names = {"peak_candidates": "gap_join"}
+    return {names.get(k, k): phase[k](c, path) for k, c in calls.items()}
+
+
+def _chip_targets(sharded):
+    from genrich_tpu_torch.engine import torch_bridge
+    from genrich_tpu_torch.ops import compact, peaks, pipeline
+    from genrich_tpu_torch.parallel import mesh
+    return [(pipeline, "coverage_scan"),
+            (mesh if sharded else compact, "pileup_runs"),
+            (mesh if sharded else torch_bridge, "tile_stats"),
+            (peaks, "peak_candidates"), (peaks, "peak_reduce")]
+
+
+def chip_path(name, bam_t, bam_c, flags, sharded=False):
+    """``-t bam_t -c bam_c`` with the ChIP flags: both exact engines
+    (once, on TorchEngine's run), the port cold and warm, then K1, the
+    merge, K2 (on rows with excluded flags: none is a fault), K5 and K4
+    on the inputs of its own calls.  Returns the warm run's counts and
+    perf and each kernel's sums."""
+    extra = ["-c", bam_c] + (["--engine", "sharded"] if sharded else [])
+    counts, perf = peak_runs(name, bam_t, _need_main, extra,
+                             ref="chip" if sharded else None, flags=flags,
+                             thresh=CHIP_THRESH)
+    if sharded:
+        _need_nccl()
+    calls = kernel_inputs(name, bam_t, _chip_targets(sharded), extra, flags)
+    merge_phase(calls.pop("pileup_runs"), name)
+    sums = path_kernels(calls, name)
+    say(f"{name}_excluded", k2_calls=len(calls["tile_stats"]),
+        excluded_rows=sums["tile_stats"]["excluded_rows"],
+        peak_redispatch=perf["peak_redispatch"],
+        host_peak_chroms=perf["host_peak_chroms"])
+    if sums["tile_stats"]["excluded_rows"] == 0:
+        raise AssertionError(f"{name}: K2 read no excluded row")
+    return counts, perf, sums
+
+
+def chip_fisher_path(name, bams_t, bam_c, flags, sharded=False):
+    """``-t A,B -c C,C`` with the ChIP flags: the port's exact engine
+    alone is the oracle (the JAX package's is left out for the smoke's
+    time), then the port cold and warm, then K1, the merge, K2 (on rows
+    with excluded flags: none is a fault), K3 over the controlled
+    replicates, K5 and K4 on the inputs of its own calls."""
+    from genrich_tpu_torch.ops import compact
+    extra = ["-c", f"{bam_c},{bam_c}"] \
+        + (["--engine", "sharded"] if sharded else [])
+    counts, perf = peak_runs(name, bams_t, _need_every, extra,
+                             ref="chip_fisher" if sharded else None,
+                             flags=flags, thresh=CHIP_THRESH,
+                             jax_exact=False)
+    if sharded:
+        _need_nccl()
+    calls = kernel_inputs(name, bams_t, _chip_targets(sharded)
+                          + [(compact, "fisher_combine")], extra, flags)
+    merge_phase(calls.pop("pileup_runs"), name)
+    sums = path_kernels(calls, name)
+    say(f"{name}_excluded", k2_calls=len(calls["tile_stats"]),
+        excluded_rows=sums["tile_stats"]["excluded_rows"])
+    if sums["tile_stats"]["excluded_rows"] == 0:
+        raise AssertionError(f"{name}: K2 read no excluded row")
+    return counts, perf, sums
+
+
+def chip_capped_path(name, bam_t, bam_c, flags, sharded=False):
+    """The chip run once more in this process with the candidate slots
+    cut (TorchEngine's ``PEAK_CAP`` to 256 a chromosome, the sharded
+    engine's to 64 a tile, monkeypatched as a test does): the bytes of
+    the uncapped cold run, no host peak caller, at least one re-dispatch;
+    every K5 and K4 call counted (``LAUNCHES``), and the re-dispatched
+    calls (more slots than the cap) held to their plain versions with
+    their kernels read by graph capture.  Returns the counts and the
+    re-dispatched calls' sums."""
+    from genrich_tpu_torch.engine import sharded_bridge, torch_bridge
+    from genrich_tpu_torch.ops import peaks
+    mod = sharded_bridge if sharded else torch_bridge
+    cap = CHIP_TILE_CAP if sharded else CHIP_CAP
+    run_dir = os.path.join(WORK, "chip_smoke")
+    out_np = os.path.join(run_dir, f"{name}.np")
+    extra = ["-c", bam_c] + (["--engine", "sharded"] if sharded else [])
+    real_cap = mod.PEAK_CAP
+    mod.PEAK_CAP = cap
+    try:
+        with recording([(peaks, "peak_candidates"),
+                        (peaks, "peak_reduce")]) as calls:
+            wall, counts, perf, mem = run_port(
+                name, ["-t", bam_t, "-o", out_np, *extra] + flags)
+    finally:
+        mod.PEAK_CAP = real_cap
+    ref = "chip_sharded_port_cold.np" if sharded else "chip_port_cold.np"
+    same = open(out_np, "rb").read() == open(os.path.join(run_dir, ref),
+                                             "rb").read()
+    again = {"peak_candidates": [c for c in calls["peak_candidates"]
+                                 if c[6] > cap],
+             "peak_reduce": [c for c in calls["peak_reduce"]
+                             if c[6].shape[0] > cap]}
+    say(name, wall_s=wall, launches=counts, max_memory_allocated=mem,
+        cap=cap, equal_to_uncapped=same,
+        peak_redispatch=perf["peak_redispatch"],
+        host_peak_chroms=perf["host_peak_chroms"],
+        k5_calls=len(calls["peak_candidates"]),
+        k5_redispatched=len(again["peak_candidates"]),
+        redispatch_slots=sorted({int(c[6]) for c
+                                 in again["peak_candidates"]}), perf=perf)
+    tiles = perf["grid_tiles"] if sharded else 1
+    if not same:
+        raise AssertionError(f"{name}: bytes differ from the uncapped run")
+    if perf["host_peak_chroms"] or perf["peak_redispatch"] <= 0:
+        raise AssertionError(f"{name}: {perf['peak_redispatch']} "
+                             f"re-dispatches, {perf['host_peak_chroms']} "
+                             f"host chromosomes")
+    for kernel, name_ in (("gap_join", "peak_candidates"),
+                          ("peak_reduce", "peak_reduce")):
+        if counts[kernel] != len(calls[name_]) or len(again[name_]) \
+                != perf["peak_redispatch"] * tiles:
+            raise AssertionError(f"{name}: {counts[kernel]} {kernel} "
+                                 f"launches for {len(calls[name_])} calls, "
+                                 f"{len(again[name_])} re-dispatched")
+    return counts, path_kernels(again, f"{name} re-dispatch")
+
+
+def chip_phases(bam_a, bam_b, bam_c):
+    """The ChIP-seq configuration through both device engines: chip,
+    chip_fisher (a third BAM, 1M pairs, seed 9, the replicates'
+    control) and chip_capped; returns {path: counts} and {path: {kernel:
+    sums}}."""
+    bed, cut = write_blacklist()
+    flags = chip_flags(bed)
+    counts, sums = {}, {}
+
+    def keep(path, res):
+        counts[path], _, sums[path] = res
+    keep("chip", chip_path("chip", bam_a, bam_b, flags))
+    cut_ends = {(n, e) for n, e in ((ln.split("\t")[0],
+                int(ln.split("\t")[2])) for ln in open(os.path.join(
+                    WORK, "chip_smoke", "chip_exact.np")))}
+    ends_at = [c for c in cut if tuple(c) in cut_ends]
+    say("chip_cut", cut=cut, peaks_ending_at_a_cut=ends_at)
+    if len(ends_at) < len(cut):
+        raise AssertionError(f"chip: no exact peak ends at the blacklist "
+                             f"cuts {[c for c in cut if c not in ends_at]}")
+    keep("chip_fisher", chip_fisher_path("chip_fisher", f"{bam_a},{bam_b}",
+                                         bam_c, flags))
+    counts["chip_capped"], sums["chip_capped"] = chip_capped_path(
+        "chip_capped", bam_a, bam_b, flags)
+    with one_rank_nccl():
+        keep("chip_sharded", chip_path("chip_sharded", bam_a, bam_b, flags,
+                                       sharded=True))
+        keep("chip_fisher_sharded", chip_fisher_path(
+            "chip_fisher_sharded", f"{bam_a},{bam_b}", bam_c, flags,
+            sharded=True))
+        counts["chip_capped_sharded"], sums["chip_capped_sharded"] = \
+            chip_capped_path("chip_capped_sharded", bam_a, bam_b, flags,
+                             sharded=True)
+    return counts, sums
+
+
+T0 = time.perf_counter()
+
+
 def main() -> int:
     smi = card()
+    start_synth()
+    try:
+        return run_phases(smi)
+    finally:
+        stop_synth()
+
+
+def run_phases(smi) -> int:
     NATIVE_SO["path"] = build()
+    bam_a, bam_b, bam_c, bam_log = (synth_bam(k)
+                                    for k in ("a", "b", "c", "log"))
     entries = scan_stats_phase() + [fisher_phase()]
-    bam_a = synth_bam("a")
     main_counts = main_path(bam_a)
     calls = main_kernel_inputs(bam_a)
     merge_phase(calls["pileup_runs"], "main")
@@ -1608,7 +1913,6 @@ def main() -> int:
     entries.append(peaks_phase(calls["peak_reduce"]))
     entries.append(gap_join_phase(calls["peak_candidates"]))
     del calls
-    bam_b = synth_bam("b")
     control_path(bam_a, bam_b)
     calls = control_kernel_inputs(bam_a, bam_b)
     merge_phase(calls["pileup_runs"], "control")
@@ -1640,7 +1944,14 @@ def main() -> int:
         e["max_abs_err"] = max(e["max_abs_err"],
                                sharded[e["name"]]["max_abs_err"])
     serve_phase(bam_a)
-    logs_path(synth_bam("log"))
+    logs_path(bam_log)
+    chip_counts, chip_sums = chip_phases(bam_a, bam_b, bam_c)
+    for path, sums in chip_sums.items():
+        for e in entries:
+            if e["name"] in sums:
+                e[f"{path}_path"] = sums[e["name"]]
+                e["max_abs_err"] = max(e["max_abs_err"],
+                                       sums[e["name"]]["max_abs_err"])
     loaded = sorted({m.split(".")[0] for m in sys.modules}
                     & {"jax", "genrich_tpu"})
     if loaded:
@@ -1653,8 +1964,10 @@ def main() -> int:
             "main": main_counts[e["name"]],
             "fisher": fisher_counts[e["name"]],
             "sharded": sharded_counts[e["name"]],
-            "sharded_fisher": sharded_fisher_counts[e["name"]]}
+            "sharded_fisher": sharded_fisher_counts[e["name"]],
+            **{path: c[e["name"]] for path, c in chip_counts.items()}}
     import torch
+    say("done", seconds=time.perf_counter() - T0)
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -177,6 +177,9 @@ def main(argv: Optional[List[str]] = None,
     except GenrichError as e:
         sys.stderr.write(e.render() + "\n")
         return 1
+    except ValueError as e:          # a flag the engine cannot honour
+        sys.stderr.write(f"Error! {e}\n")
+        return 1
     return 0
 
 

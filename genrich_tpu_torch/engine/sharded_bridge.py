@@ -6,10 +6,11 @@ cut into a grid of power-of-two tiles and every numeric stage runs the
 steps of ``parallel/mesh.ShardedKernels`` over this rank's tiles: the
 host splits events by tile (``split_events_flat``), each tile scans
 from the carry of the tiles before it (K1), p-values run over all tiles
-(K2), each tile calls its own peaks (K4, at most ``PEAK_CAP``
-candidates) and the host merges peaks that straddle tile boundaries
-(``merge_tile_peaks``); the -f/-k logs stitch the tiles' RLE runs, and
-several replicates combine tile by tile (K3).  Before the p-values each
+(K2), each tile calls its own peaks (K5 and K4, ``PEAK_CAP`` candidate
+slots a tile, more when a tile has more) and the host merges peaks that
+straddle tile boundaries (``merge_tile_peaks``); the -f/-k logs stitch
+the tiles' RLE runs, and several replicates combine tile by tile (K3).
+Before the p-values each
 tile's rows are merged into the exact engine's intervals
 (``merge_rows``), as in TorchEngine.  A merged peak that straddles a
 boundary gets its AUC and summit taken again over its rows in genomic
@@ -54,24 +55,16 @@ from ..ops.peaks import TilePeaks
 from ..ops.pipeline import TileResult
 from ..parallel.distributed import (init_distributed, local_tile_range,
                                     rank_device)
-from ..parallel.mesh import (ShardedKernels, gather_rows, merge_tile_peaks,
-                             world_rank, split_events_flat,
-                             split_excl_to_tiles)
+from ..parallel.mesh import (PEAK_CAP, ShardedKernels, gather_rows,
+                             merge_tile_peaks, world_rank,
+                             split_events_flat, split_excl_to_tiles)
 from . import qvalue
 from .host_fallback import INT32_MAX, HostChromMixin
 from .perf import PerfMixin
 from .pileup import Pileup
-from .torch_bridge import SKIP, check_device
+from .torch_bridge import SKIP, check_device, pow2
 
 F32 = np.float32
-PEAK_CAP = 4096            # per-tile candidate rows (call_peaks k)
-
-
-def _pow2(n: int, lo: int = 1) -> int:
-    size = lo
-    while size < n:
-        size <<= 1
-    return size
 
 
 def gather_ragged(x: torch.Tensor, group) -> torch.Tensor:
@@ -133,34 +126,45 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
         self._qtable = None
         self._qtable_host = (np.zeros(0, F32), np.zeros(0, F32))
         self._fixed_grid = None
+        self._lo = min_tile_len           # the least tile_len (prepare)
         self.begin_run()
 
     def begin_run(self) -> None:
-        """Reset the per-analysis accounting, plus the grid and the
-        peaks that the host caller or the boundary merge finished."""
+        """Reset the per-analysis accounting, plus the grid, the peaks
+        that the host caller or the boundary merge finished and the
+        chromosomes whose peaks were called again with more slots."""
         super().begin_run()
         self.perf.update(grid_tile_len=0, grid_tiles=0, straddling_peaks=0,
-                         host_peak_chroms=0, interval_rows=0, real_rows=0,
-                         merged_rows=0, merged_width=0)
+                         host_peak_chroms=0, peak_redispatch=0,
+                         interval_rows=0, real_rows=0, merged_rows=0,
+                         merged_width=0)
 
     # --- grid ------------------------------------------------------------
 
-    def prepare(self, max_chrom_len: int = 0) -> None:
+    def prepare(self, max_chrom_len: int = 0, max_gap: int = 0) -> None:
         """Fix ONE (tile_len, n_tiles) grid for the run, from the longest
         device chromosome, and build the CUDA kernels.
 
         Shorter chromosomes pad to the same grid (trailing tiles get
-        limit 0), as in the JAX engine.  Runs once per analysis, so a
-        serve process fed inputs of other sizes re-derives it.  Of the
-        JAX engine's arguments only ``max_chrom_len`` is taken: the
-        event and exclusion maxima sized its shape buckets, which eager
-        PyTorch does not need.
+        limit 0), as in the JAX engine.  Every tile is longer than
+        ``max_gap`` (the boundary merge's premise), so the device calls
+        the peaks of every device chromosome; a gap that not even a
+        ``MAX_TILE_LEN`` tile holds is refused.  Runs once per
+        analysis, so a serve process fed inputs of other sizes
+        re-derives it.  Of the JAX engine's arguments only
+        ``max_chrom_len`` is taken: the event and exclusion maxima
+        sized its shape buckets, which eager PyTorch does not need.
         """
         if self.device.type == "cuda":
             kernels.library()
+        self._lo = pow2(max_gap + 1, lo=self.min_tile_len)
+        if self._lo > self.MAX_TILE_LEN:
+            raise ValueError(f"the sharded engine's tiles hold a gap of "
+                             f"at most {self.MAX_TILE_LEN - 1} bp, not "
+                             f"-g {max_gap}")
         self._fixed_grid = None
         if max_chrom_len:
-            tl = _pow2(-(-max_chrom_len // self.D), lo=self.min_tile_len)
+            tl = pow2(-(-max_chrom_len // self.D), lo=self._lo)
             tl = min(tl, self.MAX_TILE_LEN)
             t = -(-max_chrom_len // tl)
             self._fixed_grid = (tl, -(-t // self.D) * self.D)
@@ -174,7 +178,7 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
         if fixed is not None and fixed[0] * fixed[1] >= chrom_len:
             tl, t = fixed
         else:
-            tl = _pow2(-(-chrom_len // self.D), lo=self.min_tile_len)
+            tl = pow2(-(-chrom_len // self.D), lo=self._lo)
             tl = min(tl, self.MAX_TILE_LEN)
             t = -(-chrom_len // tl)
             t = -(-t // self.D) * self.D
@@ -447,7 +451,7 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
             for i in redo:
                 st = pend[i][0]
                 kern = ShardedKernels(st["tile_len"],
-                                      _pow2(int(d_nps[i].max())), self.group)
+                                      pow2(int(d_nps[i].max())), self.group)
                 self._kernels[st["tile_len"]] = kern
                 pend[i] = (st, kern, self._call(
                     kern.distinct, st["starts"], st["ends"], st["pv"],
@@ -478,17 +482,18 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
 
     def peaks_submit(self, cidx: int, min_pq: float, min_auc: float,
                      min_len: int, max_gap: int, use_q: bool):
-        """Queue per-tile peak calling (no blocking).  None for a host
-        chromosome, or for a gap the boundary merge cannot honour
-        (``max_gap >= tile_len``): the pipeline's host peak caller then
-        finishes the chromosome."""
+        """Queue per-tile peak calling (no blocking), ``PEAK_CAP``
+        candidate slots a tile.  None for a host chromosome (over
+        2^31-1 bp: the pipeline's host peak caller then finishes it,
+        counted in ``perf["host_peak_chroms"]``)."""
         st = self._chrom[cidx]
         if st.get("host"):
-            return None
-        if max_gap >= st["tile_len"]:
             self.perf["host_peak_chroms"] += 1
             return None
-        kern = self._kern(st["tile_len"])
+        if max_gap >= st["tile_len"]:
+            raise ValueError(f"-g {max_gap} does not fit the "
+                             f"{st['tile_len']}-bp tiles; prepare() sizes "
+                             f"them from the run's -g")
         if use_q:
             tab_p, tab_q = self._qtable
         else:
@@ -496,24 +501,35 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
                                         device=self.device)
         for key in ("ev", "cr", "excluded"):
             st.pop(key, None)
-        res = self._call(kern.peaks(use_q, min_len, max_gap,
-                                    replicated=self.world > 1),
-                         st["starts"], st["ends"], st["pv"], st["live"],
-                         tab_p, tab_q, min_pq, min_auc)
+        kern = self._kern(st["tile_len"])
         cap = min(PEAK_CAP, st["starts"].shape[1])
-        return res, st, cap, min_pq, min_auc, min_len, max_gap, use_q
+
+        def dispatch(k):
+            return self._call(kern.peaks(use_q, min_len, max_gap,
+                                         self.world > 1, k),
+                              st["starts"], st["ends"], st["pv"], st["live"],
+                              tab_p, tab_q, min_pq, min_auc)
+        return dispatch, dispatch(cap), cap, st, min_pq, min_auc, min_len, \
+            max_gap, use_q
 
     def peaks_fetch(self, handle):
-        """Resolve a ``peaks_submit`` handle: the cap check, then the host
-        boundary merge, the row-order AUC and summit of each merged peak
-        that straddles a tile boundary, and the min-AUC filter.  Returns
-        the peak arrays, or None when a tile had more candidates than the
-        cap (the host peak caller finishes)."""
-        res, st, cap, min_pq, min_auc, min_len, max_gap, use_q = handle
+        """Resolve a ``peaks_submit`` handle: the host boundary merge, the
+        row-order AUC and summit of each merged peak that straddles a
+        tile boundary, and the min-AUC filter; returns the peak arrays.
+        When a tile has more candidates than its slots, the chromosome's
+        peak step runs again on the device with the largest count of its
+        tiles, rounded up to a power of two (at most the tile width), as
+        every tile's slots (``perf["peak_redispatch"]``).  On several
+        ranks the counts are the gathered ones (``replicated``), so every
+        rank launches the same shape."""
+        dispatch, res, cap, st, min_pq, min_auc, min_len, max_gap, use_q = \
+            handle
         res = self._fetch_many(res)
-        if int(res[-1].max()) > cap:           # n_peaks
-            self.perf["host_peak_chroms"] += 1
-            return None
+        n = int(res[-1].max())                 # n_peaks of every tile
+        if n > cap:
+            self.perf["peak_redispatch"] += 1
+            res = self._fetch_many(dispatch(
+                min(pow2(n), st["starts"].shape[1])))
         tile_len = st["tile_len"]
         # no AUC filter yet: a straddling peak's AUC changes below
         merged = merge_tile_peaks(TileResult(TilePeaks(*res), None, None),

@@ -46,6 +46,14 @@ PEAK_CAP = 1 << 15        # per-chrom device peak rows (jax_bridge's cap)
 SKIP = -1.0
 
 
+def pow2(n: int, lo: int = 1) -> int:
+    """The least power of two that is at least ``n`` and ``lo``."""
+    size = lo
+    while size < n:
+        size <<= 1
+    return size
+
+
 def check_device(device) -> torch.device:
     """``device`` as a torch.device: "cuda", "cuda:N" or "cpu".  A CUDA
     device with no card raises, never a silent switch to the CPU."""
@@ -82,12 +90,13 @@ class TorchEngine(PerfMixin, HostChromMixin):
         before and after ``stats_all`` merges them (``merge_rows``)."""
         super().begin_run()
         self.perf.update(interval_rows=0, real_rows=0, merged_rows=0,
-                         merged_width=0)
+                         merged_width=0, host_peak_chroms=0,
+                         peak_redispatch=0)
 
-    def prepare(self, max_chrom_len: int = 0) -> None:
+    def prepare(self, max_chrom_len: int = 0, max_gap: int = 0) -> None:
         """Build the CUDA kernels before the first chromosome.
 
-        Takes the sharded engine's grid argument and ignores it: eager
+        Takes the sharded engine's grid arguments and ignores them: eager
         PyTorch needs no shape buckets or program prewarm.  A build
         failure raises here.
         """
@@ -358,7 +367,7 @@ class TorchEngine(PerfMixin, HostChromMixin):
 
     # --- stage 4: peaks (device) ----------------------------------------
 
-    def _peaks(self, st, min_pq, min_auc, min_len, max_gap, use_q):
+    def _peaks(self, st, min_pq, min_auc, min_len, max_gap, use_q, cap):
         pv = st["pv"]
         if use_q:
             qv = compact.assign_qvals(pv, *self._qtable)
@@ -366,7 +375,6 @@ class TorchEngine(PerfMixin, HostChromMixin):
         else:
             qv = torch.full_like(pv, SKIP)
             stat = pv
-        cap = min(PEAK_CAP, st["starts"].shape[0])
         res = call_peaks(st["starts"], st["ends"], stat, pv, qv,
                          st["live"], float(F32(min_pq)),
                          float(F32(min_auc)), int(min_len), int(max_gap),
@@ -374,34 +382,47 @@ class TorchEngine(PerfMixin, HostChromMixin):
         ints = torch.stack([res.start, res.end, res.summit_pos,
                             res.valid.to(torch.int32)])
         flts = torch.stack([res.auc, res.summit_pval, res.summit_qval])
-        return ints, flts, res.n_peaks, cap
+        return ints, flts, res.n_peaks
 
     def peaks_submit(self, cidx: int, min_pq: float, min_auc: float,
                      min_len: int, max_gap: int, use_q: bool):
-        """Queue peak calling for one chromosome (no blocking).
+        """Queue peak calling for one chromosome (no blocking), with
+        ``PEAK_CAP`` candidate slots.
 
         Returns a handle for ``peaks_fetch``, or None for a host
-        chromosome (the pipeline then runs the host peak caller).
+        chromosome (over 2^31-1 bp: the pipeline then runs the host
+        peak caller, counted in ``perf["host_peak_chroms"]``).
         """
         st = self._chrom[cidx]
         if st.get("host"):
+            self.perf["host_peak_chroms"] += 1
             return None
         self._drop_coverage(st)
-        return self._call(self._peaks, st, min_pq, min_auc, min_len,
-                          max_gap, use_q)
+        rows = st["starts"].shape[0]
+        cap = min(PEAK_CAP, rows)
+
+        def dispatch(k):
+            return self._call(self._peaks, st, min_pq, min_auc, min_len,
+                              max_gap, use_q, k)
+        return dispatch, dispatch(cap), cap, rows
 
     def peaks_fetch(self, handle):
         """Resolve a ``peaks_submit`` handle.
 
         Returns (start, end, auc, summit_pval, summit_qval, summit_pos)
-        numpy arrays of the emitted peaks in genomic order, or None if
-        the per-chromosome cap was exceeded (the pipeline then falls
-        back to the host peak caller).
+        numpy arrays of the emitted peaks in genomic order.  When the
+        chromosome has more candidates than its slots, its peaks are
+        called again on the device with the candidate count rounded up
+        to a power of two (at most the row count) as the slots
+        (``perf["peak_redispatch"]``): the rows one call with enough
+        slots gives.
         """
-        ints_d, flts_d, n_d, cap = handle
+        dispatch, (ints_d, flts_d, n_d), cap, rows = handle
         n, ints, flts = self._fetch_many((n_d, ints_d, flts_d))
         if int(n) > cap:
-            return None
+            self.perf["peak_redispatch"] += 1
+            ints_d, flts_d, _ = dispatch(min(pow2(int(n)), rows))
+            ints, flts = self._fetch_many((ints_d, flts_d))
         k = np.flatnonzero(ints[3] != 0)
         return (ints[0, k].astype(np.int64), ints[1, k].astype(np.int64),
                 flts[0, k], flts[1, k], flts[2, k],

@@ -39,6 +39,8 @@ from ..ops.peaks import TilePeaks, call_peaks
 from ..ops.pipeline import (TileResult, analyze_tile_core,
                             tile_class_totals, tile_coverage, tile_stats)
 
+PEAK_CAP = 4096            # per-tile candidate slots (call_peaks k)
+
 
 def world_rank(group) -> tuple:
     """(world size, rank) of ``group``; (1, 0) without one."""
@@ -205,14 +207,16 @@ class ShardedKernels:
         return pv_b[:, 0], prev[0], has & prev[1] & ~first_tile
 
     def peaks(self, use_q: bool, min_len: int, max_gap: int,
-              replicated: bool = False):
-        """The peak-calling step.  With ``replicated`` the per-tile peak
-        arrays are gathered so every rank holds all of them (the host
-        boundary merge needs every tile)."""
-        return partial(self._peaks, use_q, min_len, max_gap, replicated)
+              replicated: bool, k_peaks: int):
+        """The peak-calling step, ``k_peaks`` candidate slots a tile.
+        With ``replicated`` the per-tile peak arrays are gathered so
+        every rank holds all of them (the host boundary merge needs
+        every tile)."""
+        return partial(self._peaks, use_q, min_len, max_gap, replicated,
+                       k_peaks)
 
-    def _peaks(self, use_q, min_len, max_gap, replicated, starts, ends,
-               pval, live, tab_p, tab_q, min_pq, min_auc):
+    def _peaks(self, use_q, min_len, max_gap, replicated, k_peaks, starts,
+               ends, pval, live, tab_p, tab_q, min_pq, min_auc):
         if use_q:
             stat = assign_qvals(pval.reshape(-1), tab_p,
                                 tab_q).reshape(pval.shape)
@@ -223,7 +227,7 @@ class ShardedKernels:
         res = TilePeaks(*_stack(
             call_peaks(starts[i], ends[i], stat[i], pval[i], qv[i], live[i],
                        float(np.float32(min_pq)), float(np.float32(min_auc)),
-                       min_len, max_gap)
+                       min_len, max_gap, k_peaks)
             for i in range(starts.shape[0])))
         if replicated:
             res = TilePeaks(*(self.gather(f) for f in res))
@@ -341,8 +345,8 @@ def sharded_analyze_full(es, ee, ec, cs, ce, cc, excl, tile_len: int,
         tab_p = np.full(1, np.inf, np.float32)
         tab_q = np.zeros(1, np.float32)
     dev = es.device
-    peaks = kern.peaks(qval_opt, min_len, max_gap,
-                       replicated=group is not None)(
+    peaks = kern.peaks(qval_opt, min_len, max_gap, group is not None,
+                       PEAK_CAP)(
         starts, ends, pval, live, torch.as_tensor(tab_p, device=dev),
         torch.as_tensor(tab_q, device=dev), min_pq, min_auc)
     return TileResult(peaks, frag_all, None), lam, factor

@@ -332,12 +332,13 @@ def _replicate_device(eng, registry: ChromRegistry,
         raise fatal("", ERRGEN)
 
     # the longest device chromosome (those over 2^31-1 bp run on the
-    # host) fixes the sharded engine's one tile grid; TorchEngine needs
-    # none.  Runs per analysis, so a serve process fed inputs of other
-    # sizes re-derives the grid.
+    # host) and -g fix the sharded engine's one tile grid; TorchEngine
+    # needs none.  Runs per analysis, so a serve process fed inputs of
+    # other sizes re-derives the grid.
     eng.prepare(max_chrom_len=max(
         (c.length for c in registry
-         if not c.skip and c.save and c.length <= 0x7FFFFFFF), default=0))
+         if not c.skip and c.save and c.length <= 0x7FFFFFFF), default=0),
+        max_gap=p.max_gap)
 
     # submit every chromosome's upload+coverage program before
     # resolving any fragment scalar: uploads and device compute
@@ -448,9 +449,9 @@ def _find_peaks_device(registry: ChromRegistry, eng, p: Params,
                                 float(p.min_auc), p.min_len, p.max_gap,
                                 bool(p.qval_opt)) for c in chroms]
     for c, h in zip(chroms, handles):
-        res = eng.peaks_fetch(h) if h is not None else None
-        if res is None:
-            # candidate cap exceeded: host fallback for this chrom
+        if h is None:
+            # a chromosome over 2^31-1 bp (the engine's
+            # perf["host_peak_chroms"]): the host peak caller does
             pu = eng.pval_pileup(c.index)
             qv_cov = None
             if p.qval_opt:
@@ -464,7 +465,7 @@ def _find_peaks_device(registry: ChromRegistry, eng, p: Params,
                 count += 1
                 peak_bp += pk.end - pk.start
             continue
-        starts, ends, aucs, spv, sqv, spos = res
+        starts, ends, aucs, spv, sqv, spos = eng.peaks_fetch(h)
         for m in range(len(starts)):
             pk = peaks_mod.Peak(int(starts[m]), int(ends[m]),
                                 aucs[m], spv[m],

@@ -5,9 +5,10 @@ peaks, and ``peak_row_columns`` the same rows as ``peak_reduce``'s
 int32/float32 columns; ``gap_join_rows`` makes rows for the gap-join
 and ``gap_join_blocked`` transcribes kernel K5's design in numpy;
 ``auc_rowwise`` is the exact engine's AUC on the host (a float32 sum in
-row order); ``check_log`` holds a port's
-``-f``/``-k`` log to the exact engine's, and ``check_summits`` its
-narrowPeak column 10 (summit offset).  numpy only, except
+row order); ``blacklist_regions`` draws ``-E`` regions and
+``write_bed`` writes them; ``check_log`` holds a port's ``-f``/``-k``
+log to the exact engine's, and ``check_summits`` its narrowPeak column
+10 (summit offset).  numpy only, except
 the ``*_first_design`` helpers, which launch the first designs of
 kernels K1-K5 (``csrc/reference/``) on the card so that the current
 ones can be held to them, ``median_ms`` (device time by CUDA events),
@@ -512,6 +513,54 @@ def gap_join_rows(rng, m, max_gap, n_regions, skip_frac=0.02,
         ends[-dead_tail:] = ends[-dead_tail - 1]
         live[-dead_tail:] = False
     return (starts.astype(np.int32), ends.astype(np.int32), stat, live)
+
+
+def blacklist_regions(rng, chroms, n_regions, region_len, tile_len,
+                      cut=()):
+    """``-E`` regions ((name, start, end) in BED coordinates) drawn from
+    ``rng`` (a ``numpy.random.RandomState``) on ``chroms``, (name,
+    length) pairs: ``n_regions`` of ``region_len`` = (lo, hi) bp at
+    random places of all of them, every tenth followed by one that
+    overlaps it and every tenth after the fifth by one adjacent to it
+    (the BED loader merges both); one across each tile boundary (each
+    multiple of ``tile_len``) of every chromosome; one ending at the
+    first chromosome's end; and one from each (name, position) of
+    ``cut`` on, so that a peak there is cut.  In the order drawn, not
+    sorted (the loader sorts)."""
+    lo, hi = region_len
+    length = dict(chroms)
+    names = [name for name, _ in chroms]
+    out = []
+
+    def add(name, start, n):
+        start = max(int(start), 0)
+        out.append((name, start, min(start + int(n), length[name])))
+    for i in range(n_regions):
+        name = names[rng.randint(len(names))]
+        n = rng.randint(lo, hi + 1)
+        add(name, rng.randint(0, max(length[name] - n, 1)), n)
+        _, s, e = out[-1]
+        if i % 10 == 0:
+            add(name, (s + e) // 2, rng.randint(lo, hi + 1))
+        elif i % 10 == 5:
+            add(name, e, rng.randint(lo, hi + 1))
+    for name, size in chroms:
+        for b in range(tile_len, size, tile_len):
+            n = rng.randint(lo, hi + 1)
+            add(name, b - rng.randint(1, n), n)
+    name, size = chroms[0]
+    n = rng.randint(lo, hi + 1)
+    add(name, size - n, n)
+    for name, pos in cut:
+        add(name, pos, rng.randint(lo, hi + 1))
+    return out
+
+
+def write_bed(path, regions):
+    """(name, start, end) regions as a BED file at ``path``."""
+    with open(path, "w") as f:
+        f.writelines(f"{n}\t{s}\t{e}\n" for n, s, e in regions)
+    return path
 
 
 def _log_rows(path):

@@ -164,9 +164,10 @@ def test_torch_port_matches_jax_engine(tmp_path, extra):
 
 def test_torch_port_cap_exceeded_uses_host_peak_caller(tmp_path,
                                                        monkeypatch):
-    """More candidate peaks than the device cap: the chromosome's
-    p-value RLE (compact.rle_pv) comes back and the host peak caller
-    finishes it -- same rows as the exact engine."""
+    """More candidate peaks than the device cap: the chromosome's peaks
+    are called again on the device with enough slots
+    (``perf["peak_redispatch"]``), not by the host peak caller
+    (``host_peak_chroms`` 0) -- same rows as the exact engine."""
     from genrich_tpu_torch import cli
     from genrich_tpu_torch.engine import torch_bridge
     oracle.random_sam(str(tmp_path / "in.sam"), seed=71)
@@ -181,6 +182,7 @@ def test_torch_port_cap_exceeded_uses_host_peak_caller(tmp_path,
     fast = out.read_text().splitlines()
     _close_rows(exact, fast, log=tmp_path / "exact" / SUMMIT_LOG)
     assert perf["fetch_n"] > 0 and perf["device_rep_s"] > 0
+    assert perf["peak_redispatch"] > 0 and perf["host_peak_chroms"] == 0
 
 
 def _run_reps(tmp_path, name, reps, extra, torch_port=False):
