@@ -136,8 +136,23 @@ non-zero, and the result line is printed only when every phase passed:
 12. The same three runs with ``--engine sharded`` under a one-rank NCCL
    group (the capped one with 64 slots a tile).  No path may send a
    chromosome to the host peak caller (``host_peak_chroms``).
-13. The last lines: the kernels JSON (``launches_by_path`` with the
-   ChIP paths, each kernel's sums on them under ``<path>_path``), the
+13. Bench: ``python -m genrich_tpu_torch.bench --kernel-only --reps 1``
+   in this process (its light and production kernel legs at
+   ``bench.py``'s shapes; every launch counted as the ``bench`` path,
+   K1, K2, K5 and K4 each at least once), then one light tile (K1 in
+   lambda mode, K5, K4) and one production tile (K1, K2, K5, K4) of it
+   again with their kernels' inputs kept: K1's coverage bitwise to its
+   plain version and its lambda-mode -log10 p within rtol = atol =
+   1e-5, each kernel held and timed on those calls as on the main
+   path's (kernels per call by graph capture), and each tile's peaks
+   equal to the same tile's through the plain versions on the CPU; then
+   the bench's ``atac`` end-to-end leg, one rep, ``--engine jax`` (its
+   serve output must be the main path's bytes).  Its seconds are
+   printed.
+14. The last lines: the kernels JSON (``launches_by_path`` with the
+   ChIP paths and the bench, each kernel's sums on them under
+   ``<path>_path``, K1's lambda mode on the bench's light tile under
+   ``lambda_mode.bench_path``), the
    nvidia-smi line and {"ok": true, "device": {...}}; neither jax nor
    genrich_tpu is ever imported in this process.  Each kernel's bound
    is the larger of its bytes (each input read once, each output
@@ -328,7 +343,7 @@ def _stats_bound(args):
     """K2's bound on these arguments, its operations counted."""
     from genrich_tpu_torch import testing
     c = testing.tile_stats_opcount(*args)
-    return dict(_bound(_stats_bytes(c["rows"]), c["fp32_ops"]),
+    return dict(_bound(testing.stats_bytes(c["rows"]), c["fp32_ops"]),
                 branches=c["branches"])
 
 
@@ -339,16 +354,6 @@ def _fisher_bound(pv):
     r, n = pv.shape
     return dict(_bound(_fisher_bytes(r, n), c["fp32_ops"], c["fp64_ops"]),
                 paths=c["paths"], trips=c["trips"])
-
-
-def _scan_bytes(m, groups, lam):
-    """K1: packed int32 in, groups x f32 coverage (+ f32 p) out."""
-    return 4 * m * (1 + groups + (lam is not None))
-
-
-def _stats_bytes(m):
-    """K2: ev, cr f32 and the excluded mask in, -log10 p f32 out."""
-    return 13 * m
 
 
 def _fisher_bytes(r, n):
@@ -422,9 +427,9 @@ def scan_stats_phase():
         if m == M_MAIN:
             lam_ops = testing.coverage_scan_opcount(m, 1, v1[0], 2.5)
             bounds = {
-                "g2": _bound(_scan_bytes(m, 2, None),
+                "g2": _bound(testing.scan_bytes(m, 2, None),
                              testing.coverage_scan_opcount(m, 2)["fp32_ops"]),
-                "g1": dict(_bound(_scan_bytes(m, 1, 2.5),
+                "g1": dict(_bound(testing.scan_bytes(m, 1, 2.5),
                                   lam_ops["fp32_ops"]),
                            branches=lam_ops["branches"]),
                 "stats": _stats_bound((ev, cr, ex, 1.37, 2.5))}
@@ -610,7 +615,7 @@ def k1_path_phase(calls, path):
             packed, groups, carry, lam), f"{path} path call {i}")
         nonzero += bool((carry != 0).any())
         m = packed.shape[0]
-        parts.append(_bound(_scan_bytes(m, groups, lam),
+        parts.append(_bound(testing.scan_bytes(m, groups, lam),
                             testing.coverage_scan_opcount(
                                 m, groups, got[0][0], lam)["fp32_ops"]))
         res = {"rows": m, "groups": groups, "kernels_per_call": ran,
@@ -710,12 +715,9 @@ def _k4_first_design(args):
 
 
 def _k4_bytes(args):
-    """K4's bytes on these inputs: 13 per row of an existing peak
-    (starts, ends, stat, sig; the summit's p and q are two rows more),
-    16 per candidate in and 24 out."""
-    first, last = args[6], args[7]
-    rows = int((last - first + 1).clamp_min(0).sum())
-    return 13 * rows + 40 * first.shape[0]
+    """K4's bytes on these inputs (``testing.peak_reduce_bytes``)."""
+    from genrich_tpu_torch import testing
+    return testing.peak_reduce_bytes(args[6], args[7])
 
 
 def _hold_k4(args, min_pq):
@@ -1275,34 +1277,11 @@ def control_path(bam_t, bam_c):
     return peak_runs("control", bam_t, _need_main, ["-c", bam_c])[0]
 
 
-@contextmanager
-def recording(targets):
-    """While the block runs, each (module, name) of ``targets`` is
-    wrapped to keep host copies of the arguments of its calls; yields
-    {name: [args, ...]}."""
-    import torch
-    calls = {name: [] for _, name in targets}
-    real = {name: getattr(mod, name) for mod, name in targets}
-
-    def wrap(name):
-        def record(*args):
-            calls[name].append([a.cpu() if torch.is_tensor(a) else a
-                                for a in args])
-            return real[name](*args)
-        return record
-    for mod, name in targets:
-        setattr(mod, name, wrap(name))
-    try:
-        yield calls
-    finally:
-        for mod, name in targets:
-            setattr(mod, name, real[name])
-
-
 def kernel_inputs(label, ts, targets, extra=(), flags=FLAGS):
     """One more port run on ``-t ts``, ``extra`` and ``flags`` (untimed,
     its counts unread) ``recording`` the calls of ``targets``; returns
     {name: [args, ...]}."""
+    from genrich_tpu_torch.testing import recording
     os.makedirs(os.path.join(WORK, "chip_smoke"), exist_ok=True)
     with recording(targets) as calls:
         run_port(f"{label}, kernel inputs", ["-t", ts, "-o", os.path.join(
@@ -1804,6 +1783,7 @@ def chip_capped_path(name, bam_t, bam_c, flags, sharded=False):
     re-dispatched calls' sums."""
     from genrich_tpu_torch.engine import sharded_bridge, torch_bridge
     from genrich_tpu_torch.ops import peaks
+    from genrich_tpu_torch.testing import recording
     mod = sharded_bridge if sharded else torch_bridge
     cap = CHIP_TILE_CAP if sharded else CHIP_CAP
     run_dir = os.path.join(WORK, "chip_smoke")
@@ -1886,6 +1866,127 @@ def chip_phases(bam_a, bam_b, bam_c):
     return counts, sums
 
 
+# --- the bench ---------------------------------------------------------------
+
+def _hold_tile_peaks(got, want, where):
+    """A tile's peaks on the card (``got``) against the same tile through
+    the plain versions on the CPU (``want``): the same valid peaks, their
+    starts, ends and summit offsets equal, AUC and summit p within
+    rtol 1e-5 (K4 sums in float32 row order, the plain version as a
+    float64 prefix difference; K1's -log10 p within 1e-5)."""
+    import torch
+    gv, wv = got.valid.cpu(), want.valid
+    if not torch.equal(gv, wv):
+        raise AssertionError(f"bench {where} tile: valid peaks differ "
+                             f"({int(gv.sum())} / {int(wv.sum())})")
+    for name in ("start", "end", "summit_pos"):
+        if not torch.equal(getattr(got, name).cpu()[gv],
+                           getattr(want, name)[wv]):
+            raise AssertionError(f"bench {where} tile: peak {name} differs")
+    for name in ("auc", "summit_pval"):
+        if not _close(getattr(got, name).cpu()[gv], getattr(want, name)[wv],
+                      atol=0.0):
+            raise AssertionError(f"bench {where} tile: peak {name} beyond "
+                                 f"rtol {TOL}")
+    return int(gv.sum())
+
+
+def bench_phase(bam_a):
+    """``python -m genrich_tpu_torch.bench --kernel-only --reps 1`` in this
+    process (the bench path's launches counted), one light and one
+    production tile of it held to their plain versions (K1's coverage
+    bitwise and its lambda-mode -log10 p within rtol = atol = 1e-5, K2,
+    K5 and K4 as on the main path's calls, each call's kernels read by
+    graph capture; the tiles' peaks against the same tiles through the
+    plain versions on the CPU), and the bench's ``atac`` end-to-end leg
+    with one rep on ``--engine jax`` (its serve output must be the main
+    path's bytes).  Returns the counts and each kernel's sums."""
+    import torch
+    from genrich_tpu_torch import bench, kernels
+    from genrich_tpu_torch.ops import scan
+    from genrich_tpu_torch.testing import recording
+    t0 = time.perf_counter()
+    detail = os.path.join(WORK, "chip_smoke", "bench_detail.json")
+    kernels.reset_launches()
+    line = io.StringIO()
+    with contextlib.redirect_stdout(line):
+        rc = bench.main(["--kernel-only", "--reps", "1", "--out", detail])
+    counts = dict(kernels.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"bench --kernel-only: exit code {rc}")
+    fault = _need_main(counts)
+    if fault:
+        raise AssertionError(f"bench: {fault}: {counts}")
+    head = json.loads(line.getvalue().splitlines()[-1])
+    with open(detail) as f:
+        legs = json.load(f)
+    dev = torch.device(DEV)
+    one = [torch.as_tensor(a, device=dev)
+           for a in bench._tile_events(np.random.RandomState(0))[0]]
+    lam = bench.tile_lambda(bench.TILE_LEN, bench.EVENTS_PER_TILE)
+    zero4 = torch.zeros(4, dtype=torch.int32, device=dev)
+    excl = bench.prod_excl(bench.TILE_LEN, dev)
+    cpu = [t.cpu() for t in one]
+    tiles = {}
+    for where, tile in (
+            ("light", lambda ev, ex, z: bench.light_tile(
+                *ev, bench.TILE_LEN, lam, z)),
+            ("production", lambda ev, ex, z: bench.prod_tile(
+                *ev, ex, bench.TILE_LEN, lam, z)[0])):
+        with recording(bench.KERNEL_TARGETS) as calls:
+            got = tile(one, excl, zero4)
+        want = tile(cpu, excl.cpu(), zero4.cpu())
+        tiles[where] = (calls, _hold_tile_peaks(got.peaks, want.peaks,
+                                                where))
+    light = tiles["light"][0]
+    packed, groups, carry, lam_k = light["coverage_scan"][0]
+    got = scan.coverage_scan(packed.to(dev), groups, carry.to(dev), lam_k)
+    want = scan.coverage_scan_plain(packed, groups, carry, lam_k)
+    p_err = float((got[1].cpu() - want[1]).abs().max())
+    if not (torch.equal(got[0].cpu(), want[0])
+            and _close(got[1].cpu(), want[1])):
+        raise AssertionError(f"coverage_scan, bench light tile: coverage "
+                             f"not bitwise or -log10 p max abs err {p_err}")
+    del got, want
+    k1 = {where: k1_path_phase(calls["coverage_scan"], f"bench {where}")
+          for where, (calls, _) in tiles.items()}
+    sums = {"coverage_scan": dict(k1["production"]),
+            "tile_stats": k2_path_phase(
+                tiles["production"][0]["tile_stats"], "bench production"),
+            "gap_join": k5_path_phase(
+                [c for calls, _ in tiles.values()
+                 for c in calls["peak_candidates"]], "bench"),
+            "peak_reduce": k4_path_phase(
+                [c for calls, _ in tiles.values()
+                 for c in calls["peak_reduce"]], "bench")}
+    for key in ("ms", "call_ms", "plain_ms", "first_design_ms"):
+        sums["coverage_scan"][key] += k1["light"][key]
+    sums["coverage_scan"].update(_sum_bounds([k1["light"],
+                                              k1["production"]]))
+    sums["coverage_scan"]["mode"] = "sum over the bench's light (lambda " \
+        "mode) and production tile's calls; one kernel launch per call"
+    k1["light"]["p_max_abs_err"] = p_err
+    e2e = bench.bench_e2e({"A": bam_a}, ["atac"], 1, DEV, engines=("jax",),
+                          work=WORK, par_leg=False)
+    atac = e2e["configs"]["atac"]
+    same = open(os.path.join(WORK, "bench_e2e", "atac_jax_cold.np"),
+                "rb").read() == open(os.path.join(
+                    WORK, "chip_smoke", "main_port_cold.np"), "rb").read()
+    say("bench", seconds=time.perf_counter() - t0, headline=head,
+        launches=counts, per_tile_ms=legs["kernel"]["per_tile_ms_batched"],
+        per_tile_ms_production=legs["kernel_production"]["per_tile_ms"],
+        host_syncs_per_dispatch=[legs[k]["host_syncs_per_dispatch"] for k
+                                 in ("kernel", "kernel_production")],
+        peaks={k: n for k, (_, n) in tiles.items()},
+        lambda_p_max_abs_err=p_err, e2e_ok=e2e["ok"],
+        e2e_checks=atac["checks"], e2e_exact_s=atac["exact"]["median_s"],
+        e2e_jax=atac["jax"], equal_to_main_path=same)
+    if not e2e["ok"] or not same:
+        raise AssertionError(f"bench atac leg: checks {atac['checks']}, "
+                             f"equal to the main path's bytes: {same}")
+    return counts, sums, k1["light"]
+
+
 T0 = time.perf_counter()
 
 
@@ -1946,6 +2047,11 @@ def run_phases(smi) -> int:
     serve_phase(bam_a)
     logs_path(bam_log)
     chip_counts, chip_sums = chip_phases(bam_a, bam_b, bam_c)
+    bench_counts, chip_sums["bench"], lam_bench = bench_phase(bam_a)
+    chip_counts["bench"] = bench_counts
+    entries[0]["lambda_mode"]["bench_path"] = lam_bench
+    entries[0]["lambda_mode"]["p_max_abs_err"] = max(
+        entries[0]["lambda_mode"]["p_max_abs_err"], lam_bench["p_max_abs_err"])
     for path, sums in chip_sums.items():
         for e in entries:
             if e["name"] in sums:

@@ -1,0 +1,876 @@
+"""Benchmark of the port on one card: kernel legs and end-to-end legs.
+
+    python -m genrich_tpu_torch.bench [--device cuda|cpu] [--kernel-only]
+        [--configs atac,control,fisher,chip,chip_fisher] [--reps N]
+        [--out PATH]
+
+The port's counterpart of the repo's ``bench.py`` and
+``scripts/bench_e2e.py``, which drive the JAX package.  It imports
+neither ``jax`` nor ``genrich_tpu`` and keeps its own copies of what it
+takes from them.  It runs on the card unless ``--device cpu`` is given;
+without a card it fails.
+
+Kernel legs (``kernel_legs``), the shapes of ``bench.py``: a genome of
+``GENOME_LEN`` bp scanned as tiles of ``TILE_LEN`` bp with
+``EVENTS_PER_TILE`` fragment events each, drawn from
+``np.random.RandomState(0)`` by ``bench.py``'s draws (``_tile_events``).
+- Light: each tile through ``ops/pipeline.py::analyze_tile_core`` (the
+  sort, K1 in lambda mode, K5, K4); a dispatch is ``BATCH`` tiles
+  launched with no host sync between them, ending in one fetch of
+  their fragment sums, which must be equal in every dispatch and rep.
+  Then the same tile dispatched alone ``N_SINGLE`` times.
+- Production: ``analyze_tile_ctrl`` (K1 in coverage mode, K2, K5, K4)
+  on ``BATCH_PROD`` tiles with a control channel of the same events and
+  ``K_EXCL`` padded exclusions.
+Both are timed by the host clock and by CUDA events; beside them the
+device-memory bandwidth (64 read and write passes over 64 MiB, best of
+5), ``bench.py``'s ideal-sort byte model of a tile and the sum of the
+hand kernels' bounds (``testing.bound``) over one tile's calls.
+
+End-to-end legs (``bench_e2e``): the 2M-pair BAMs that ``chip_smoke.py``
+caches in ``.bench_cache/`` (``BAMS``; made by ``scripts/perf_synth.py``
+in child processes when missing), five configurations (``CONFIGS``),
+each on ``--engine exact -v`` in a child process and on ``--engine
+jax`` and ``--engine sharded`` through one ``--serve`` child each (the
+sharded one under a one-rank process group: NCCL on the card).  A cold
+line per device engine, then ``reps`` paired reps: the exact run, then
+one serve line of each device engine.  Each device output must pass
+``_verify_rows`` against the exact engine's and equal its cold output
+byte for byte; a failed check fails the bench.  The compiled-reference
+leg of ``scripts/bench_e2e.py`` is left out (it needs the Genrich
+sources), so the headline's ``e2e_exact_ratio`` is the paired exact /
+``--engine jax`` wall ratio on ``atac``.
+
+The full dict goes to ``.bench_cache/bench_torch_detail.json`` (or
+``--out``); the last stdout line is ``compact_headline``, with
+``bench.py``'s keys and the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import shlex
+import shutil
+import socket
+import subprocess
+import sys
+import threading
+import time
+import warnings
+
+import numpy as np
+import torch
+
+from . import testing
+from .ops import peaks as peaks_ops
+from .ops import pipeline as tile_ops
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORK = os.path.join(REPO, ".bench_cache")
+DETAIL = os.path.join(WORK, "bench_torch_detail.json")
+
+# bench.py's shapes
+GENOME_LEN = 2_826_865_605          # Genrich's README example (hg19)
+BASELINE_POS_PER_SEC = 4.5e6        # Genrich's published single-core rate
+TILE_LEN = 1 << 24
+EVENTS_PER_TILE = 1 << 19
+BATCH = 48                          # tiles per dispatch
+BATCH_PROD = 8
+REPS = 7
+PROD_REPS = 3
+N_SINGLE = 16                       # single-tile dispatches
+K_EXCL = 64                         # padded exclusions of a production tile
+MIN_PQ, MIN_AUC, MIN_LEN, MAX_GAP = 2.0, 20.0, 0, 100
+
+# scripts/bench_e2e.py's genome and flags, chip_smoke.py's BAMs
+HG_CHROMS = (("chr1", 1_100_000_000), ("chr2", 900_000_000),
+             ("chr3", 750_000_000))
+E2E_FLAGS = ["-r", "-j", "-q", "0.05", "-a", "20"]
+CHIP_FLAGS = ["-r", "-p", "0.01", "-a", "20"]     # + -E blk.bed -e chr3
+BAMS = {"A": (2_000_000, 7), "B": (2_000_000, 8), "C": (1_000_000, 9)}
+# name -> (treatment BAMs, control BAMs, ChIP flags): Genrich's ATAC use
+# alone, against a control and on two replicates, then its ChIP use
+CONFIGS = {"atac": ("A", "", False), "control": ("A", "B", False),
+           "fisher": ("A,B", "", False), "chip": ("A", "B", True),
+           "chip_fisher": ("A,B", "C,C", True)}
+Q_THRESH = 1.3010299956639813       # -log10(0.05): -q 0.05
+P_THRESH = 2.0                      # -log10(0.01): -p 0.01
+ENGINES = ("jax", "sharded")
+DIST_ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
+
+
+# --- kernel legs ----------------------------------------------------------
+
+def _tile_events(rng, n_variants=4, tile_len=TILE_LEN,
+                 events=EVENTS_PER_TILE):
+    """Distinct per-tile event sets (clustered + background), by
+    ``bench.py``'s draws from ``rng``."""
+    variants = []
+    for _ in range(n_variants):
+        hot = rng.randint(0, tile_len - 2000, 64)
+        which = rng.randint(0, 64, events)
+        is_hot = rng.rand(events) < 0.7
+        base = np.where(is_hot, hot[which] + rng.randint(0, 1500, events),
+                        rng.randint(0, tile_len - 500, events))
+        frag = rng.randint(80, 400, events)
+        start = np.clip(base, 0, tile_len - 1).astype(np.int32)
+        end = np.clip(base + frag, 1, tile_len).astype(np.int32)
+        count = rng.choice([1, 1, 1, 1, 2, 4], events).astype(np.int32)
+        variants.append((start, end, count))
+    return variants
+
+
+def tile_lambda(tile_len, events):
+    """The light tiles' background rate, as ``bench.py`` sets it."""
+    return float(np.float32(events * 200.0 / tile_len))
+
+
+def upload_batch(variants, batch, device):
+    """The variants on the device, as a [batch, E] (start, end, count)
+    triple whose row i is variant i mod len(variants), built there."""
+    n = -(-batch // len(variants))
+    return tuple(torch.as_tensor(np.stack([v[j] for v in variants]),
+                                 device=device).repeat(n, 1)[:batch]
+                 for j in range(3))
+
+
+def light_tile(s, e, c, tile_len, lam, carry):
+    """One light tile: ``analyze_tile_core`` with bench.py's arguments."""
+    return tile_ops.analyze_tile_core(s, e, c, tile_len, carry, lam, MIN_PQ,
+                                      MIN_AUC, MIN_LEN, MAX_GAP)
+
+
+def prod_tile(s, e, c, excl, tile_len, lam, carry):
+    """One production tile: ``analyze_tile_ctrl`` with a control channel
+    of the same events; returns (TileResult, control fragment sum)."""
+    res, ctrl_frag, *_ = tile_ops.analyze_tile_ctrl(
+        s, e, c, s, e, c, excl, tile_len, carry, carry, lam, 1.0, MIN_PQ,
+        MIN_AUC, MIN_LEN, MAX_GAP)
+    return res, ctrl_frag
+
+
+def light_dispatch(batch, tile_len, lam):
+    """Every tile of ``batch`` through ``light_tile``, no host sync
+    between them; the float32 sum of their fragment sums (on the
+    device)."""
+    s, e, c = batch
+    carry = torch.zeros(4, dtype=torch.int32, device=s.device)
+    return torch.stack([light_tile(s[i], e[i], c[i], tile_len, lam,
+                                   carry).frag_len
+                        for i in range(s.shape[0])]).sum()
+
+
+def prod_excl(tile_len, device):
+    """``K_EXCL`` exclusions, all padding (tile_len, tile_len)."""
+    return torch.full((K_EXCL, 2), tile_len, dtype=torch.int32,
+                      device=device)
+
+
+def prod_dispatch(batch, excl, tile_len, lam):
+    """Every tile of ``batch`` through ``prod_tile``; the float32 sum of
+    their treatment and control fragment sums."""
+    s, e, c = batch
+    carry = torch.zeros(4, dtype=torch.int32, device=s.device)
+    parts = []
+    for i in range(s.shape[0]):
+        res, ctrl_frag = prod_tile(s[i], e[i], c[i], excl, tile_len, lam,
+                                   carry)
+        parts.append(res.frag_len + ctrl_frag)
+    return torch.stack(parts).sum()
+
+
+def _median(xs):
+    s = sorted(xs)
+    return s[len(s) // 2]
+
+
+def _spread_pct(xs):
+    """(max - min) / median, in percent."""
+    return 100.0 * (max(xs) - min(xs)) / _median(xs)
+
+
+def timed_reps(device, fn, n_dispatch, reps):
+    """``reps`` reps of ``n_dispatch`` dispatches of ``fn`` each, their
+    values fetched at the end of the rep: the host seconds of each rep
+    and, on a card, the CUDA events' seconds from before the first
+    launch to after the last kernel; every value must be equal
+    (raises)."""
+    cuda = device.type == "cuda"
+    host, dev_s, first = [], [], None
+    for _ in range(reps):
+        if cuda:
+            torch.cuda.synchronize(device)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+        t0 = time.perf_counter()
+        outs = [fn() for _ in range(n_dispatch)]
+        if cuda:
+            b.record()
+        vals = [float(o) for o in outs]
+        host.append(time.perf_counter() - t0)
+        if cuda:
+            dev_s.append(a.elapsed_time(b) / 1e3)
+        first = vals[0] if first is None else first
+        if any(v != first for v in vals):
+            raise AssertionError(f"non-deterministic dispatch: {vals} "
+                                 f"against {first}")
+    return host, (dev_s or None), first
+
+
+def host_syncs(device, fn):
+    """The host syncs one call of ``fn`` makes
+    (``torch.cuda.set_sync_debug_mode``'s warnings) and the source lines
+    that made them; (None, []) on the CPU."""
+    if device.type != "cuda":
+        return None, []
+    torch.cuda.synchronize(device)
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize(device)
+    syncs = [w for w in seen if "synchroniz" in str(w.message)]
+    return len(syncs), sorted({f"{os.path.relpath(w.filename, REPO)}:"
+                               f"{w.lineno}" for w in syncs})
+
+
+def measure_hbm_bw(device, iters=64, reps=5):
+    """Device-memory bytes/s of 64 read and write passes over a 64 MiB
+    float32 array (one kernel each), best of ``reps``, by CUDA events."""
+    x = torch.ones(1 << 24, dtype=torch.float32, device=device)
+    c = 1.0000001
+
+    def run():
+        for _ in range(iters):
+            x.mul_(c)
+    run()
+    best = math.inf
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run()
+        b.record()
+        b.synchronize()
+        best = min(best, a.elapsed_time(b) / 1e3)
+    return iters * 2.0 * x.nbytes / best
+
+
+KERNEL_TARGETS = ((tile_ops, "coverage_scan"), (tile_ops, "tile_stats"),
+                  (peaks_ops, "peak_candidates"),
+                  (peaks_ops, "peak_reduce"))
+WRAPPER_KERNEL = {"peak_candidates": "gap_join"}
+
+
+def tile_calls(fn):
+    """One call of ``fn`` (a tile) with the arguments of every hand-kernel
+    call recorded: {kernel: [args, ...]} (``kernels.LAUNCHES``'s names)."""
+    with testing.recording(KERNEL_TARGETS) as calls:
+        fn()
+    return {WRAPPER_KERNEL.get(k, k): v for k, v in calls.items() if v}
+
+
+def kernel_bounds(calls):
+    """The hand kernels' bounds over these calls: each call's
+    ``testing.bound`` from its bytes and operations (``call_work``),
+    summed per kernel and over all."""
+    out, total = {}, 0.0
+    for name, cs in calls.items():
+        parts = [testing.call_work(name, args) for args in cs]
+        ms = [testing.bound(p["bytes"], p["fp32_ops"], p["fp64_ops"])
+              for p in parts]
+        out[name] = {"calls": len(cs),
+                     "bytes": sum(p["bytes"] for p in parts),
+                     "fp32_ops": sum(p["fp32_ops"] for p in parts),
+                     "fp64_ops": sum(p["fp64_ops"] for p in parts),
+                     "bound_ms": sum(m for m, _ in ms),
+                     "bound_by": sorted({b for _, b in ms})}
+        total += out[name]["bound_ms"]
+    return out, total
+
+
+def roofline(bw, n_rows, sort_payload_sum_b, chain_bytes_per_row,
+             t_tile_s, kernel_bound_ms):
+    """``bench.py``'s speed-of-light byte model of one tile, its ideal
+    sort only: ``log2 M`` merge passes over the sorted payloads plus the
+    chain's bytes per row, at the measured bandwidth ``bw``; beside it
+    the hand kernels' summed bounds over the tile's calls."""
+    logm = math.ceil(math.log2(n_rows))
+    b_ideal = 2.0 * n_rows * sort_payload_sum_b * logm \
+        + float(n_rows) * chain_bytes_per_row
+    return {"hbm_bw_gbps": bw / 1e9,
+            "model": {"rows": n_rows,
+                      "sort_payload_sum_b": sort_payload_sum_b,
+                      "merge_passes": logm,
+                      "chain_bytes_per_row": chain_bytes_per_row},
+            "bytes_ideal_sort_mb": b_ideal / 1e6,
+            "t_model_ideal_ms": 1e3 * b_ideal / bw,
+            "t_measured_ms": 1e3 * t_tile_s,
+            "frac_vs_ideal_sort": b_ideal / bw / t_tile_s,
+            "hand_kernel_bound_ms": kernel_bound_ms,
+            "frac_vs_hand_kernel_bound": kernel_bound_ms / 1e3 / t_tile_s}
+
+
+def kernel_legs(device, reps=REPS, prod_reps=PROD_REPS, tile_len=TILE_LEN,
+                events=EVENTS_PER_TILE, batch=BATCH, batch_prod=BATCH_PROD,
+                genome_len=GENOME_LEN, n_single=N_SINGLE):
+    """The light and production legs, the bandwidth and the rooflines
+    (the last two on a card only); returns the detail dict's kernel
+    part."""
+    n_dispatch = -(-genome_len // (tile_len * batch))
+    n_disp_prod = max(4, 64 // batch_prod)
+    scanned_bp = n_dispatch * batch * tile_len
+    variants = _tile_events(np.random.RandomState(0), tile_len=tile_len,
+                            events=events)
+    lam = tile_lambda(tile_len, events)
+    light = upload_batch(variants, batch, device)
+    prod = upload_batch(variants, batch_prod, device)
+    excl = prod_excl(tile_len, device)
+    one = tuple(x[:1] for x in light)
+    zero4 = torch.zeros(4, dtype=torch.int32, device=device)
+
+    def light_fn():
+        return light_dispatch(light, tile_len, lam)
+
+    def prod_fn():
+        return prod_dispatch(prod, excl, tile_len, lam)
+
+    def single_fn():
+        return light_tile(one[0][0], one[1][0], one[2][0], tile_len, lam,
+                          zero4).frag_len
+
+    t0 = time.perf_counter()
+    for fn in (light_fn, prod_fn, single_fn):    # warm up: build, allocate
+        float(fn())
+    warm_s = time.perf_counter() - t0
+    syncs = {"light": host_syncs(device, light_fn),
+             "production": host_syncs(device, prod_fn)}
+    rep_s, rep_dev_s, light_sum = timed_reps(device, light_fn, n_dispatch,
+                                             reps)
+    single_s, single_dev_s, _ = timed_reps(device, single_fn, n_single, 1)
+    prod_s, prod_dev_s, prod_sum = timed_reps(device, prod_fn, n_disp_prod,
+                                              prod_reps)
+    med, prod_med = _median(rep_s), _median(prod_s)
+    tiles, tiles_prod = n_dispatch * batch, n_disp_prod * batch_prod
+    per_tile_ms = 1e3 * med / tiles
+    per_tile_prod_ms = 1e3 * prod_med / tiles_prod
+    per_tile_single_ms = 1e3 * single_s[0] / n_single
+    light_calls = tile_calls(single_fn)
+    prod_calls = tile_calls(lambda: prod_tile(*(x[0] for x in prod), excl,
+                                              tile_len, lam, zero4))
+    light_bounds, light_bound_ms = kernel_bounds(light_calls)
+    prod_bounds, prod_bound_ms = kernel_bounds(prod_calls)
+    value = scanned_bp / med
+    prod_rate = tile_len / (per_tile_prod_ms / 1e3)
+    out = {
+        "metric": "genome_positions_per_sec", "value": value,
+        "unit": "positions/s", "vs_baseline": value / BASELINE_POS_PER_SEC,
+        "kernel": {
+            "tiles": tiles, "batch": batch, "events_per_tile": events,
+            "tile_len": tile_len, "dispatches": n_dispatch,
+            "rep_s": rep_s, "median_s": med, "spread_pct": _spread_pct(rep_s),
+            "rep_device_s": rep_dev_s,
+            "per_tile_ms_batched": per_tile_ms,
+            "per_tile_device_ms_batched": None if rep_dev_s is None
+            else 1e3 * _median(rep_dev_s) / tiles,
+            "per_tile_ms_single_dispatch": per_tile_single_ms,
+            "per_tile_device_ms_single_dispatch": None
+            if single_dev_s is None else 1e3 * single_dev_s[0] / n_single,
+            "dispatch_overhead_ms": per_tile_single_ms - per_tile_ms,
+            "dispatch_sum": light_sum,
+            "host_syncs_per_dispatch": syncs["light"][0],
+            "host_sync_sites": syncs["light"][1], "kernel_calls_per_tile": {
+                k: len(v) for k, v in light_calls.items()},
+            "kernel_bounds_per_tile": light_bounds,
+        },
+        "kernel_production": {
+            "tiles_per_dispatch": batch_prod, "dispatches": n_disp_prod,
+            "events_per_tile_per_channel": events, "rep_s": prod_s,
+            "rep_device_s": prod_dev_s, "per_tile_ms": per_tile_prod_ms,
+            "per_tile_device_ms": None if prod_dev_s is None
+            else 1e3 * _median(prod_dev_s) / tiles_prod,
+            "positions_per_sec": prod_rate,
+            "vs_baseline": prod_rate / BASELINE_POS_PER_SEC,
+            "dispatch_sum": prod_sum,
+            "host_syncs_per_dispatch": syncs["production"][0],
+            "host_sync_sites": syncs["production"][1],
+            "kernel_calls_per_tile": {
+                k: len(v) for k, v in prod_calls.items()},
+            "kernel_bounds_per_tile": prod_bounds,
+        },
+        "warmup_s": warm_s,
+    }
+    if device.type == "cuda":
+        bw = measure_hbm_bw(device)
+        # light: M = 2E + 1 rows; the sorted payloads (bench.py's model:
+        # the event sort's 4 + 4 B and two 20 B and 16 B lexicographic
+        # sorts), ~64 B a row of chain; production: expt and control
+        # points and the exclusions, ~96 B a row (two groups)
+        out["kernel"]["roofline"] = roofline(
+            bw, 2 * events + 1, 8 + 20 + 16, 64, per_tile_ms / 1e3,
+            light_bound_ms)
+        out["kernel_production"]["roofline"] = roofline(
+            bw, 4 * events + 2 * K_EXCL + 1, 8 + 20 + 16, 96,
+            per_tile_prod_ms / 1e3, prod_bound_ms)
+    else:
+        out["kernel"]["roofline"] = out["kernel_production"]["roofline"] = {
+            "frac_vs_ideal_sort": None, "note": "not measured: no card"}
+    return out
+
+
+# --- end-to-end legs ------------------------------------------------------
+
+def bam_path(key, work=WORK):
+    """``chip_smoke.py``'s cache name of BAM ``key`` of ``BAMS``."""
+    n, seed = BAMS[key]
+    tag = "" if seed == 7 else f"_seed{seed}"
+    return os.path.join(work, f"atac_e2e_hg_{n}{tag}.bam")
+
+
+# scripts/perf_synth.py in a child process: argv is scripts/, the output
+# path, the pairs, the seed and the chromosomes as JSON
+_SYNTH = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+          "import perf_synth; perf_synth.synth_bam(sys.argv[2], "
+          "int(sys.argv[3]), seed=int(sys.argv[4]), "
+          "chroms=[tuple(c) for c in json.loads(sys.argv[5])])")
+
+
+def make_bams(keys, work=WORK, chroms=HG_CHROMS):
+    """The BAMs of ``keys`` in ``work``: each missing one made by
+    scripts/perf_synth.py in a child process, all at once.  Returns
+    {key: path}."""
+    os.makedirs(work, exist_ok=True)
+    procs = {}
+    for key in keys:
+        path = bam_path(key, work)
+        if not os.path.exists(path):
+            n, seed = BAMS[key]
+            procs[key] = subprocess.Popen(
+                [sys.executable, "-c", _SYNTH, os.path.join(REPO, "scripts"),
+                 path + ".tmp", str(n), str(seed), json.dumps(chroms)],
+                stdout=subprocess.DEVNULL)
+    try:
+        for key, proc in procs.items():
+            if proc.wait() != 0:
+                raise RuntimeError(f"perf_synth of BAM {key}: exit code "
+                                   f"{proc.returncode}")
+            os.replace(bam_path(key, work) + ".tmp", bam_path(key, work))
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return {key: bam_path(key, work) for key in keys}
+
+
+def _env(extra=None):
+    env = {k: v for k, v in os.environ.items() if k not in DIST_ENV}
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(extra or {})
+    return env
+
+
+def _run_rss(cmd, cwd, timeout, extra_env=None):
+    """One run: (wall_s, rc, stderr_text, peak_rss_mb).
+
+    Reads stderr to EOF itself and reaps with os.wait4 for rusage
+    (ru_maxrss, KiB on Linux); a watchdog kills on timeout."""
+    proc = subprocess.Popen(cmd, cwd=cwd, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True,
+                            env=_env(extra_env))
+    t0 = time.perf_counter()
+    timed_out = []
+    watchdog = threading.Timer(timeout, lambda: (timed_out.append(1),
+                                                 proc.kill()))
+    watchdog.start()
+    try:
+        err = proc.stderr.read()
+    finally:
+        watchdog.cancel()
+    _, status, ru = os.wait4(proc.pid, 0)
+    proc.returncode = os.waitstatus_to_exitcode(status)
+    if timed_out:
+        return time.perf_counter() - t0, None, "timeout", 0.0
+    return (time.perf_counter() - t0, proc.returncode, err,
+            ru.ru_maxrss / 1024.0)
+
+
+def _free_port():
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+class ServeClient:
+    """Drives one ``python -m genrich_tpu_torch --serve --device D``
+    child: one analysis per line; its stderr goes to ``log``."""
+
+    def __init__(self, cwd, device, log, extra_env=None,
+                 ready_timeout=600.0):
+        self.log = log
+        t0 = time.perf_counter()
+        with open(log, "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "genrich_tpu_torch", "--serve",
+                 "--device", device], cwd=cwd, stdin=subprocess.PIPE,
+                stdout=subprocess.PIPE, stderr=err, text=True,
+                env=_env(extra_env))
+        line = self._read_line(ready_timeout)
+        if line != "READY":
+            raise RuntimeError(f"serve: {line!r}, not READY: "
+                               f"{self._tail()}")
+        self.ready_s = time.perf_counter() - t0
+
+    def _tail(self):
+        with open(self.log) as f:
+            return f.read()[-2000:]
+
+    def _read_line(self, timeout):
+        import select
+        r, _, _ = select.select([self.proc.stdout], [], [], timeout)
+        if not r:
+            raise TimeoutError("serve: no response")
+        return self.proc.stdout.readline().strip()
+
+    def analyze(self, args, timeout):
+        """-> (wall_s, perf dict of the ``OK <wall> <json>`` line)."""
+        t0 = time.perf_counter()
+        self.proc.stdin.write(shlex.join(args) + "\n")
+        self.proc.stdin.flush()
+        line = self._read_line(timeout)
+        if not line.startswith("OK"):
+            raise RuntimeError(f"serve: {line!r} for {args}: {self._tail()}")
+        parts = line.split(None, 2)
+        perf = json.loads(parts[2]) if len(parts) > 2 else {}
+        return time.perf_counter() - t0, perf
+
+    def close(self):
+        try:
+            self.proc.stdin.write("EXIT\n")
+            self.proc.stdin.flush()
+            self.proc.wait(timeout=60)
+        except (OSError, subprocess.TimeoutExpired):
+            self.proc.kill()
+            self.proc.wait()
+
+
+def _verify_rows(ref_path, out_path, thresh):
+    """Row-level device-vs-reference check (threshold-aware), as
+    ``scripts/bench_e2e.py`` makes it: matched rows share (chrom, start,
+    end); an unmatched row must overlap a peak of the other side or be
+    threshold-marginal (its column 9 near ``thresh``).  Records the
+    fraction matched and the worst margin of any non-overlapping
+    unmatched row (0.0 = none)."""
+    ref = open(ref_path).read().splitlines()
+    out = open(out_path).read().splitlines()
+    key = lambda ln: tuple(ln.split("\t")[:3])  # noqa: E731
+    rk = {key(ln): ln for ln in ref}
+    ok_ = {key(ln): ln for ln in out}
+
+    def spans(lines):
+        return [(f[0], int(f[1]), int(f[2]))
+                for f in (ln.split("\t") for ln in lines)]
+
+    def worst_margin(only_keys, src, other_spans):
+        worst = 0.0
+        for k in only_keys:
+            f = src[k].split("\t")
+            chrom, s, e, q = f[0], int(f[1]), int(f[2]), float(f[8])
+            if any(c == chrom and s < oe and os_ < e
+                   for c, os_, oe in other_spans):
+                continue
+            worst = max(worst, abs(q - thresh))
+        return worst
+
+    worst = max(worst_margin(rk.keys() - ok_.keys(), rk, spans(out)),
+                worst_margin(ok_.keys() - rk.keys(), ok_, spans(ref)))
+    inter = rk.keys() & ok_.keys()
+    return {"rows_ref": len(ref), "rows_out": len(out),
+            "match_frac": round(len(inter) / max(len(ref), 1), 4),
+            "worst_unmatched_margin": round(worst, 4)}
+
+
+def write_blacklist(path, exact_np, chroms=HG_CHROMS):
+    """The ChIP blacklist of ``chip_smoke.py``: ``testing.blacklist_regions``
+    from seed 10 on the first two chromosomes (1,000 regions of 1-50 kb
+    per 2 Gbp of them), one region from the midpoint of each one's
+    strongest peak of the ATAC exact file ``exact_np`` on.  Returns
+    the cuts."""
+    rows = [ln.split("\t") for ln in open(exact_np).read().splitlines()]
+    cut = []
+    for name, _ in chroms[:2]:
+        mine = [r for r in rows if r[0] == name]
+        if mine:
+            top = max(mine, key=lambda r: float(r[6]))
+            cut.append((name, (int(top[1]) + int(top[2])) // 2))
+    n = round(1000 * sum(size for _, size in chroms[:2]) / 2e9)
+    regions = testing.blacklist_regions(np.random.RandomState(10),
+                                        chroms[:2], n, (1_000, 50_000),
+                                        1 << 28, cut=cut)
+    testing.write_bed(path, regions)
+    return cut
+
+
+def _stat(xs):
+    """Median, each value in order and the spread of a leg's seconds."""
+    return {"median_s": _median(xs), "rep_s": xs,
+            "spread_pct": _spread_pct(xs)}
+
+
+def _records(stderr):
+    """BAM/SAM records analyzed, summed over the -v stderr's samples."""
+    return sum(int(ln.split()[-1]) for ln in stderr.splitlines()
+               if "records analyzed" in ln)
+
+
+def _config_args(name, bams, run_dir):
+    """(argv without -o, significance threshold) of configuration
+    ``name`` (``CONFIGS``)."""
+    t, c, chip = CONFIGS[name]
+    args = ["-t", ",".join(bams[k] for k in t.split(","))]
+    if c:
+        args += ["-c", ",".join(bams[k] for k in c.split(","))]
+    if not chip:
+        return args + E2E_FLAGS, Q_THRESH
+    return args + CHIP_FLAGS + ["-E", os.path.join(run_dir, "blk.bed"),
+                                "-e", "chr3"], P_THRESH
+
+
+def _exact(args, out, run_dir, timeout, extra_env=None):
+    """One ``--engine exact -v`` child: (wall, stderr, peak RSS MB)."""
+    cmd = [sys.executable, "-m", "genrich_tpu_torch"] + args + [
+        "-o", out, "--engine", "exact", "-v"]
+    wall, rc, err, rss = _run_rss(cmd, run_dir, timeout, extra_env)
+    if rc != 0:
+        raise RuntimeError(f"exact engine exit code {rc}: {err[-1500:]}")
+    return wall, err, rss
+
+
+def _same_bytes(paths):
+    data = [open(p, "rb").read() for p in paths]
+    return all(d == data[0] for d in data)
+
+
+def e2e_config(name, bams, clients, reps, run_dir, timeout, par_leg):
+    """Configuration ``name``: a cold serve line per device engine, then
+    ``reps`` paired reps (the exact child, then one serve line of each
+    engine), then on request the two-worker parser leg; with every
+    check's result under ``checks`` (``ok`` False when one failed)."""
+    args, thresh = _config_args(name, bams, run_dir)
+
+    def out(tag):
+        return os.path.join(run_dir, f"{name}_{tag}.np")
+    res = {"args": shlex.join(args), "thresh": thresh}
+    cold = {}
+    for eng, client in clients.items():
+        cold[eng] = client.analyze(args + ["-o", out(f"{eng}_cold"),
+                                           "--engine", eng], timeout)
+    ex_t, ex_rss, warm = [], 0.0, {eng: [] for eng in clients}
+    err = ""
+    for i in range(reps):
+        t, err, rss = _exact(args, out(f"exact_{i}"), run_dir, timeout)
+        ex_t.append(t)
+        ex_rss = max(ex_rss, rss)
+        for eng, client in clients.items():
+            warm[eng].append(client.analyze(
+                args + ["-o", out(f"{eng}_w{i}"), "--engine", eng], timeout))
+    res["exact"] = dict(_stat(ex_t), rss_mb=ex_rss)
+    res["records"] = _records(err)
+    res["exact_records_per_s"] = res["records"] / res["exact"]["median_s"]
+    res["peaks"] = sum(1 for _ in open(out("exact_0")))
+    checks = {"exact_repeat_equal": _same_bytes(
+        [out(f"exact_{i}") for i in range(reps)])}
+    res["paired"] = {}
+    for eng in clients:
+        walls = [w for w, _ in warm[eng]]
+        perfs = [p for _, p in warm[eng]]
+        stages = {k: [p.get(k) for p in perfs]
+                  for k in ("ingest_s", "device_rep_s", "findpeaks_s")}
+        mem = [p.get("max_memory_allocated") for p in [cold[eng][1]] + perfs]
+        res[eng] = dict(_stat(walls), cold_s=cold[eng][0],
+                        load_s=cold[eng][0] - _median(walls),
+                        cold_stages={k: cold[eng][1].get(k) for k in stages},
+                        stages=stages, max_memory_allocated=max(
+                            (m for m in mem if m is not None), default=None),
+                        perf_median_rep=perfs[walls.index(_median(walls))])
+        ratios = [t / w for t, w in zip(ex_t, walls)]
+        res["paired"][eng] = {"ratio_rep": ratios,
+                              "ratio_median": _median(ratios),
+                              "ratio_spread_pct": _spread_pct(ratios)}
+        rows = _verify_rows(out("exact_0"), out(f"{eng}_cold"), thresh)
+        res[eng]["rows"] = rows
+        checks[f"{eng}_rows"] = rows["match_frac"] >= 0.99 \
+            and rows["worst_unmatched_margin"] <= 0.02
+        checks[f"{eng}_cold_equals_warm"] = _same_bytes(
+            [out(f"{eng}_cold")] + [out(f"{eng}_w{i}") for i in range(reps)])
+    if par_leg:
+        par = [_exact(args, out(f"par2_{i}"), run_dir, timeout,
+                      {"GENRICH_INGEST_THREADS": "2"})[0]
+               for i in range(max(2, reps - 1))]
+        res["exact_par2"] = dict(_stat(par), delta_vs_exact_s=_median(par)
+                                 - res["exact"]["median_s"])
+        checks["par2_equals_exact"] = _same_bytes(
+            [out("exact_0")] + [out(f"par2_{i}") for i in range(len(par))])
+    res["checks"] = checks
+    res["ok"] = all(checks.values())
+    return res
+
+
+def bench_e2e(bams, configs, reps, device="cuda", engines=ENGINES,
+              work=WORK, chroms=HG_CHROMS, timeout=1800.0, par_leg=True):
+    """The end-to-end legs of ``configs`` on ``bams`` ({"A", "B", "C":
+    path}), ``atac``'s two-worker parser leg with ``par_leg``; returns
+    the detail dict's ``e2e`` part (``ok`` False when a check failed)."""
+    from .ingest import ensure_native
+    native = ensure_native()             # built once, before any child
+    run_dir = os.path.join(work, "bench_e2e")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    for path in set(bams.values()):      # the page cache, for every leg
+        with open(path, "rb") as f:
+            while f.read(1 << 24):
+                pass
+    out = {"reps": reps, "device": device, "engines": list(engines),
+           "bams": {k: os.path.basename(p) for k, p in bams.items()},
+           "genome_bp": sum(size for _, size in chroms),
+           "native_ingest": native.get("path"),
+           "host": {"cpus": os.cpu_count(), "loadavg": os.getloadavg()},
+           "protocol": "per configuration: a cold serve line per device "
+                       "engine, then reps paired reps (exact child, then "
+                       "one serve line per engine); ratio = exact wall / "
+                       "serve wall of the same rep",
+           "exact_ratio": "exact / --engine jax on atac (paired); the "
+                          "compiled-reference leg of scripts/bench_e2e.py "
+                          "is left out: it needs the Genrich sources",
+           "configs": {}}
+    if any(CONFIGS[c][2] for c in configs):
+        exact_np = os.path.join(run_dir, "blk_source_exact.np")
+        _exact(_config_args("atac", bams, run_dir)[0], exact_np, run_dir,
+               timeout)
+        out["blacklist_cut"] = write_blacklist(
+            os.path.join(run_dir, "blk.bed"), exact_np, chroms)
+    clients = {}
+    try:
+        for eng in engines:
+            # the sharded engine joins a one-rank group: NCCL on the
+            # card, gloo (on the loopback) on the CPU
+            extra = {"MASTER_ADDR": "127.0.0.1",
+                     "MASTER_PORT": str(_free_port()), "RANK": "0",
+                     "WORLD_SIZE": "1", "GLOO_SOCKET_IFNAME": "lo"} \
+                if eng == "sharded" else None
+            clients[eng] = ServeClient(run_dir, device, os.path.join(
+                run_dir, f"serve_{eng}.log"), extra, ready_timeout=timeout)
+        out["serve_ready_s"] = {e: c.ready_s for e, c in clients.items()}
+        for name in configs:
+            out["configs"][name] = e2e_config(name, bams, clients, reps,
+                                              run_dir, timeout,
+                                              par_leg and name == "atac")
+    finally:
+        for c in clients.values():
+            c.close()
+    out["ok"] = all(c["ok"] for c in out["configs"].values())
+    atac = out["configs"].get("atac", {})
+    if "jax" in atac.get("paired", {}):
+        out["paired"] = atac["paired"]["jax"]
+    for eng in engines:
+        if eng in atac:
+            out[f"{eng}_s"] = atac[eng]["median_s"]
+    return out
+
+
+# --- output -----------------------------------------------------------------
+
+def compact_headline(out):
+    """The last stdout line: ``bench.py``'s keys and the card's name and
+    power limit, well under 1,500 characters whatever the detail holds."""
+    e2e = out.get("e2e", {})
+    e2e = e2e if isinstance(e2e, dict) else {}
+    paired = e2e.get("paired", {})
+    return {
+        "metric": out["metric"], "value": out["value"], "unit": out["unit"],
+        "vs_baseline": out["vs_baseline"],
+        "prod_pos_per_sec": out["kernel_production"]["positions_per_sec"],
+        "prod_vs_baseline": out["kernel_production"]["vs_baseline"],
+        "roofline_frac_ideal":
+            out["kernel"]["roofline"]["frac_vs_ideal_sort"],
+        "roofline_frac_ideal_prod":
+            out["kernel_production"]["roofline"]["frac_vs_ideal_sort"],
+        "e2e_exact_ratio": paired.get("ratio_median"),
+        "e2e_ratio_spread_pct": paired.get("ratio_spread_pct"),
+        "e2e_jax_warm_s": e2e.get("jax_s"),
+        "e2e_sharded_warm_s": e2e.get("sharded_s"),
+        "detail": out.get("detail"),
+        "device": out.get("device"),
+    }
+
+
+def card_line(device):
+    """``nvidia-smi``'s name and power limit of the card, or "cpu"."""
+    if device.type != "cuda":
+        return "cpu"
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip() \
+        .splitlines()[0]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m genrich_tpu_torch.bench")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--kernel-only", action="store_true",
+                    help="the kernel legs alone")
+    ap.add_argument("--configs", default=",".join(CONFIGS),
+                    help="end-to-end configurations, comma-separated")
+    ap.add_argument("--reps", type=int, help="reps of every leg (default: "
+                    f"{REPS} light, {PROD_REPS} production, "
+                    "GENRICH_BENCH_E2E_REPS or 3 end to end)")
+    ap.add_argument("--out", default=DETAIL, help="the detail JSON")
+    a = ap.parse_args(argv)
+    configs = [c for c in a.configs.split(",") if c]
+    bad = [c for c in configs if c not in CONFIGS]
+    if bad:
+        ap.error(f"unknown configurations {bad}; known: {list(CONFIGS)}")
+    device = torch.device(a.device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit("bench: no CUDA card "
+                             "(torch.cuda.is_available() is False)")
+        device = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    out = kernel_legs(device, reps=a.reps or REPS,
+                      prod_reps=a.reps or PROD_REPS)
+    out["device"] = card_line(device)
+    out["detail"] = a.out
+    ok = True
+    if not a.kernel_only:
+        reps = a.reps or int(os.environ.get("GENRICH_BENCH_E2E_REPS", "3"))
+        keys = sorted({k for c in configs for side in CONFIGS[c][:2]
+                       for k in side.split(",") if k} | {"A"})
+        out["e2e"] = bench_e2e(make_bams(keys), configs, reps, a.device)
+        ok = out["e2e"]["ok"]
+    out["seconds"] = time.perf_counter() - t0
+    os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
+    with open(a.out, "w") as f:
+        json.dump(out, f, indent=1, sort_keys=True, default=str)
+    k = out["kernel"]
+    print(f"# {k['dispatches']}x{k['batch']} tiles x {k['events_per_tile']} "
+          f"events, median {k['median_s']:.3f} s over {len(k['rep_s'])} "
+          f"reps (spread {k['spread_pct']:.1f}%), {out['device']}, "
+          f"{out['seconds']:.0f} s", file=sys.stderr)
+    if not ok:
+        failed = {n: [c for c, v in r["checks"].items() if not v]
+                  for n, r in out["e2e"]["configs"].items() if not r["ok"]}
+        print(f"# FAILED checks: {failed}", file=sys.stderr)
+    print(json.dumps(compact_headline(out)))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,7 +5,10 @@ of host->device uploads, count and host wall of kernel/program
 submissions (asynchronous on the card), and count and wall of blocking
 device->host pulls.  Every host sync the engine makes (``.item()``,
 ``.cpu()``, boolean-mask reads) goes through ``_fetch``/``_fetch_many``
-so that ``fetch_n`` counts it.
+so that ``fetch_n`` counts it.  The peak stage's host seconds split
+into ``peak_fetch_s`` (the engine's ``peaks_fetch``: the wait for the
+device, and on the sharded engine its boundary merge, ``peak_merge_s``)
+and ``peak_write_s`` (the narrowPeak writer).
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ class PerfMixin:
         """Reset the per-analysis accounting."""
         self.perf = {"upload_bytes": 0, "upload_n": 0,
                      "upload_s": 0.0, "dispatch_n": 0,
-                     "dispatch_s": 0.0, "fetch_n": 0, "fetch_s": 0.0}
+                     "dispatch_s": 0.0, "fetch_n": 0, "fetch_s": 0.0,
+                     "peak_fetch_s": 0.0, "peak_write_s": 0.0}
 
     def _put(self, arr):
         """Host array -> device tensor, accounted."""

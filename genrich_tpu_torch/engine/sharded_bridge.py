@@ -44,6 +44,7 @@ not the uint16-length wire.
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -62,7 +63,8 @@ from . import qvalue
 from .host_fallback import INT32_MAX, HostChromMixin
 from .perf import PerfMixin
 from .pileup import Pileup
-from .torch_bridge import SKIP, check_device, pow2
+from .torch_bridge import (PEAK_CAP as CHROM_PEAK_CAP, SKIP, check_device,
+                           chrom_peaks, fetch_chrom_peaks, pow2)
 
 F32 = np.float32
 
@@ -135,7 +137,8 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
         chromosomes whose peaks were called again with more slots."""
         super().begin_run()
         self.perf.update(grid_tile_len=0, grid_tiles=0, straddling_peaks=0,
-                         host_peak_chroms=0, peak_redispatch=0,
+                         peak_merge_s=0.0, host_peak_chroms=0,
+                         peak_redispatch=0,
                          interval_rows=0, real_rows=0, merged_rows=0,
                          merged_width=0)
 
@@ -147,9 +150,10 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
 
         Shorter chromosomes pad to the same grid (trailing tiles get
         limit 0), as in the JAX engine.  Every tile is longer than
-        ``max_gap`` (the boundary merge's premise), so the device calls
-        the peaks of every device chromosome; a gap that not even a
-        ``MAX_TILE_LEN`` tile holds is refused.  Runs once per
+        ``max_gap`` (the boundary merge's premise) up to
+        ``MAX_TILE_LEN``; a gap that not even such a tile holds calls
+        each chromosome's peaks once over its gathered rows
+        (``peaks_submit``).  Runs once per
         analysis, so a serve process fed inputs of other sizes
         re-derives it.  Of the JAX engine's arguments only
         ``max_chrom_len`` is taken: the event and exclusion maxima
@@ -157,11 +161,8 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
         """
         if self.device.type == "cuda":
             kernels.library()
-        self._lo = pow2(max_gap + 1, lo=self.min_tile_len)
-        if self._lo > self.MAX_TILE_LEN:
-            raise ValueError(f"the sharded engine's tiles hold a gap of "
-                             f"at most {self.MAX_TILE_LEN - 1} bp, not "
-                             f"-g {max_gap}")
+        self._lo = min(pow2(max_gap + 1, lo=self.min_tile_len),
+                       self.MAX_TILE_LEN)
         self._fixed_grid = None
         if max_chrom_len:
             tl = pow2(-(-max_chrom_len // self.D), lo=self._lo)
@@ -485,15 +486,15 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
         """Queue per-tile peak calling (no blocking), ``PEAK_CAP``
         candidate slots a tile.  None for a host chromosome (over
         2^31-1 bp: the pipeline's host peak caller then finishes it,
-        counted in ``perf["host_peak_chroms"]``)."""
+        counted in ``perf["host_peak_chroms"]``).  A ``max_gap`` that
+        reaches a tile (a -g of ``MAX_TILE_LEN`` or more) calls the
+        chromosome's peaks once over its rows of every tile
+        (``_chrom_rows``), ``CHROM_PEAK_CAP`` slots, as TorchEngine
+        calls them."""
         st = self._chrom[cidx]
         if st.get("host"):
             self.perf["host_peak_chroms"] += 1
             return None
-        if max_gap >= st["tile_len"]:
-            raise ValueError(f"-g {max_gap} does not fit the "
-                             f"{st['tile_len']}-bp tiles; prepare() sizes "
-                             f"them from the run's -g")
         if use_q:
             tab_p, tab_q = self._qtable
         else:
@@ -501,6 +502,15 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
                                         device=self.device)
         for key in ("ev", "cr", "excluded"):
             st.pop(key, None)
+        if max_gap >= st["tile_len"]:
+            rows = self._chrom_rows(st)
+            cap = min(CHROM_PEAK_CAP, rows[0].shape[0])
+
+            def chrom(k):
+                return self._call(chrom_peaks, *rows, (tab_p, tab_q),
+                                  min_pq, min_auc, min_len, max_gap, use_q,
+                                  k)
+            return "chrom", (chrom, chrom(cap), cap, rows[0].shape[0])
         kern = self._kern(st["tile_len"])
         cap = min(PEAK_CAP, st["starts"].shape[1])
 
@@ -509,12 +519,50 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
                                          self.world > 1, k),
                               st["starts"], st["ends"], st["pv"], st["live"],
                               tab_p, tab_q, min_pq, min_auc)
-        return dispatch, dispatch(cap), cap, st, min_pq, min_auc, min_len, \
-            max_gap, use_q
+        return "tiles", (dispatch, dispatch(cap), cap, st, min_pq, min_auc,
+                         min_len, max_gap, use_q)
+
+    def _chrom_rows(self, st):
+        """The chromosome's live, non-empty rows of every rank in genomic
+        order and chromosome coordinates (int32: a device chromosome is
+        under 2^31 bp), a row that a tile boundary cut in two (``cont``
+        of the later tile, as ``_row_order_peaks`` reads it) joined back
+        into the one interval it is: (starts, ends, p, live).  Every
+        rank holds the same rows, so every rank launches the same
+        shapes.  One accounted fetch: every rank's row count."""
+        tl = st["tile_len"]
+        starts, ends = st["starts"], st["ends"]
+        t = starts.shape[0]
+        dev = starts.device
+        off = (torch.arange(t, dtype=torch.int64, device=dev)
+               + self.rank * t)[:, None] * tl
+        take = (st["live"] & (ends > starts)).reshape(-1)
+        cols = [(starts + off).reshape(-1), (ends + off).reshape(-1),
+                st["pv"].reshape(-1),
+                ((starts == 0) & st["cont"][:, None]).reshape(-1)]
+        n = self._fetch(gather_rows(take.sum(dtype=torch.int64).reshape(1),
+                                    self.group))
+        cols = [x[take] for x in cols]
+        if self.group is not None:
+            width = max(int(n.max()), 1)
+            parts = [gather_rows(torch.cat([x, x.new_zeros(
+                width - x.shape[0])]), self.group).split(width) for x in cols]
+            cols = [torch.cat([p[:int(k)] for p, k in zip(part, n)])
+                    for part in parts]
+        g_start, g_end, pv, cont = cols
+        cut = torch.zeros_like(cont)
+        cut[1:] = cont[1:] & (g_start[1:] == g_end[:-1])
+        head = torch.nonzero(~cut).squeeze(1)
+        last = torch.cat([head[1:] - 1, head.new_full((1,), cut.shape[0] - 1)])
+        return (g_start[head].to(torch.int32), g_end[last].to(torch.int32),
+                pv[head], torch.ones(head.shape[0], dtype=torch.bool,
+                                     device=dev))
 
     def peaks_fetch(self, handle):
-        """Resolve a ``peaks_submit`` handle: the host boundary merge, the
-        row-order AUC and summit of each merged peak that straddles a
+        """Resolve a ``peaks_submit`` handle: a chromosome's call as
+        TorchEngine resolves it (``fetch_chrom_peaks``), or the tiles'.
+        Of the tiles': the host boundary merge, the row-order AUC and
+        summit of each merged peak that straddles a
         tile boundary, and the min-AUC filter; returns the peak arrays.
         When a tile has more candidates than its slots, the chromosome's
         peak step runs again on the device with the largest count of its
@@ -522,6 +570,9 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
         every tile's slots (``perf["peak_redispatch"]``).  On several
         ranks the counts are the gathered ones (``replicated``), so every
         rank launches the same shape."""
+        kind, handle = handle
+        if kind == "chrom":
+            return fetch_chrom_peaks(self, handle)
         dispatch, res, cap, st, min_pq, min_auc, min_len, max_gap, use_q = \
             handle
         res = self._fetch_many(res)
@@ -530,6 +581,7 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
             self.perf["peak_redispatch"] += 1
             res = self._fetch_many(dispatch(
                 min(pow2(n), st["starts"].shape[1])))
+        t0 = time.perf_counter()
         tile_len = st["tile_len"]
         # no AUC filter yet: a straddling peak's AUC changes below
         merged = merge_tile_peaks(TileResult(TilePeaks(*res), None, None),
@@ -547,6 +599,7 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
             aucs[strad], spv[strad], sqv[strad], spos[strad] = got
         keep = aucs >= F32(min_auc)
         self.perf["straddling_peaks"] += int((strad & keep).sum())
+        self.perf["peak_merge_s"] += time.perf_counter() - t0
         return (starts[keep], ends[keep], aucs[keep], spv[keep], sqv[keep],
                 spos[keep])
 

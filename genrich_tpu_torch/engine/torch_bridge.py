@@ -68,6 +68,52 @@ def check_device(device) -> torch.device:
     return device
 
 
+def chrom_peaks(starts, ends, pv, live, qtable, min_pq, min_auc,
+                min_len: int, max_gap: int, use_q: bool, k: int):
+    """One chromosome's peaks over its rows in genomic order (K5, K4),
+    ``k`` candidate slots; the statistic is the q-value of ``qtable``
+    (``assign_qvals``) with ``use_q``, else -log10 p.  Returns (int32
+    [4, k] start, end, summit offset and valid; float32 [3, k] AUC,
+    summit p and q; the candidate count)."""
+    if use_q:
+        qv = compact.assign_qvals(pv, *qtable)
+        stat = qv
+    else:
+        qv = torch.full_like(pv, SKIP)
+        stat = pv
+    res = call_peaks(starts, ends, stat, pv, qv, live, float(F32(min_pq)),
+                     float(F32(min_auc)), int(min_len), int(max_gap),
+                     k_peaks=k)
+    ints = torch.stack([res.start, res.end, res.summit_pos,
+                        res.valid.to(torch.int32)])
+    flts = torch.stack([res.auc, res.summit_pval, res.summit_qval])
+    return ints, flts, res.n_peaks
+
+
+def fetch_chrom_peaks(engine, handle):
+    """Resolve a (dispatch, (ints, flts, n), slots, rows) handle of
+    ``chrom_peaks`` through ``engine``'s accounted fetches.
+
+    Returns (start, end, auc, summit_pval, summit_qval, summit_pos)
+    numpy arrays of the emitted peaks in genomic order.  When the
+    chromosome has more candidates than its slots, its peaks are
+    called again on the device with the candidate count rounded up
+    to a power of two (at most the row count) as the slots
+    (``perf["peak_redispatch"]``): the rows one call with enough
+    slots gives.
+    """
+    dispatch, (ints_d, flts_d, n_d), cap, rows = handle
+    n, ints, flts = engine._fetch_many((n_d, ints_d, flts_d))
+    if int(n) > cap:
+        engine.perf["peak_redispatch"] += 1
+        ints_d, flts_d, _ = dispatch(min(pow2(int(n)), rows))
+        ints, flts = engine._fetch_many((ints_d, flts_d))
+    k = np.flatnonzero(ints[3] != 0)
+    return (ints[0, k].astype(np.int64), ints[1, k].astype(np.int64),
+            flts[0, k], flts[1, k], flts[2, k],
+            ints[2, k].astype(np.int64))
+
+
 class TorchEngine(PerfMixin, HostChromMixin):
     """Per-run device context on one explicit ``device``.
 
@@ -367,23 +413,6 @@ class TorchEngine(PerfMixin, HostChromMixin):
 
     # --- stage 4: peaks (device) ----------------------------------------
 
-    def _peaks(self, st, min_pq, min_auc, min_len, max_gap, use_q, cap):
-        pv = st["pv"]
-        if use_q:
-            qv = compact.assign_qvals(pv, *self._qtable)
-            stat = qv
-        else:
-            qv = torch.full_like(pv, SKIP)
-            stat = pv
-        res = call_peaks(st["starts"], st["ends"], stat, pv, qv,
-                         st["live"], float(F32(min_pq)),
-                         float(F32(min_auc)), int(min_len), int(max_gap),
-                         k_peaks=cap)
-        ints = torch.stack([res.start, res.end, res.summit_pos,
-                            res.valid.to(torch.int32)])
-        flts = torch.stack([res.auc, res.summit_pval, res.summit_qval])
-        return ints, flts, res.n_peaks
-
     def peaks_submit(self, cidx: int, min_pq: float, min_auc: float,
                      min_len: int, max_gap: int, use_q: bool):
         """Queue peak calling for one chromosome (no blocking), with
@@ -402,31 +431,14 @@ class TorchEngine(PerfMixin, HostChromMixin):
         cap = min(PEAK_CAP, rows)
 
         def dispatch(k):
-            return self._call(self._peaks, st, min_pq, min_auc, min_len,
-                              max_gap, use_q, k)
+            return self._call(chrom_peaks, st["starts"], st["ends"],
+                              st["pv"], st["live"], self._qtable, min_pq,
+                              min_auc, min_len, max_gap, use_q, k)
         return dispatch, dispatch(cap), cap, rows
 
     def peaks_fetch(self, handle):
-        """Resolve a ``peaks_submit`` handle.
-
-        Returns (start, end, auc, summit_pval, summit_qval, summit_pos)
-        numpy arrays of the emitted peaks in genomic order.  When the
-        chromosome has more candidates than its slots, its peaks are
-        called again on the device with the candidate count rounded up
-        to a power of two (at most the row count) as the slots
-        (``perf["peak_redispatch"]``): the rows one call with enough
-        slots gives.
-        """
-        dispatch, (ints_d, flts_d, n_d), cap, rows = handle
-        n, ints, flts = self._fetch_many((n_d, ints_d, flts_d))
-        if int(n) > cap:
-            self.perf["peak_redispatch"] += 1
-            ints_d, flts_d, _ = dispatch(min(pow2(int(n)), rows))
-            ints, flts = self._fetch_many((ints_d, flts_d))
-        k = np.flatnonzero(ints[3] != 0)
-        return (ints[0, k].astype(np.int64), ints[1, k].astype(np.int64),
-                flts[0, k], flts[1, k], flts[2, k],
-                ints[2, k].astype(np.int64))
+        """Resolve a ``peaks_submit`` handle (``fetch_chrom_peaks``)."""
+        return fetch_chrom_peaks(self, handle)
 
     def release(self) -> None:
         self._chrom.clear()

@@ -430,12 +430,13 @@ def pair_index_tab(keys, uk, ends):
     import numpy as np
     try:
         lib = _load(build=False)
+        fn = lib.gi_pair_index_tab   # a stale library lacks the symbol
     except Exception:
         return None
     if not hasattr(lib, "_pit_ready"):
         pu64 = ctypes.POINTER(ctypes.c_uint64)
-        lib.gi_pair_index_tab.restype = ctypes.c_int
-        lib.gi_pair_index_tab.argtypes = [
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
             pu64, ctypes.c_int64, pu64, ctypes.c_int64,
             ctypes.POINTER(ctypes.c_int64),
             ctypes.POINTER(ctypes.c_uint32),
@@ -447,7 +448,7 @@ def pair_index_tab(keys, uk, ends):
     idx = np.empty(len(k), np.uint32)
     bp = np.empty(len(u), np.float64)
     pu64 = ctypes.POINTER(ctypes.c_uint64)
-    rc = lib.gi_pair_index_tab(
+    rc = fn(
         k.ctypes.data_as(pu64), len(k), u.ctypes.data_as(pu64),
         len(u), e.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
         idx.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),

@@ -10,6 +10,8 @@ s6, t10).  The class tables are rebuilt here from that module's
 
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
 import numpy as np
 import torch
 
@@ -33,6 +35,20 @@ PACKED_ADD = _pack4(ADD)
 PACKED_SUB = _pack4(SUB)
 PACKED_ZERO = 1          # the packed group of four zero deltas
 
+# constant tables on each device a call asked for them on: a copy from
+# host memory waits until the device's queue has drained, so a call
+# that needs a table reads the copy made on its device's first call
+_TABLES: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+
+
+def device_table(arr: np.ndarray, device) -> torch.Tensor:
+    """``arr``, a module constant, on ``device``: copied there once."""
+    key = (id(arr), torch.device(device))
+    t = _TABLES.get(key)
+    if t is None:
+        t = _TABLES[key] = torch.as_tensor(arr, device=device)
+    return t
+
 
 def event_deltas(count: torch.Tensor):
     """Map event count codes to (add, sub) class-delta rows [E, 4].
@@ -41,9 +57,8 @@ def event_deltas(count: torch.Tensor):
     with a uint8 tensor is a boolean mask in torch, not a gather.
     """
     idx = count.long()
-    add = torch.as_tensor(ADD, device=count.device)
-    sub = torch.as_tensor(SUB, device=count.device)
-    return add[idx], sub[idx]
+    return (device_table(ADD, count.device)[idx],
+            device_table(SUB, count.device)[idx])
 
 
 def canon_value(cum: torch.Tensor) -> torch.Tensor:

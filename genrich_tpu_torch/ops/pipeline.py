@@ -20,8 +20,8 @@ import torch
 
 from .. import kernels
 from .peaks import TilePeaks, call_peaks
-from .pileup import (PACKED_ADD, PACKED_SUB, PACKED_ZERO, event_deltas,
-                     unpack_deltas)
+from .pileup import (PACKED_ADD, PACKED_SUB, PACKED_ZERO, device_table,
+                     event_deltas, unpack_deltas)
 from .pvalue import calc_pval
 from .scan import coverage_scan
 
@@ -38,6 +38,14 @@ def build_event_points(start, end, count):
     return torch.cat([start, end]), torch.cat([add, sub], dim=0)
 
 
+# the packed payload of an add / a sub row per count code with its
+# deltas in group 0 or 1 of the 8-channel rows, the other group's zero
+_GROUP_ADD = tuple((PACKED_ADD << (10 * g)) | (PACKED_ZERO << (10 * (1 - g)))
+                   for g in (0, 1))
+_GROUP_SUB = tuple((PACKED_SUB << (10 * g)) | (PACKED_ZERO << (10 * (1 - g)))
+                   for g in (0, 1))
+
+
 def _packed_points(start, end, count, group: int):
     """Events -> (pos, packed) with the class deltas in ``group``.
 
@@ -46,14 +54,10 @@ def _packed_points(start, end, count, group: int):
     from a per-count-code table instead of packing each row.
     """
     dev = start.device
-    other = PACKED_ZERO << (10 * (1 - group))
-    tab_add = torch.as_tensor((PACKED_ADD << (10 * group)) | other,
-                              device=dev)
-    tab_sub = torch.as_tensor((PACKED_SUB << (10 * group)) | other,
-                              device=dev)
     idx = count.long()
     return (torch.cat([start, end]),
-            torch.cat([tab_add[idx], tab_sub[idx]]))
+            torch.cat([device_table(_GROUP_ADD[group], dev)[idx],
+                       device_table(_GROUP_SUB[group], dev)[idx]]))
 
 
 def _excluded(starts, excl):
@@ -145,7 +149,7 @@ def frag_sum(terms):
 
 # 120 x (cov + e8/8 + s6/6 + t10/10): the class sums' rational value as
 # an integer (getVal's value, Genrich.c:1902-1907, before rounding)
-LEVEL_WEIGHTS = (120, 15, 20, 12)
+LEVEL_WEIGHTS = np.array([120, 15, 20, 12], np.int64)
 
 
 def expt_levels(packed, carry):
@@ -155,8 +159,7 @@ def expt_levels(packed, carry):
     equal; the exact engine breaks an interval exactly there
     (``engine/pileup.py::_entry_nonzero``), where float32 rounds two
     values to one once coverage passes about 2^21."""
-    w = torch.as_tensor(LEVEL_WEIGHTS, dtype=torch.int64,
-                        device=packed.device)
+    w = device_table(LEVEL_WEIGHTS, packed.device)
     step = (unpack_deltas(packed, 1).to(torch.int64) * w).sum(dim=1)
     return torch.cumsum(step, dim=0) + (carry.to(torch.int64) * w).sum()
 
@@ -254,11 +257,11 @@ def analyze_tile_core(start, end, count, tile_len, carry, lam, min_pq,
                      start.to(torch.int32), end.to(torch.int32)])
     packed = torch.cat([
         torch.full((1,), PACKED_ZERO, dtype=torch.int32, device=dev),
-        torch.as_tensor(PACKED_ADD, device=dev)[idx],
-        torch.as_tensor(PACKED_SUB, device=dev)[idx]])
+        device_table(PACKED_ADD, dev)[idx],
+        device_table(PACKED_SUB, dev)[idx]])
     pos, order = torch.sort(pos)
     vals, pval = coverage_scan(packed[order], 1, carry.to(torch.int32),
-                               lam=float(np.float32(lam)))
+                               float(np.float32(lam)))
     vals = vals[0]
     starts = pos
     ends = torch.cat([pos[1:], torch.full((1,), int(tile_len),

@@ -465,7 +465,9 @@ def _find_peaks_device(registry: ChromRegistry, eng, p: Params,
                 count += 1
                 peak_bp += pk.end - pk.start
             continue
+        t0 = time.perf_counter()
         starts, ends, aucs, spv, sqv, spos = eng.peaks_fetch(h)
+        t1 = time.perf_counter()
         for m in range(len(starts)):
             pk = peaks_mod.Peak(int(starts[m]), int(ends[m]),
                                 aucs[m], spv[m],
@@ -474,6 +476,8 @@ def _find_peaks_device(registry: ChromRegistry, eng, p: Params,
             writers.write_peak(out_stream, c.name, pk, count)
             count += 1
             peak_bp += pk.end - pk.start
+        eng.perf["peak_fetch_s"] += t1 - t0
+        eng.perf["peak_write_s"] += time.perf_counter() - t1
     if p.verbose:
         warn(f"Peaks identified: {count} ({peak_bp}bp)\n")
     eng.release()

@@ -1,16 +1,21 @@
 """Where the device time goes on the port's main and Fisher paths.
 
     python -m genrich_tpu_torch.prof A.bam B.bam [--engine jax|sharded]
-        [--parent DIR [--log-bam L.bam]]
+        [--chip BLK.bed C.bam] [--parent DIR [--log-bam L.bam]]
 
 Runs ``-t A`` (main path), ``-t A -c B`` (control) and ``-t A,B``
 (Fisher) with ``-r -j -q 0.05 -a 20 --device cuda`` and the
 ``--engine`` given (default jax: the TorchEngine), each once cold and
 once warm under ``torch.profiler``, and prints for the warm run: its
 wall, the
-pipeline's ``perf`` dict, the device time (kernels and copies, summed
-from the profiler's device events), the card's idle share (1 - device
-time / wall) and the top device entries.
+pipeline's ``perf`` dict (``findpeaks_s`` split into ``peak_fetch_s``,
+the sharded engine's boundary merge ``peak_merge_s`` among it, and
+``peak_write_s``, the writer), the device time (kernels and copies,
+summed from the profiler's device events), the card's idle share (1 -
+device time / wall) and the top device entries.  With ``--chip`` also
+Genrich's ChIP-seq runs of ``chip_smoke.py``: ``chip`` (``-t A -c B``)
+and ``chip_fisher`` (``-t A,B -c C,C``), each with ``-r -p 0.01 -a 20
+-E BLK.bed -e chr3``.
 
 No device path calls ``torch.cummax`` (PyTorch's
 ``tensor_kernel_scan_innermost_dim_with_indices``): the gap-join runs
@@ -47,6 +52,7 @@ import tempfile
 import time
 
 FLAGS = ["-r", "-j", "-q", "0.05", "-a", "20"]
+CHIP_FLAGS = ["-r", "-p", "0.01", "-a", "20"]     # + -E BLK.bed -e chr3
 TOP = 18
 ATTEMPTS = 3
 
@@ -123,7 +129,7 @@ def cummax_records(records):
     return sum(n for key, n in records if CUMMAX_KERNEL in key)
 
 
-def profile_path(name, ts, engine="jax", extra=()):
+def profile_path(name, ts, engine="jax", extra=(), flags=FLAGS):
     """Cold run, then the warm run under torch.profiler, again while the
     profiler's hand-kernel records disagree with the launches (at most
     ATTEMPTS runs)."""
@@ -132,7 +138,7 @@ def profile_path(name, ts, engine="jax", extra=()):
 
     from . import cli, kernels
     out = os.path.join(tempfile.mkdtemp(), "out.np")
-    args = ["-t", ts, "-o", out, *extra] + FLAGS + [
+    args = ["-t", ts, "-o", out, *extra] + flags + [
         "--engine", engine, "--device", "cuda"]
     if cli.main(args) != 0:
         raise SystemExit(f"{name}: cold run failed")
@@ -201,6 +207,9 @@ def main(argv=None) -> int:
     ap.add_argument("bam_a")
     ap.add_argument("bam_b")
     ap.add_argument("--engine", choices=("jax", "sharded"), default="jax")
+    ap.add_argument("--chip", nargs=2, metavar=("BLK_BED", "C_BAM"),
+                    help="also the ChIP runs: the -E blacklist and the "
+                    "ChIP Fisher replicates' control")
     ap.add_argument("--parent", help="another checkout to compare with")
     ap.add_argument("--log-bam", help="with --parent: the BAM of the "
                     "-f/-k log run")
@@ -218,6 +227,12 @@ def main(argv=None) -> int:
     profile_path("main", a.bam_a, a.engine)
     profile_path("control", a.bam_a, a.engine, ["-c", a.bam_b])
     profile_path("fisher", f"{a.bam_a},{a.bam_b}", a.engine)
+    if a.chip:
+        bed, bam_c = a.chip
+        chip = CHIP_FLAGS + ["-E", bed, "-e", "chr3"]
+        profile_path("chip", a.bam_a, a.engine, ["-c", a.bam_b], chip)
+        profile_path("chip_fisher", f"{a.bam_a},{a.bam_b}", a.engine,
+                     ["-c", f"{bam_c},{bam_c}"], chip)
     if a.parent:
         compare_trees(a.parent, a.bam_a, a.bam_b, a.log_bam)
     return 0

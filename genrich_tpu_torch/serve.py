@@ -18,9 +18,10 @@ library is found once.
     (stderr carries the usual -v output and the error), and ``READY``
     at startup.  The JSON holds the analysis's stage walls
     (``ingest_s``, ``device_rep_s``, ``findpeaks_s``) and the engine's
-    upload/dispatch/fetch accounting; an exact line's has the walls
-    ``ingest_s`` and ``findpeaks_s`` only.  Split the line on the
-    first two whitespace fields only.
+    upload/dispatch/fetch accounting, on a card also the analysis's
+    peak device memory (``max_memory_allocated``, bytes); an exact
+    line's has the walls ``ingest_s`` and ``findpeaks_s`` only.  Split
+    the line on the first two whitespace fields only.
 
 An empty line or ``EXIT`` ends the loop.  A failing analysis, an
 unexpected exception included, answers ``ERR`` and serving goes on.
@@ -35,6 +36,8 @@ import sys
 import time
 from typing import List, Optional
 
+import torch
+
 from .cli import make_engine, native_ingest, parse_port_args
 from .engine.torch_bridge import check_device
 from .errors import GenrichError
@@ -47,7 +50,7 @@ def serve_loop(default_args: Optional[List[str]] = None, stdin=None,
     stdout = stdout if stdout is not None else sys.stdout
     default_args = default_args or []
     try:
-        check_device(device)
+        dev = check_device(device)
     except (RuntimeError, ValueError) as e:
         sys.stderr.write(f"Error! {e}\n")
         return 1
@@ -68,11 +71,17 @@ def serve_loop(default_args: Optional[List[str]] = None, stdin=None,
             eng = engines[p.engine]          # None for --engine exact
             native_ingest(p)
             perf: dict = {}
+            on_card = eng is not None and dev.type == "cuda"
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(dev)
             try:
                 run(p, engine=eng, perf=perf)
             finally:
                 if eng is not None:
                     eng.release()    # per-run state; kernels stay loaded
+            if on_card:
+                perf["max_memory_allocated"] = \
+                    torch.cuda.max_memory_allocated(dev)
             msg = f"OK {time.perf_counter() - t0:.3f}"
             if perf:
                 msg += " " + json.dumps(

@@ -1,18 +1,19 @@
-"""Helpers shared by the port's tests and ``chip_smoke.py``.
+"""Helpers shared by the port's tests, ``chip_smoke.py`` and the bench.
 
 ``peak_rows`` makes a synthetic chromosome of coverage rows holding
 peaks, and ``peak_row_columns`` the same rows as ``peak_reduce``'s
 int32/float32 columns; ``gap_join_rows`` makes rows for the gap-join
 and ``gap_join_blocked`` transcribes kernel K5's design in numpy;
 ``auc_rowwise`` is the exact engine's AUC on the host (a float32 sum in
-row order); ``blacklist_regions`` draws ``-E`` regions and
-``write_bed`` writes them; ``check_log`` holds a port's ``-f``/``-k``
+row order); ``recording`` keeps the arguments of a wrapper's calls;
+``blacklist_regions`` draws ``-E`` regions and ``write_bed`` writes
+them; ``check_log`` holds a port's ``-f``/``-k``
 log to the exact engine's, and ``check_summits`` its narrowPeak column
 10 (summit offset).  numpy only, except
 the ``*_first_design`` helpers, which launch the first designs of
 kernels K1-K5 (``csrc/reference/``) on the card so that the current
 ones can be held to them, ``median_ms`` (device time by CUDA events),
-and the operation counters.
+``recording`` and the operation counters.
 
 ``calc_pval_opcount``, ``tile_stats_opcount``, ``coverage_scan_opcount``
 and ``fisher_combine_opcount`` tally, on a call's own inputs, the
@@ -20,14 +21,41 @@ branch each row or lane of kernels K1 (lambda mode), K2 and K3 takes and
 the trip count of each series, and turn the tally into float
 operations: each operation written in the CUDA source counts once, each
 libm call or IEEE division ``LIBM_OPS[name]``.  ``bound`` turns bytes
-and operations into the least time the card could take.
+and operations into the least time the card could take, and
+``call_work`` counts a recorded call's bytes and operations.
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager
+
 import numpy as np
 
 F32 = np.float32
+
+
+@contextmanager
+def recording(targets):
+    """While the block runs, each (module, name) of ``targets`` is
+    wrapped to keep host copies of the arguments of its calls; yields
+    {name: [args, ...]}."""
+    import torch
+    calls = {name: [] for _, name in targets}
+    real = {name: getattr(mod, name) for mod, name in targets}
+
+    def wrap(name):
+        def record(*args):
+            calls[name].append([a.cpu() if torch.is_tensor(a) else a
+                                for a in args])
+            return real[name](*args)
+        return record
+    for mod, name in targets:
+        setattr(mod, name, wrap(name))
+    try:
+        yield calls
+    finally:
+        for mod, name in targets:
+            setattr(mod, name, real[name])
 
 
 def peak_rows(rng, m, n_regions, region_rows=(3, 40), min_pq=2.0,
@@ -668,12 +696,59 @@ LIBM_OPS = {
     "lgamma": (10, 97), "ddiv": (4, 16)}
 
 
+def scan_bytes(m, groups, lam):
+    """K1: packed int32 in, groups x f32 coverage (+ f32 p) out."""
+    return 4 * m * (1 + groups + (lam is not None))
+
+
+def stats_bytes(m):
+    """K2: ev, cr f32 and the excluded mask in, -log10 p f32 out."""
+    return 13 * m
+
+
+def peak_reduce_bytes(first, last):
+    """K4's bytes on these candidates: 13 per row of an existing peak
+    (starts, ends, stat, sig; the summit's p and q are two rows more),
+    16 per candidate in and 24 out."""
+    rows = int((last - first + 1).clamp_min(0).sum())
+    return 13 * rows + 40 * first.shape[0]
+
+
 def gap_join_bytes(m, k):
     """The gap-join's bytes on m rows and k slots: starts, ends, stat
     and live in (13 per row), sig and skp out (2 per row), first, last
     and exists out (17 per slot), and the count.  Its operations (a few
     integer compares per row) bind far below its bytes."""
     return 15 * m + 17 * k + 8
+
+
+def call_work(name, args):
+    """The bytes and operations of one call of kernel wrapper ``name``
+    (K1, K2, K5 or K4 by its key of ``kernels.LAUNCHES``) on its
+    arguments ``args``, as ``recording`` keeps them: {"bytes",
+    "fp32_ops", "fp64_ops"}.  K1 in lambda mode counts its p-value
+    branches on the coverage its plain version gives."""
+    from .ops import scan
+    fp32 = fp64 = 0       # K5 and K4: bytes only, as chip_smoke.py counts
+    if name == "coverage_scan":
+        packed, groups, carry, lam = (list(args) + [None])[:4]
+        m = packed.shape[0]
+        cov = None if lam is None else scan.coverage_scan_plain(
+            packed, groups, carry)[0][0]
+        nbytes = scan_bytes(m, groups, lam)
+        fp32 = coverage_scan_opcount(m, groups, cov, lam)["fp32_ops"]
+    elif name == "tile_stats":
+        nbytes = stats_bytes(args[0].shape[0])
+        fp32 = tile_stats_opcount(*args)["fp32_ops"]
+    elif name == "gap_join":
+        m = args[0].shape[0]
+        nbytes = gap_join_bytes(m, min(args[6], m))
+    elif name == "peak_reduce":
+        nbytes = peak_reduce_bytes(args[6], args[7])
+    else:
+        raise ValueError(f"no byte count for kernel {name}")
+    return {"bytes": int(nbytes), "fp32_ops": int(fp32),
+            "fp64_ops": int(fp64)}
 
 
 def bound(nbytes, fp32_ops=0, fp64_ops=0):

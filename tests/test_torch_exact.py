@@ -8,7 +8,9 @@ Queue 3), and a test worker runs other files' in-process ``-P`` runs
 after this file.  Cases: every flag set of
 ``test_torch_host.FLAG_SETS`` (``-X`` then ``-P`` in one process on each
 side), the six fixtures of ``test_engine_jax_cli.py`` (the 3 Gbp
-``chrBig`` one among them) and three replicates with ``-q``.  Every file
+``chrBig`` one among them), three replicates with ``-q`` and two
+replicates with their controls under Genrich's ChIP flags (``-t a,b -c
+c,c -r -E x.bed -e chr2 -p 0.01 -a 20``).  Every file
 a run writes (narrowPeak, ``-f``, ``-k``, ``-b``, ``-R``; ``-z`` outputs
 decompressed) must be byte-identical, and so must the ``-v`` stderr.
 
@@ -127,7 +129,8 @@ def test_flag_set_identical(flag_inputs, tmp_path, flags, capsys,
 
 def _fixture(d, case):
     """argv (outputs relative) of one case: test_engine_jax_cli.py's six
-    fixtures, and three replicates with -q."""
+    fixtures, three replicates with -q, and two with controls and the
+    ChIP flags."""
     base = ["-o", "out.np", "-y", "-p", "0.01", "-a", "20", "-v"]
     sam = str(d / "in.sam")
     if case == "boundaries":
@@ -153,6 +156,16 @@ def _fixture(d, case):
         (d / "x.bed").write_text("chr1\t2000\t9000\n")
         return ["-t", sam] + base + ["-c", str(d / "c.sam"), "-E",
                                      str(d / "x.bed"), "-q", "0.5"]
+    if case == "chip_fisher":
+        # Genrich's ChIP flags on two replicates with their controls
+        oracle.random_sam(sam, seed=84)
+        oracle.random_sam(str(d / "b.sam"), seed=85, n_pairs=250)
+        oracle.random_sam(str(d / "c.sam"), seed=86, cluster=False,
+                          n_pairs=200)
+        (d / "x.bed").write_text("chr1\t2000\t9000\nchr1\t40000\t41000\n")
+        c = str(d / "c.sam")
+        return ["-t", f"{sam},{d / 'b.sam'}", "-c", f"{c},{c}", "-r",
+                "-E", str(d / "x.bed"), "-e", "chr2", "-f", "f.log"] + base
     if case == "logs":
         oracle.random_sam(sam, seed=91)
         return ["-t", sam] + base + ["-f", "f.log", "-k", "k.log"]
@@ -164,7 +177,7 @@ def _fixture(d, case):
 
 @pytest.mark.parametrize("case", ["boundaries", "bam", "fisher",
                                   "ctrl_excl", "logs", "big_chrom",
-                                  "three_reps_q"])
+                                  "three_reps_q", "chip_fisher"])
 def test_fixture_identical(tmp_path, case, capsys, monkeypatch):
     args = _fixture(tmp_path, case)
     want, got = _both(tmp_path, [args], capsys, monkeypatch)

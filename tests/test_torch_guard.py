@@ -99,7 +99,8 @@ def test_every_module_imports_without_jax(tmp_path):
     modules = r.stdout.split("MODULES")[1].split("\n")[0].split()
     assert int(modules[0]) >= 50
     assert {"genrich_tpu_torch.pipeline", "genrich_tpu_torch.tools",
-            "genrich_tpu_torch.tools.find_ns"} <= set(modules[1:])
+            "genrich_tpu_torch.tools.find_ns",
+            "genrich_tpu_torch.bench"} <= set(modules[1:])
 
 
 REFUSED = ("jax", "genrich_tpu")
@@ -316,3 +317,37 @@ def test_bad_device_rejected(tmp_path, sam):
     r = _port(["-t", sam, "-o", "out.np", "--device", "tpu"],
               str(tmp_path))
     assert r.returncode == 1 and "--device" in r.stderr
+
+
+_BENCH = """
+import sys
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "genrich_tpu"):
+            raise ImportError("refused: " + name)
+        return None
+sys.meta_path.insert(0, Refuse())
+import torch
+from genrich_tpu_torch import bench
+out = bench.kernel_legs(torch.device("cpu"), reps=1, prod_reps=1,
+                        tile_len=1 << 20, events=1 << 10, batch=4,
+                        batch_prod=4, genome_len=1 << 22, n_single=1)
+print("SUM", out["kernel"]["dispatch_sum"] > 0)
+print("LOADED", sorted({m.split(".")[0] for m in sys.modules}
+                       & {"jax", "genrich_tpu"}))
+sys.exit(bench.main(["--kernel-only"]))
+"""
+
+
+def test_bench_runs_with_jax_and_genrich_tpu_refused(tmp_path):
+    """The bench's kernel legs run with both imports refused, and its
+    entry point without a card fails (``--device cuda``, the default)
+    before it measures anything: no fall-back to the CPU."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the bench would run")
+    r = subprocess.run([sys.executable, "-c", _BENCH], cwd=str(tmp_path),
+                       capture_output=True, text=True, env=_env())
+    assert "SUM True" in r.stdout and "LOADED []" in r.stdout, r.stderr
+    assert r.returncode == 1 and "no CUDA card" in r.stderr
+    assert not (tmp_path / ".bench_cache").exists()

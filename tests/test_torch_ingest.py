@@ -116,3 +116,30 @@ def test_cli_warns_and_uses_the_python_reader_when_no_library(
                                                    "ingest unavailable")
     assert native._lib is None
     assert out == _run(tmp_path, "python", sam, ["--ingest", "python"])
+
+
+def test_pair_index_tab_without_the_symbol_falls_back(monkeypatch):
+    """A library that loads but lacks ``gi_pair_index_tab`` (one built
+    from older sources): ``pair_index_tab`` returns None, and the
+    p-value stage takes numpy's route to the same rows and table."""
+    import numpy as np
+    from genrich_tpu_torch.engine import pvalue
+
+    rng = np.random.default_rng(11)
+    expt = rng.integers(0, 40, 5000).astype(np.float32) / 4
+    ctrl = rng.integers(1, 9, 5000).astype(np.float32) / 2
+    ctrl[rng.random(5000) < 0.05] = -1.0                 # SKIP rows
+    ends = np.cumsum(rng.integers(1, 300, 5000)).astype(np.int64)
+    key = (expt.view(np.uint32).astype(np.uint64) << np.uint64(32)) \
+        | ctrl.view(np.uint32).astype(np.uint64)
+    uk = np.unique(key)
+    want = pvalue.calc_pval_unique_tab(ends, expt, ctrl)
+
+    class Stale:
+        """A loaded library without the symbol."""
+    monkeypatch.setattr(native, "_load", lambda build=True: Stale())
+    assert native.pair_index_tab(key, uk, ends) is None
+    got = pvalue.calc_pval_unique_tab(ends, expt, ctrl)
+    assert np.array_equal(got[0], want[0])
+    for a, b in zip(got[1], want[1]):
+        assert np.array_equal(a, b)

@@ -15,7 +15,9 @@ its host fallback there (columns 1-6 and 8-10 equal, column 7 within
 sharded engine on two gloo ranks whose tiles' largest counts differ:
 both ranks re-dispatch with the same slots and write one process's
 bytes.  Last, a -g longer than the sharded engine's tiles would be:
-the tiles grow past it and the peaks stay on the device.
+the tiles grow past it and the peaks stay on the device; a -g longer
+than its largest tile: each chromosome's peaks are called once over its
+gathered rows, on one rank and on two.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 import conftest  # noqa: F401  (8 virtual CPU devices for JAX)
 
@@ -174,13 +177,37 @@ def test_sharded_gap_longer_than_a_tile_stays_on_the_device(tmp_path,
     ``prepare`` lengthens the tiles past the gap, so no chromosome goes
     to the host peak caller, and the rows are the exact engine's
     (columns 1-6 identical, 7 within 1e-6 relative, 8-9 within 1e-5,
-    column 10 by ``check_summits``); a gap that not even a
-    ``MAX_TILE_LEN`` tile holds is refused."""
+    column 10 by ``check_summits``).  A gap that not even a
+    ``MAX_TILE_LEN`` tile holds calls each chromosome's peaks once over
+    its gathered rows, on the device too: the bytes of TorchEngine, and
+    the exact engine's rows by the same rule, but column 7 within 1e-5:
+    such a gap joins chr1 into one 963-kbp peak, whose AUC the exact
+    engine sums row by row in float32 and the CPU's plain K4 as a
+    float64 prefix difference (1.3e-6 apart; K4 on the card sums as the
+    exact engine does)."""
     sam = many_peaks_sam(str(tmp_path / "in.sam"))
-    args = ["-t", sam, "-y", "-p", "0.01", "-a", "20", "-g", "200000"]
-    log = str(tmp_path / "e.log")
-    pipeline.run(params.parse_args(args + ["-o", str(tmp_path / "e.np"),
-                                           "-f", log]), engine=None)
+    huge = str(ShardedTorchEngine.MAX_TILE_LEN)
+    for gap, tile_len, auc_tol in (("200000", 1 << 18, 1e-6),
+                                   (huge, 1 << 28, 1e-5)):
+        args = ["-t", sam] + FLAGS + ["-g", gap]
+        perf = _gap_runs(tmp_path, args, monkeypatch, gap == huge)
+        assert perf["grid_tile_len"] == tile_len
+        assert perf["host_peak_chroms"] == 0
+        assert (perf["straddling_peaks"] > 0) == (gap == "200000")
+        _same_as_exact(tmp_path, auc_tol)
+
+
+def _gap_runs(tmp_path, args, monkeypatch, like_torch_engine,
+             patch=lambda: None):
+    """The exact engine (e.np, e.log) and the sharded engine on 8 shards
+    (s.np, host peak caller refused) on ``args``; with
+    ``like_torch_engine`` also TorchEngine (t.np), whose bytes the
+    sharded run must write.  ``patch`` sets the test's own patches again
+    after the host peak caller's is undone.  Returns the sharded run's
+    perf."""
+    pipeline.run(params.parse_args(args + [
+        "-o", str(tmp_path / "e.np"), "-f", str(tmp_path / "e.log")]),
+        engine=None)
 
     def refuse(*a, **kw):
         raise AssertionError("host peak caller called")
@@ -188,23 +215,116 @@ def test_sharded_gap_longer_than_a_tile_stays_on_the_device(tmp_path,
     perf = {}
     pipeline.run(params.parse_args(args + ["-o", str(tmp_path / "s.np")]),
                  engine=ShardedTorchEngine("cpu", n_shards=8), perf=perf)
-    assert perf["grid_tile_len"] == 1 << 18
-    assert perf["host_peak_chroms"] == 0 and perf["straddling_peaks"] > 0
+    if like_torch_engine:
+        pipeline.run(params.parse_args(args + ["-o",
+                                               str(tmp_path / "t.np")]),
+                     engine=TorchEngine("cpu"))
+        assert (tmp_path / "s.np").read_bytes() \
+            == (tmp_path / "t.np").read_bytes()
+    monkeypatch.undo()
+    patch()
+    return perf
+
+
+def _same_as_exact(tmp_path, auc_tol):
+    """s.np against the exact engine's e.np: columns 1-6 identical, 7
+    within ``auc_tol`` relative, 8-9 within 1e-5, column 10 by
+    ``check_summits`` on e.log; fewer than 20 rows (clusters joined
+    across the long gap)."""
     exact = (tmp_path / "e.np").read_text().splitlines()
     got = (tmp_path / "s.np").read_text().splitlines()
-    assert 0 < len(got) == len(exact) < 20   # clusters joined across gaps
+    assert 0 < len(got) == len(exact) < 20
     for a, b in zip(exact, got):
         fa, fb = a.split("\t"), b.split("\t")
         assert fa[:6] == fb[:6], (a, b)
-        for i, tol in ((6, 1e-6), (7, 1e-5), (8, 1e-5)):
+        for i, tol in ((6, auc_tol), (7, 1e-5), (8, 1e-5)):
             x, y = float(fa[i]), float(fb[i])
             assert abs(x - y) <= tol * max(1.0, abs(x)), (a, b)
-    check_summits(exact, got, log, 1e-5)
-    huge = str(ShardedTorchEngine.MAX_TILE_LEN)
-    with pytest.raises(ValueError, match=f"-g {huge}"):
-        pipeline.run(params.parse_args(
-            args[:-1] + [huge, "-o", str(tmp_path / "h.np")]),
-            engine=ShardedTorchEngine("cpu", n_shards=8))
+    check_summits(exact, got, str(tmp_path / "e.log"), 1e-5)
+
+
+# One rank of the two-process run of the chromosome peak call: argv is
+# repo, tests, then the CLI flags; prints the rows and slots of every
+# chromosome call and perf.
+_CHROM_WORKER = """
+import json, sys
+sys.path[:0] = sys.argv[1:3]
+import torch.distributed as td
+from genrich_tpu_torch import params, pipeline
+from genrich_tpu_torch.engine import sharded_bridge
+from genrich_tpu_torch.engine.sharded_bridge import ShardedTorchEngine
+ShardedTorchEngine.MAX_TILE_LEN = 1 << 17
+real = sharded_bridge.chrom_peaks
+calls = []
+def spy(*args):
+    calls.append((args[0].shape[0], args[-1]))
+    return real(*args)
+sharded_bridge.chrom_peaks = spy
+perf = {}
+pipeline.run(params.parse_args(sys.argv[3:]),
+             engine=ShardedTorchEngine("cpu", n_shards=8), perf=perf)
+print(json.dumps({"calls": calls, "tile_len": perf["grid_tile_len"],
+                  "host": perf["host_peak_chroms"]}))
+td.destroy_process_group()
+"""
+
+
+def test_sharded_gap_past_the_largest_tile_joins_cut_rows(tmp_path,
+                                                          monkeypatch):
+    """With ``MAX_TILE_LEN`` cut to 2^17 bp, a -g of 200,000 reaches the
+    tiles, so each chromosome's peaks are called once over its rows of
+    every tile, with each row that a tile boundary cut joined back into
+    one: TorchEngine's bytes (the longest-interval summit and the AUC
+    see whole intervals), the exact engine's rows.  Then on two gloo
+    ranks, four tiles each: both gather the same rows, launch the same
+    slots and write the bytes of one process."""
+    sam = many_peaks_sam(str(tmp_path / "in.sam"))
+    args = ["-t", sam] + FLAGS + ["-g", "200000"]
+    rows = {"sharded": [], "jax": []}
+    real = torch_bridge.chrom_peaks
+
+    def spy(kind):
+        def keep(starts, ends, pv, live, *rest):
+            on = live & (ends > starts)
+            rows[kind].append((starts[on], ends[on], pv[on]))
+            return real(starts, ends, pv, live, *rest)
+        return keep
+
+    def patch():
+        monkeypatch.setattr(ShardedTorchEngine, "MAX_TILE_LEN", 1 << 17)
+        monkeypatch.setattr(sharded_bridge, "chrom_peaks", spy("sharded"))
+        monkeypatch.setattr(torch_bridge, "chrom_peaks", spy("jax"))
+    patch()
+    perf = _gap_runs(tmp_path, args, monkeypatch, True, patch)
+    assert perf["grid_tile_len"] == 1 << 17
+    assert perf["host_peak_chroms"] == perf["straddling_peaks"] == 0
+    # the exact engine's intervals, as TorchEngine holds them: every row
+    # that 2^17-bp tiles cut is whole again
+    assert len(rows["sharded"]) == len(rows["jax"]) == 2
+    for got, want in zip(rows["sharded"], rows["jax"]):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    _same_as_exact(tmp_path, 1e-5)       # chr1 is one peak again
+
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("XLA_FLAGS", "PYTHONPATH")}
+    env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+               WORLD_SIZE="2", GLOO_SOCKET_IFNAME="lo")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _CHROM_WORKER, REPO, HERE] + args
+        + ["-o", str(tmp_path / f"r{i}.np")], env={**env, "RANK": str(i)},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in (0, 1)]
+    logs = [p.communicate(timeout=300) for p in procs]
+    for i, p in enumerate(procs):
+        assert p.returncode == 0, f"rank {i}:\n{logs[i][1][-2000:]}"
+    ranks = [json.loads(out.splitlines()[-1]) for out, _ in logs]
+    assert ranks[0] == ranks[1]
+    assert ranks[0]["tile_len"] == 1 << 17 and ranks[0]["host"] == 0
+    assert [c[0] for c in ranks[0]["calls"]] == [
+        r[0].shape[0] for r in rows["sharded"]]
+    one = (tmp_path / "s.np").read_bytes()
+    assert (tmp_path / "r0.np").read_bytes() == one \
+        == (tmp_path / "r1.np").read_bytes()
 
 
 # A rank of the two-process capped run: argv is repo, tests, then the CLI
