@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (genrich_tpu_torch) on one card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phase sharded_cards]
+
+It needs one card; phase 14 spans every card the machine has.
 
 Phases, each printed on its own line; any failure raises and exits
 non-zero, and the result line is printed only when every phase passed:
@@ -27,13 +29,12 @@ non-zero, and the result line is printed only when every phase passed:
    missing, one child process each, all started before the build and
    awaited before this phase.
 4. Main path: the 2M-pair ATAC BAM on the 2.75 Gbp human-scale genome
-   of scripts/bench_e2e.py, the JAX package's ``--engine exact -v`` once
-   (in a child process that loads the native library the port's
-   ``ensure_native()`` found) and the port's ``--engine exact -v`` once
-   in this process (host code only), each writing an -f log too:
-   narrowPeak, log and -v stderr byte-identical, both walls printed.
-   Then the port twice in this process (cold, warm) with ``-r -j -q
-   0.05 -a 20 --device cuda``.  Checks: K1, K2, K5 and K4 launched in
+   of scripts/bench_e2e.py, the port's ``--engine exact -v`` once in
+   this process (host code only; tests/test_torch_exact.py holds its
+   bytes to the JAX package's exact engine on every flag set), writing
+   an -f log too: its wall and each output's md5 printed, the oracle of
+   every device run.  Then the port twice in this process (cold, warm)
+   with ``-r -j -q 0.05 -a 20 --device cuda``.  Checks: K1, K2, K5 and K4 launched in
    each run, the fragment sums, lambda and factor each device run
    takes beside the port's exact engine's (equal: every term of these
    BAMs is an integer), native ingest in every run, the peak rows
@@ -65,12 +66,12 @@ non-zero, and the result line is printed only when every phase passed:
    design (``csrc/reference/gapjoin_first.cu``), twice in a row, one
    kernel and no memset per call, times beside the first design's.
 5. Control: ``-t A -c B`` (B the second 2M-pair BAM, seed 8), the
-   same flags; both exact engines once, the port cold and warm, the
+   same flags; the exact engine once, the port cold and warm, the
    same checks as the main path.  One more run keeps the inputs of its
    merge, K2, K5 and K4 calls (its K2 calls are the only ones where
    the control varies from row to row): each on them as on the main
    path's.
-6. Fisher: ``-t A,B``, the same flags; both exact engines once, the
+6. Fisher: ``-t A,B``, the same flags; the exact engine once, the
    port cold and warm.  Checks: the same row rule, cold == warm bytes,
    K1 and K2 launched 6 times, K3 3 times, K4 and K5 at least 3 times
    per run.  One more run keeps the inputs of its K3 and K5 calls: K3
@@ -106,21 +107,21 @@ non-zero, and the result line is printed only when every phase passed:
    ``--engine jax`` again and ``--engine exact``, on the main path's
    BAM and flags.  Statuses OK OK OK OK ERR OK OK; each engine's warm
    file equals its cold one and the in-process run of the same engine
-   (phases 4 and 7; the exact line's, the port's exact file of phase
-   4); every device line's JSON has ingest_s, upload_bytes, dispatch_n
+   (phases 4 and 7; the exact line's, the exact file of phase 4);
+   every device line's JSON has ingest_s, upload_bytes, dispatch_n
    and fetch_s, the exact line's ingest_s and findpeaks_s; the walls,
    cold beside warm.
 10. Logs (depth cut to a 200,000-pair BAM: every log row is text on
-   both sides): ``-f f.log -k k.log`` with the same flags; both exact
-   engines byte-identical (narrowPeak, both logs, -v stderr), then the
-   port on the card against the exact logs by ``testing.check_log``.
+   both sides): ``-f f.log -k k.log`` with the same flags; the exact
+   engine once (each output's md5 printed), then the port on the card
+   against the exact logs by ``testing.check_log``.
 11. ChIP-seq: Genrich's ChIP flags (no -j, ``-r -p 0.01 -a 20 -E
    blk.bed -e chr3``; chr3 stands in for chrM), the blacklist written
    by ``testing.blacklist_regions`` (seed 10: 1,000 regions of 1-50 kb
    on chr1 and chr2, overlapping and adjacent pairs, one across each
    2^28-bp tile boundary, one at chr1's end, one from the midpoint of
    the strongest main-path peak of chr1 and of chr2 on).  ``chip``:
-   ``-t A -c B``, both exact engines byte-identical, an exact peak
+   ``-t A -c B``, the exact engine's md5s printed, an exact peak
    ending at each cut, TorchEngine cold and warm by the gates of phase
    4, then K1, the merge, K2 (on rows with excluded flags; none is a
    fault), K5 and K4 on its own calls.  ``chip_fisher``: ``-t A,B -c
@@ -149,9 +150,24 @@ non-zero, and the result line is printed only when every phase passed:
    the bench's ``atac`` end-to-end leg, one rep, ``--engine jax`` (its
    serve output must be the main path's bytes).  Its seconds are
    printed.
-14. The last lines: the kernels JSON (``launches_by_path`` with the
-   ChIP paths and the bench, each kernel's sums on them under
-   ``<path>_path``, K1's lambda mode on the bench's light tile under
+14. Sharded over the cards (``sharded_cards``): ``--engine sharded
+   --device cuda`` with no process group, spanning every card of the
+   machine, cold and warm, then once over two contexts on cuda:0 (so a
+   one-card machine still drives the in-process collectives), on the
+   main path's BAM and flags and on ``chip_fisher``: each output the
+   recorded md5 (main 1e5d8a67..., chip_fisher 2aa2ffba...) and the
+   bytes of TorchEngine and of the one-card sharded engine (phases 4,
+   7, 11 and 12), no chromosome on the host peak caller, K1, K2, K5 and
+   K4 (and K3 on chip_fisher) launched on every card
+   (``kernels.CARD_LAUNCHES``, the counts set to 0 just before each
+   run and read just after); the card count, each run's wall and each
+   card's peak memory printed.  ``python3 chip_smoke.py --phase
+   sharded_cards`` runs phase 1, the build, the BAMs and this phase
+   alone (making its one-card references on cuda:0), with no result
+   line.
+15. The last lines: the kernels JSON (``launches_by_path`` with the
+   ChIP paths, the bench and ``sharded_cards``, each kernel's sums on
+   them under ``<path>_path``, K1's lambda mode on the bench's light tile under
    ``lambda_mode.bench_path``), the
    nvidia-smi line and {"ok": true, "device": {...}}; neither jax nor
    genrich_tpu is ever imported in this process.  Each kernel's bound
@@ -1026,36 +1042,6 @@ def _native_used() -> bool:
     return native.available(build=False)
 
 
-# The JAX package's exact engine runs in a child process, so that this
-# one never imports jax or genrich_tpu; it loads the native library that
-# the port's ensure_native() found (argv[2]) and prints the wall of its
-# cli.main call, then, last, whether that library served the run.
-_EXACT = ("import sys, time; sys.path.insert(0, sys.argv[1]); "
-          "from genrich_tpu.ingest import native; "
-          "native._SO = sys.argv[2]; "
-          "from genrich_tpu import cli; "
-          "t0 = time.perf_counter(); rc = cli.main(sys.argv[3:]); "
-          "print(time.perf_counter() - t0); "
-          "print(native.available(build=False)); sys.exit(rc)")
-NATIVE_SO = {}
-
-
-def run_exact(label: str, args):
-    """The JAX package's ``--engine exact -v`` on ``args`` in a child
-    process; returns the wall of its ``cli.main`` call and its stderr."""
-    r = subprocess.run([sys.executable, "-c", _EXACT, REPO,
-                        NATIVE_SO["path"]] + args
-                       + ["-v", "--engine", "exact"],
-                       capture_output=True, text=True)
-    if r.returncode != 0:
-        raise AssertionError(f"exact engine ({label}) exit code "
-                             f"{r.returncode}: {r.stderr[-2000:]}")
-    wall, used = r.stdout.split()[-2:]
-    if used != "True":
-        raise AssertionError(f"exact engine ({label}) used Python ingest")
-    return float(wall), r.stderr
-
-
 def run_port_exact(label: str, args):
     """The port's ``--engine exact -v`` on ``args`` in this process (host
     code only); returns its wall and its stderr."""
@@ -1074,43 +1060,28 @@ def run_port_exact(label: str, args):
     return wall, err.getvalue()
 
 
-def exact_pair(label: str, args, outputs, jax=True):
-    """``--engine exact`` of the JAX package (child) and of the port (this
-    process) on ``args``; ``outputs`` maps each output flag to the
-    (JAX, port) paths.  Every output file and the -v stderr must be
-    byte-identical.  Prints both walls: host seconds of each side's
-    ``cli.main`` call on the card's machine.  Without ``jax`` only the
-    port's runs, writing the first paths: it is the oracle."""
-    def with_outputs(side):
-        return args + [x for flag, paths in outputs.items()
-                       for x in (flag, paths[side])]
-    if not jax:
-        with probe(EXACT_LAMBDA.setdefault(label, {})):
-            port_wall, _ = run_port_exact(label, with_outputs(0))
-        say(f"{label}_exact", port_wall_s=port_wall, jax="not run",
-            walls="host s of the port's cli.main", ingest="native",
-            peaks=sum(1 for _ in open(outputs["-o"][0])))
-        return None, port_wall
-    jax_wall, jax_err = run_exact(label, with_outputs(0))
+def _md5(path) -> str:
+    import hashlib
+    with open(path, "rb") as f:
+        return hashlib.md5(f.read()).hexdigest()
+
+
+def exact_oracle(label: str, args, outputs):
+    """The port's ``--engine exact -v`` (this process, host code only)
+    on ``args``, writing ``outputs`` ({output flag: path}): the oracle
+    of the device paths (tests/test_torch_exact.py holds its bytes to
+    the JAX package's on every flag set).  Prints its wall (host
+    seconds of its ``cli.main`` call on the card's machine), its peak
+    count and each output's md5."""
     with probe(EXACT_LAMBDA.setdefault(label, {})):
-        port_wall, port_err = run_port_exact(label, with_outputs(1))
-    same = {flag: open(a, "rb").read() == open(b, "rb").read()
-            for flag, (a, b) in outputs.items()}
-    say(f"{label}_exact", jax_wall_s=jax_wall, port_wall_s=port_wall,
-        walls="host s of cli.main; JAX in a child process, port here",
-        peaks=sum(1 for _ in open(outputs["-o"][0])), ingest="native",
-        identical=same, stderr_identical=jax_err == port_err,
-        stderr_lines=jax_err.count("\n"))
-    if not all(same.values()):
-        raise AssertionError(f"{label}: the port's exact engine wrote other "
-                             f"bytes than the JAX package's: {same}")
-    if jax_err != port_err:
-        diff = [(a, b) for a, b in zip(jax_err.splitlines(),
-                                       port_err.splitlines()) if a != b]
-        raise AssertionError(f"{label}: -v stderr differs: {diff[:3]} "
-                             f"({jax_err.count(chr(10))} / "
-                             f"{port_err.count(chr(10))} lines)")
-    return jax_wall, port_wall
+        port_wall, err = run_port_exact(label, args + [
+            x for flag, path in outputs.items() for x in (flag, path)])
+    say(f"{label}_exact", port_wall_s=port_wall,
+        walls="host s of the port's cli.main", ingest="native",
+        peaks=sum(1 for _ in open(outputs["-o"])),
+        md5={flag: _md5(path) for flag, path in outputs.items()},
+        stderr_lines=err.count("\n"))
+    return port_wall
 
 
 @contextmanager
@@ -1155,23 +1126,23 @@ def probe(seen):
 def run_port(label: str, args, seen=None):
     """One port run on the card; returns (wall, launches, perf, memory).
     ``seen`` gets what ``probe`` records."""
-    import torch
     from genrich_tpu_torch import cli, kernels
+    from genrich_tpu_torch.engine import perf as eperf
     perf = {}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    eperf.synchronize_cards()
+    eperf.reset_peak_memory()
     kernels.reset_launches()
     t0 = time.perf_counter()
     with probe({} if seen is None else seen):
         rc = cli.main(args + ["--device", DEV], perf=perf)
-    torch.cuda.synchronize()
+    eperf.synchronize_cards()
     wall = time.perf_counter() - t0
     counts = dict(kernels.LAUNCHES)
     if rc != 0:
         raise AssertionError(f"port run ({label}) exit code {rc}")
     if not _native_used():
         raise AssertionError(f"port run ({label}) used Python ingest")
-    return wall, counts, perf, torch.cuda.max_memory_allocated()
+    return wall, counts, perf, max(eperf.peak_memory())
 
 
 EXACT_LAMBDA = {}    # path -> the port's exact engine's probe record
@@ -1196,10 +1167,10 @@ def _lambda_line(name, ref, seen):
 
 
 def peak_runs(name: str, ts, need, extra=(), ref=None, flags=FLAGS,
-              thresh=Q_THRESH, jax_exact=True):
-    """Exact once (unless ``ref`` names the exact engine's file of an
-    earlier phase on the same input; the JAX package's beside the port's
-    with ``jax_exact``), then the port cold and warm on ``-t ts``, the
+              thresh=Q_THRESH):
+    """The port's exact engine once (unless ``ref`` names the exact
+    engine's file of an earlier phase on the same input), then the port
+    cold and warm on ``-t ts``, the
     flags ``extra`` and ``flags`` (whose significance threshold is
     ``thresh``); checks the rows, the launch counts (``need(counts)``
     returns a fault or None), that no chromosome went to the host peak
@@ -1212,11 +1183,8 @@ def peak_runs(name: str, ts, need, extra=(), ref=None, flags=FLAGS,
     ref_np = os.path.join(run_dir, f"{ref or name}_exact.np")
     ref_log = os.path.join(run_dir, f"{ref or name}_exact.log")
     if ref is None:
-        exact_pair(name, ["-t", ts, *extra] + flags, {
-            "-o": (ref_np, os.path.join(run_dir, f"{name}_port_exact.np")),
-            "-f": (ref_log, os.path.join(run_dir,
-                                         f"{name}_port_exact.log"))},
-                   jax=jax_exact)
+        exact_oracle(name, ["-t", ts, *extra] + flags,
+                   {"-o": ref_np, "-f": ref_log})
     counts = {}
     for label in ("cold", "warm"):
         out_np = os.path.join(run_dir, f"{name}_port_{label}.np")
@@ -1619,7 +1587,7 @@ def serve_phase(bam):
     same = {}
     for engine, in_process in (("jax", "main_port_cold"),
                                ("sharded", "sharded_port_cold"),
-                               ("exact", "main_port_exact")):
+                               ("exact", "main_exact")):
         files = [read(os.path.join(run_dir, f"{label}.np"))
                  for label, e in SERVE_LINES if e == engine]
         ref = read(os.path.join(WORK, "chip_smoke", f"{in_process}.np"))
@@ -1636,17 +1604,14 @@ def serve_phase(bam):
 def logs_path(bam):
     run_dir = os.path.join(WORK, "chip_smoke", "logs")
     out = {}
-    for side in ("exact", "port_exact", "port"):
+    for side in ("exact", "port"):
         os.makedirs(os.path.join(run_dir, side), exist_ok=True)
 
     def path(side, name):
         return os.path.join(run_dir, side, name)
-    jax_wall, port_wall = exact_pair("logs", ["-t", bam] + FLAGS, {
-        flag: (path("exact", name), path("port_exact", name))
-        for flag, name in (("-o", "out.np"), ("-f", "f.log"),
-                           ("-k", "k.log"))})
-    out["exact"] = {"wall_s": jax_wall}
-    out["port_exact"] = {"wall_s": port_wall}
+    out["exact"] = {"wall_s": exact_oracle("logs", ["-t", bam] + FLAGS, {
+        flag: path("exact", name) for flag, name in (
+            ("-o", "out.np"), ("-f", "f.log"), ("-k", "k.log"))})}
     wall, counts, perf, mem = run_port("logs", [
         "-t", bam, "-o", path("port", "out.np"), "-f", path("port", "f.log"),
         "-k", path("port", "k.log")] + FLAGS)
@@ -1723,7 +1688,7 @@ def _chip_targets(sharded):
 
 
 def chip_path(name, bam_t, bam_c, flags, sharded=False):
-    """``-t bam_t -c bam_c`` with the ChIP flags: both exact engines
+    """``-t bam_t -c bam_c`` with the ChIP flags: the exact engine
     (once, on TorchEngine's run), the port cold and warm, then K1, the
     merge, K2 (on rows with excluded flags: none is a fault), K5 and K4
     on the inputs of its own calls.  Returns the warm run's counts and
@@ -1748,8 +1713,8 @@ def chip_path(name, bam_t, bam_c, flags, sharded=False):
 
 def chip_fisher_path(name, bams_t, bam_c, flags, sharded=False):
     """``-t A,B -c C,C`` with the ChIP flags: the port's exact engine
-    alone is the oracle (the JAX package's is left out for the smoke's
-    time), then the port cold and warm, then K1, the merge, K2 (on rows
+    is the oracle, then the port cold and warm, then K1, the merge, K2
+    (on rows
     with excluded flags: none is a fault), K3 over the controlled
     replicates, K5 and K4 on the inputs of its own calls."""
     from genrich_tpu_torch.ops import compact
@@ -1757,8 +1722,7 @@ def chip_fisher_path(name, bams_t, bam_c, flags, sharded=False):
         + (["--engine", "sharded"] if sharded else [])
     counts, perf = peak_runs(name, bams_t, _need_every, extra,
                              ref="chip_fisher" if sharded else None,
-                             flags=flags, thresh=CHIP_THRESH,
-                             jax_exact=False)
+                             flags=flags, thresh=CHIP_THRESH)
     if sharded:
         _need_nccl()
     calls = kernel_inputs(name, bams_t, _chip_targets(sharded)
@@ -1987,20 +1951,176 @@ def bench_phase(bam_a):
     return counts, sums, k1["light"]
 
 
+# --- the sharded engine over every card -------------------------------------
+
+# md5 of each path's narrowPeak on every device engine (one card), as
+# PERF.md records them
+RECORDED_MD5 = {"main": "1e5d8a6750aa937e48894003dd79f644",
+                "chip_fisher": "2aa2ffbacf1e7c6d96266eee9563a21b"}
+
+
+def _card_run(label, args, engine=None):
+    """One port run of ``args`` with the counts set to 0 just before it
+    and read just after: through ``cli.main`` (``args`` name the engine
+    and device), or with ``engine`` through ``pipeline.run``.  Returns
+    (wall, per-card launches, perf, per-card peak memory)."""
+    from genrich_tpu_torch import cli, kernels, pipeline
+    from genrich_tpu_torch.engine import perf as eperf
+    perf = {}
+    eperf.synchronize_cards()
+    eperf.reset_peak_memory()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    if engine is None:
+        rc = cli.main(args, perf=perf)
+    else:
+        engine.begin_run()
+        pipeline.run(cli.parse_port_args(args), engine=engine, perf=perf)
+        rc = 0
+    eperf.synchronize_cards()
+    wall = time.perf_counter() - t0
+    cards = {i: dict(c) for i, c in kernels.CARD_LAUNCHES.items()}
+    if rc != 0:
+        raise AssertionError(f"{label}: exit code {rc}")
+    if not _native_used():
+        raise AssertionError(f"{label} used Python ingest")
+    return wall, cards, perf, eperf.peak_memory()
+
+
+def _one_card_refs(name, args):
+    """TorchEngine's and the one-card sharded engine's files of a path
+    (phases 4, 7, 11 and 12 wrote them; made here on cuda:0 when this
+    phase runs alone)."""
+    run_dir = os.path.join(WORK, "chip_smoke")
+    refs = {"torch": f"{name}_port_cold.np",
+            "one_card": ("sharded_port_cold.np" if name == "main"
+                         else f"{name}_sharded_port_cold.np")}
+    for kind, fname in refs.items():
+        path = refs[kind] = os.path.join(run_dir, fname)
+        if not os.path.exists(path):
+            engine = "jax" if kind == "torch" else "sharded"
+            _card_run(f"{name} {kind}", args + [
+                "-o", path, "--engine", engine, "--device", "cuda:0"])
+    return refs
+
+
+def sharded_cards_phase(bam_a, bam_b, bam_c, bed):
+    """``--engine sharded`` with no process group over every card of the
+    machine (``--device cuda``), cold and warm, then once over two
+    contexts on cuda:0 (``ShardedTorchEngine(["cuda:0", "cuda:0"])``:
+    on one card the in-process collectives still run), on the main
+    path's BAM and flags and on ``chip_fisher``.  Each output must have
+    the recorded md5 and equal TorchEngine's and the one-card sharded
+    engine's bytes; no chromosome may go to the host peak caller; each
+    card must launch K1, K2, K5 and K4 (and K3 on ``chip_fisher``).
+    Prints the card count, each run's wall, launches and peak memory
+    per card.  Returns the main path's cold launches, summed over the
+    cards."""
+    import torch
+    from genrich_tpu_torch.engine.sharded_bridge import ShardedTorchEngine
+    from genrich_tpu_torch import kernels
+    n_cards = torch.cuda.device_count()
+    zero = dict.fromkeys(kernels.LAUNCHES, 0)
+    run_dir = os.path.join(WORK, "chip_smoke", "sharded_cards")
+    os.makedirs(run_dir, exist_ok=True)
+    paths = [("main", ["-t", bam_a] + FLAGS, _need_main),
+             ("chip_fisher", ["-t", f"{bam_a},{bam_b}", "-c",
+                              f"{bam_c},{bam_c}"] + chip_flags(bed),
+              _need_every)]
+    main_counts = None
+    for name, args, need in paths:
+        refs = _one_card_refs(name, args)
+        want = {k: open(p, "rb").read() for k, p in refs.items()}
+        for label in ("cold", "warm", "two_contexts"):
+            out = os.path.join(run_dir, f"{name}_{label}.np")
+            if label == "two_contexts":
+                engine = ShardedTorchEngine(["cuda:0", "cuda:0"])
+                wall, cards, perf, mem = _card_run(
+                    f"{name} {label}", args + ["-o", out], engine)
+                shards = engine.world
+                engine.release()
+            else:
+                wall, cards, perf, mem = _card_run(
+                    f"{name} {label}", args + ["-o", out, "--engine",
+                                               "sharded", "--device",
+                                               "cuda"])
+                shards = n_cards
+            got = open(out, "rb").read()
+            md5 = _md5(out)
+            used = [0] if label == "two_contexts" else range(n_cards)
+            faults = {i: need({**zero, **cards.get(i, {})}) for i in used}
+            faults = {i: f for i, f in faults.items() if f}
+            say(f"sharded_cards_{name}_{label}", cards=n_cards,
+                shards=shards, wall_s=wall, md5=md5,
+                recorded_md5=RECORDED_MD5[name],
+                equal_to_torch_engine=got == want["torch"],
+                equal_to_one_card=got == want["one_card"],
+                launches_by_card=cards, max_memory_allocated_by_card=mem,
+                host_peak_chroms=perf["host_peak_chroms"],
+                grid=(perf["grid_tile_len"], perf["grid_tiles"]),
+                straddling_peaks=perf["straddling_peaks"],
+                fetch_n=perf["fetch_n"], dispatch_n=perf["dispatch_n"],
+                ingest_s=perf.get("ingest_s"),
+                device_rep_s=perf.get("device_rep_s"),
+                findpeaks_s=perf.get("findpeaks_s"))
+            if md5 != RECORDED_MD5[name] or got != want["torch"] \
+                    or got != want["one_card"]:
+                raise AssertionError(f"sharded_cards {name} {label}: md5 "
+                                     f"{md5}, not the recorded bytes")
+            if perf["host_peak_chroms"]:
+                raise AssertionError(f"sharded_cards {name} {label}: the "
+                                     f"host peak caller ran")
+            if faults:
+                raise AssertionError(f"sharded_cards {name} {label}: "
+                                     f"{faults}: {cards}")
+            if name == "main" and label == "cold":
+                main_counts = {k: sum(c[k] for c in cards.values())
+                               for k in zero}
+    return main_counts
+
+
+T0 = time.perf_counter()
 T0 = time.perf_counter()
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--phase", "sharded_cards"]):
+        raise SystemExit("usage: chip_smoke.py [--phase sharded_cards]")
     smi = card()
     start_synth()
     try:
-        return run_phases(smi)
+        return run_sharded_cards() if argv else run_phases(smi)
     finally:
         stop_synth()
 
 
+def _blacklist() -> str:
+    """Phase 11's blacklist, written now (with the main path's exact file
+    it needs) when phase 14 runs alone."""
+    path = os.path.join(WORK, "chip_smoke", "blk.bed")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if not os.path.exists(path):
+        ref = os.path.join(WORK, "chip_smoke", "main_exact.np")
+        if not os.path.exists(ref):
+            exact_oracle("main", ["-t", synth_bam("a")] + FLAGS, {"-o": ref})
+        path = write_blacklist()[0]
+    return path
+
+
+def run_sharded_cards() -> int:
+    """``--phase sharded_cards``: the build, the BAMs and phase 14 alone
+    (the one-card references it needs made on cuda:0); no result
+    line."""
+    build()
+    bams = [synth_bam(k) for k in ("a", "b", "c")]
+    sharded_cards_phase(*bams, _blacklist())
+    say("done", seconds=time.perf_counter() - T0)
+    return 0
+
+
 def run_phases(smi) -> int:
-    NATIVE_SO["path"] = build()
+    build()
     bam_a, bam_b, bam_c, bam_log = (synth_bam(k)
                                     for k in ("a", "b", "c", "log"))
     entries = scan_stats_phase() + [fisher_phase()]
@@ -2049,6 +2169,8 @@ def run_phases(smi) -> int:
     chip_counts, chip_sums = chip_phases(bam_a, bam_b, bam_c)
     bench_counts, chip_sums["bench"], lam_bench = bench_phase(bam_a)
     chip_counts["bench"] = bench_counts
+    chip_counts["sharded_cards"] = sharded_cards_phase(bam_a, bam_b, bam_c,
+                                                       _blacklist())
     entries[0]["lambda_mode"]["bench_path"] = lam_bench
     entries[0]["lambda_mode"]["p_max_abs_err"] = max(
         entries[0]["lambda_mode"]["p_max_abs_err"], lam_bench["p_max_abs_err"])

@@ -31,8 +31,8 @@ End-to-end legs (``bench_e2e``): the 2M-pair BAMs that ``chip_smoke.py``
 caches in ``.bench_cache/`` (``BAMS``; made by ``scripts/perf_synth.py``
 in child processes when missing), five configurations (``CONFIGS``),
 each on ``--engine exact -v`` in a child process and on ``--engine
-jax`` and ``--engine sharded`` through one ``--serve`` child each (the
-sharded one under a one-rank process group: NCCL on the card).  A cold
+jax`` and ``--engine sharded`` through one ``--serve`` child each (no
+process group: the sharded one spans every card the child sees).  A cold
 line per device engine, then ``reps`` paired reps: the exact run, then
 one serve line of each device engine.  Each device output must pass
 ``_verify_rows`` against the exact engine's and equal its cold output
@@ -54,7 +54,6 @@ import math
 import os
 import shlex
 import shutil
-import socket
 import subprocess
 import sys
 import threading
@@ -502,12 +501,6 @@ def _run_rss(cmd, cwd, timeout, extra_env=None):
             ru.ru_maxrss / 1024.0)
 
 
-def _free_port():
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
-
-
 class ServeClient:
     """Drives one ``python -m genrich_tpu_torch --serve --device D``
     child: one analysis per line; its stderr goes to ``log``."""
@@ -693,12 +686,15 @@ def e2e_config(name, bams, clients, reps, run_dir, timeout, par_leg):
         perfs = [p for _, p in warm[eng]]
         stages = {k: [p.get(k) for p in perfs]
                   for k in ("ingest_s", "device_rep_s", "findpeaks_s")}
-        mem = [p.get("max_memory_allocated") for p in [cold[eng][1]] + perfs]
+        mem = [p.get("max_memory_allocated_by_card")
+               for p in [cold[eng][1]] + perfs]
+        mem = [max(card) for card in zip(*(m for m in mem if m))]
         res[eng] = dict(_stat(walls), cold_s=cold[eng][0],
                         load_s=cold[eng][0] - _median(walls),
                         cold_stages={k: cold[eng][1].get(k) for k in stages},
                         stages=stages, max_memory_allocated=max(
-                            (m for m in mem if m is not None), default=None),
+                            mem, default=None),
+                        max_memory_allocated_by_card=mem or None,
                         perf_median_rep=perfs[walls.index(_median(walls))])
         ratios = [t / w for t, w in zip(ex_t, walls)]
         res["paired"][eng] = {"ratio_rep": ratios,
@@ -759,14 +755,10 @@ def bench_e2e(bams, configs, reps, device="cuda", engines=ENGINES,
     clients = {}
     try:
         for eng in engines:
-            # the sharded engine joins a one-rank group: NCCL on the
-            # card, gloo (on the loopback) on the CPU
-            extra = {"MASTER_ADDR": "127.0.0.1",
-                     "MASTER_PORT": str(_free_port()), "RANK": "0",
-                     "WORLD_SIZE": "1", "GLOO_SOCKET_IFNAME": "lo"} \
-                if eng == "sharded" else None
+            # no process group: the sharded engine spans every card
+            # the child sees
             clients[eng] = ServeClient(run_dir, device, os.path.join(
-                run_dir, f"serve_{eng}.log"), extra, ready_timeout=timeout)
+                run_dir, f"serve_{eng}.log"), ready_timeout=timeout)
         out["serve_ready_s"] = {e: c.ready_s for e, c in clients.items()}
         for name in configs:
             out["configs"][name] = e2e_config(name, bams, clients, reps,

@@ -8,9 +8,11 @@ Flags are parsed by ``params.parse_args``; the analysis is
 ``pipeline.run`` with a device engine on the chosen device (default
 ``cuda``; no card is an error, never a silent switch to the CPU).
 ``--engine jax`` selects ``TorchEngine``, ``--engine sharded`` the
-tile-sharded ``ShardedTorchEngine`` (one rank, or a
+tile-sharded ``ShardedTorchEngine``: over every card the process sees
+for ``--device cuda`` (``CUDA_VISIBLE_DEVICES`` restricts them;
+``--device cuda:i`` pins one), or one card a rank of a
 ``torch.distributed`` group joined from ``MASTER_ADDR``/``MASTER_PORT``/
-``WORLD_SIZE``/``RANK``); the names are the JAX package's, so its
+``WORLD_SIZE``/``RANK``; the names are the JAX package's, so its
 argument strings run unchanged.  The port's default engine is ``jax``;
 the JAX package's (the ``Params`` default) is ``exact``.  ``--engine
 exact`` is the host engine by name, as in the JAX package:
@@ -28,6 +30,7 @@ to stderr and exit 1.
 
 from __future__ import annotations
 
+import re
 import sys
 from typing import List, Optional, Tuple
 
@@ -36,7 +39,7 @@ from .errors import GenrichError
 from .params import (DEFATAC, DEFAUC, DEFMAXGAP, DEFMINLEN, DEFPVAL,
                      Params, UsageRequested, VersionRequested, parse_args)
 
-DEVICES = ("cuda", "cpu")
+DEVICES = ("cuda", "cpu")       # and "cuda:<index>"
 
 USAGE = f"""Usage: genrich-tpu  -t <file>  -o <file>  [optional arguments]
 Required arguments:
@@ -76,11 +79,12 @@ Other options:
 
 
 EXTRA_USAGE = """Options of the PyTorch port:
-  --device <str>   cuda (def.) or cpu; not read by --engine exact
+  --device <str>   cuda (def.; sharded: every visible card), cuda:<i>
+                     or cpu; not read by --engine exact
   --engine <str>   jax (def.; one tensor per chromosome), sharded
-                     (tiles; torch.distributed ranks from MASTER_ADDR,
-                     MASTER_PORT, WORLD_SIZE, RANK) or exact (the host
-                     engine: numpy, no device)
+                     (tiles over the cards; one card a torch.distributed
+                     rank from MASTER_ADDR, MASTER_PORT, WORLD_SIZE,
+                     RANK) or exact (the host engine: numpy, no device)
   --serve          One analysis per stdin line (READY; OK/ERR per line)
 """
 
@@ -92,9 +96,11 @@ def _split_device(argv: List[str]) -> Tuple[str, List[str]]:
     i = 0
     while i < len(argv):
         if argv[i] == "--device":
-            if i + 1 >= len(argv) or argv[i + 1] not in DEVICES:
+            if i + 1 >= len(argv) or not (
+                    argv[i + 1] in DEVICES
+                    or re.fullmatch(r"cuda:\d+", argv[i + 1])):
                 raise ValueError("--device takes one of: "
-                                 + ", ".join(DEVICES))
+                                 + ", ".join(DEVICES) + ", cuda:<index>")
             device = argv[i + 1]
             i += 2
             continue

@@ -250,21 +250,23 @@ extern "C" int fisher_combine_launch(const float* pv, int r, int64_t n,
                                      float* out, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   if (r < 1 || r > MAX_R) return (int)cudaErrorInvalidValue;
-  static int grid_cap = 0;
-  if (grid_cap == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                   dev);
+  // resident blocks of the current device, read once per device
+  static int grid_caps[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (grid_caps[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &per_sm, fisher_combine_kernel, THREADS, 0);
     if (err != cudaSuccess) return (int)err;
-    grid_cap = sms * (per_sm > 0 ? per_sm : 1);
+    grid_caps[dev] = sms * (per_sm > 0 ? per_sm : 1);
   }
   int64_t blocks = (n + THREADS - 1) / THREADS;
-  if (blocks > grid_cap) blocks = grid_cap;
+  if (blocks > grid_caps[dev]) blocks = grid_caps[dev];
   fisher_combine_kernel<<<(unsigned)blocks, THREADS, 0,
                           (cudaStream_t)stream>>>(pv, r, n, out);
   return (int)cudaGetLastError();

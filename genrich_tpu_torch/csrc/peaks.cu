@@ -383,20 +383,22 @@ peak_reduce_kernel(Rows r, const int64_t* __restrict__ first,
   }
 }
 
+// Resident blocks of the current device, read once per device.
 int grid_size() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess
-        || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
-               != cudaSuccess
+  static int cache[64];
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64)
+    return 132;
+  if (cache[dev] == 0) {
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
+            != cudaSuccess
         || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                &per_sm, peak_reduce_kernel, THREADS, 0) != cudaSuccess
         || per_sm < 1)
       return 132;
-    n = sms * per_sm;
+    cache[dev] = sms * per_sm;
   }
-  return n;
+  return cache[dev];
 }
 
 }  // namespace

@@ -165,27 +165,29 @@ extern "C" int tile_stats_launch(const float* expt, const float* ctrl_raw,
                                  float lam, float* pval, int64_t m,
                                  void* scratch, void* stream) {
   if (m <= 0) return (int)cudaSuccess;
-  static int grid_cap = 0;
-  if (grid_cap == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                   dev);
+  // resident blocks of the current device, read once per device
+  static int grid_caps[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (grid_caps[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &per_sm, tile_stats_kernel, THREADS, 0);
     if (err != cudaSuccess) return (int)err;
-    grid_cap = sms * (per_sm > 0 ? per_sm : 1);
+    grid_caps[dev] = sms * (per_sm > 0 ? per_sm : 1);
   }
   Tables* t = static_cast<Tables*>(scratch);
   const cudaStream_t s = (cudaStream_t)stream;
   tile_stats_table_kernel<<<2 * TABLE / THREADS, THREADS, 0, s>>>(factor,
                                                                   lam, t);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   int64_t blocks = (m + THREADS - 1) / THREADS;
-  if (blocks > grid_cap) blocks = grid_cap;
+  if (blocks > grid_caps[dev]) blocks = grid_caps[dev];
   tile_stats_kernel<<<(unsigned)blocks, THREADS, 0, s>>>(
       expt, ctrl_raw, excluded, factor, lam, t, pval, m);
   return (int)cudaGetLastError();

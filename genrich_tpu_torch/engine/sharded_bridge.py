@@ -26,14 +26,26 @@ Reference semantics per stage (float32, as TorchEngine):
                     distinct-value BH, host float32 sweep)
   peak calling      callPeaks             Genrich.c:977-1069
 
-On one card the grid degenerates gracefully: ``n_shards`` (the JAX
-engine's mesh size D) is 1, and a chromosome of the 2.75 Gbp main-path
-genome is five tiles of 2^28 bp.  Under a process group
+With no process group the engine spans the cards it is given, one
+shard each, as the JAX engine's mesh spans ``jax.devices()``: "cuda"
+is every card the process sees (``CUDA_VISIBLE_DEVICES`` restricts
+it), "cuda:i" one card, "cpu" one CPU context, and a list of devices
+those (a device may repeat; the tests pass several "cpu" entries).
+Each chromosome's tiles go to the cards in contiguous blocks, the host
+splits the events once and each card receives its own tiles', every
+step is issued to every card before any result is read, and the
+collectives of ``parallel/mesh.py`` over a ``CardGroup`` (peer copies)
+couple them.  Under a process group
 (``parallel/distributed.init_distributed``: NCCL on CUDA, gloo on the
-CPU) each rank holds its block of tiles and the collectives of
-``parallel/mesh.py`` couple them; ``n_shards`` defaults to the group's
-size.  Tests pass ``n_shards=8`` to cut the grid as the JAX tests' 8
-virtual devices do.
+CPU) each rank keeps one card (``rank_device``) and the collectives
+span the ranks.  ``n_shards`` (the JAX engine's mesh size D) defaults
+to the shards in all; on one card a chromosome of the 2.75 Gbp
+main-path genome is five tiles of 2^28 bp.  Tests pass ``n_shards=8``
+to cut the grid as the JAX tests' 8 virtual devices do.
+
+The engine's per-chromosome state holds one tensor a card in a list;
+host reads pull every card's rows (``_pull``: one accounted fetch a
+card) and join them in shard order.
 
 What the JAX engine does for the TPU and this one does not: no monotone
 event-width floor and no power-of-two size buckets (eager PyTorch needs
@@ -45,6 +57,7 @@ not the uint16-length wire.
 from __future__ import annotations
 
 import time
+from functools import partial
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -54,11 +67,12 @@ from .. import kernels
 from ..ops.compact import assign_qvals
 from ..ops.peaks import TilePeaks
 from ..ops.pipeline import TileResult
-from ..parallel.distributed import (init_distributed, local_tile_range,
-                                    rank_device)
-from ..parallel.mesh import (PEAK_CAP, ShardedKernels, gather_rows,
-                             merge_tile_peaks, world_rank,
-                             split_events_flat, split_excl_to_tiles)
+from ..parallel.distributed import (init_distributed, local_devices,
+                                    local_tile_range, rank_device)
+from ..parallel.mesh import (PEAK_CAP, CardGroup, ShardedKernels, each,
+                             gather_ragged, gather_rows, merge_tile_peaks,
+                             world_rank, split_events_flat,
+                             split_excl_to_tiles)
 from . import qvalue
 from .host_fallback import INT32_MAX, HostChromMixin
 from .perf import PerfMixin
@@ -67,21 +81,6 @@ from .torch_bridge import (PEAK_CAP as CHROM_PEAK_CAP, SKIP, check_device,
                            chrom_peaks, fetch_chrom_peaks, pow2)
 
 F32 = np.float32
-
-
-def gather_ragged(x: torch.Tensor, group) -> torch.Tensor:
-    """Rank-local 1-D rows of any length -> every rank's rows
-    concatenated in rank order, on every rank; ``x`` without a group."""
-    if group is None:
-        return x
-    n = gather_rows(torch.tensor([x.shape[0]], device=x.device),
-                    group).tolist()
-    width = max(n)
-    if width == 0:
-        return x
-    pad = torch.zeros(width - x.shape[0], dtype=x.dtype, device=x.device)
-    parts = gather_rows(torch.cat([x, pad]), group).split(width)
-    return torch.cat([part[:k] for part, k in zip(parts, n)])
 
 
 def expand_flat(fs, fe, fc, off, n_tiles: int, width: int, tile_len: int):
@@ -105,22 +104,39 @@ def expand_flat(fs, fe, fc, off, n_tiles: int, width: int, tile_len: int):
 
 
 class ShardedTorchEngine(PerfMixin, HostChromMixin):
-    """Per-run sharded device context on one explicit ``device``."""
+    """Per-run sharded device context over ``device``: every card the
+    process sees for "cuda", one for "cuda:i" or "cpu", or a list of
+    devices; under a process group the rank's one card."""
 
     MAX_TILE_LEN = 1 << 28   # keeps positions well inside int32; a
                              # chromosome longer than D * cap gets
                              # several tiles per shard
 
-    def __init__(self, device, n_shards: Optional[int] = None,
+    def __init__(self, device="cuda", n_shards: Optional[int] = None,
                  min_tile_len: int = 1 << 16):
-        device = check_device(device)
-        self.group = init_distributed(device)
-        self.world, self.rank = world_rank(self.group)
-        self.device = rank_device(device, self.rank)
+        listed = isinstance(device, (list, tuple))
+        for d in device if listed else [device]:
+            check_device(d)
+        devices = local_devices(device)
+        # under a process group a bare "cuda" is the rank's card
+        procs = init_distributed(devices[0] if listed else device)
+        if procs is not None:
+            if listed and len(devices) > 1:
+                raise ValueError("several cards a rank of a process group "
+                                 "are not supported")
+            devices = [rank_device(devices[0] if listed else device,
+                                   world_rank(procs)[1])]
+        for d in devices:
+            # a card that cannot take a tensor fails here, not mid-run
+            torch.zeros(1, device=d)
+        self.devices = devices
+        self.device = devices[0]
+        self.cards = CardGroup(devices, procs)
+        self.world, self.rank = world_rank(self.cards)
         self.D = self.world if n_shards is None else int(n_shards)
         if self.D < 1 or self.D % self.world:
             raise ValueError(f"n_shards={self.D} must be a positive "
-                             f"multiple of the {self.world} ranks")
+                             f"multiple of the {self.world} shards")
         self.min_tile_len = min_tile_len
         self._kernels: Dict[int, ShardedKernels] = {}
         self._chrom: Dict[int, dict] = {}
@@ -141,6 +157,55 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
                          peak_redispatch=0,
                          interval_rows=0, real_rows=0, merged_rows=0,
                          merged_width=0)
+
+    # --- cards -----------------------------------------------------------
+
+    def _step(self, fn, *args, **kw):
+        """A step over every card, accounted as one dispatch a card;
+        list arguments hold one value a card (``ShardedKernels``' steps
+        take them whole)."""
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        p = self.perf
+        p["dispatch_n"] += len(self.devices)
+        p["dispatch_s"] += time.perf_counter() - t0
+        return out
+
+    def _each(self, fn, *args, **kw):
+        """``fn`` on each card's values (``mesh.each``), accounted."""
+        return self._step(each, fn, *args, **kw)
+
+    def _put_all(self, arr) -> list:
+        """One host array on every card."""
+        return [self._put(arr, d) for d in self.devices]
+
+    def _pull(self, values, ragged: bool = False) -> list:
+        """Per-card values -> numpy, each every shard's rows in shard
+        order: across a process group gathered first (1-D rows of any
+        length with ``ragged``), then pulled from each card (one
+        accounted fetch a card) and joined on the host.  ``values`` may
+        be a generator: it runs inside the fetch, so the host syncs of
+        its selections are accounted as the fetch they are."""
+        procs = self.cards.procs
+        sizes = []
+
+        def flat():
+            for v in values:
+                if procs is not None:
+                    v = [(gather_ragged if ragged else gather_rows)(
+                        v[0], procs)]
+                sizes.append(len(v))
+                yield from v
+        got = iter(self._fetch_many(flat()))
+        return [np.concatenate(g) if len(g) > 1 else g[0]
+                for g in ([next(got) for _ in range(n)] for n in sizes)]
+
+    def _blocks(self, r: range) -> List[range]:
+        """This process's tiles ``r`` cut into one contiguous block a
+        card, in card order."""
+        per = len(r) // len(self.devices)
+        return [range(r.start + c * per, r.start + (c + 1) * per)
+                for c in range(len(self.devices))]
 
     # --- grid ------------------------------------------------------------
 
@@ -190,18 +255,21 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
         k = self._kernels.get(tile_len)
         if k is None:
             k = self._kernels[tile_len] = ShardedKernels(tile_len,
-                                                         group=self.group)
+                                                         group=self.cards)
         return k
 
     # --- input staging ---------------------------------------------------
 
-    def _stage_events(self, s, e, c, off, w: int, tile_len: int):
+    def _stage_events(self, s, e, c, off, w: int, tile_len: int,
+                      device=None):
         """Upload one flat tile-major event triple (``split_events_flat``:
         int32 starts and ends, count codes as uint8) and its int64 [T+1]
-        offsets; the device gathers each tile's slice into the [T, w]
-        layout and writes the padding rows itself."""
-        return self._call(expand_flat, self._put(s), self._put(e),
-                          self._put(c.astype(np.uint8)), self._put(off),
+        offsets to ``device`` (the first card by default); the device
+        gathers each tile's slice into the [T, w] layout and writes the
+        padding rows itself."""
+        put = partial(self._put, device=device)
+        return self._call(expand_flat, put(s), put(e),
+                          put(c.astype(np.uint8)), put(off),
                           off.shape[0] - 1, w, tile_len)
 
     # --- stage 1: coverage (resident) -------------------------------------
@@ -210,42 +278,49 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
                        bed: List[int], chrom_len: int) -> tuple:
         """Per-tile coverage of one chromosome (asynchronous); returns
         the gathered per-tile fragment sums, or floats for a host
-        chromosome (over 2^31-1 bp)."""
+        chromosome (over 2^31-1 bp).  The host splits the events once;
+        each card receives its block's."""
         if chrom_len > INT32_MAX:
             return self.host_coverage_chrom(cidx, expt_ev, ctrl_ev,
                                             bed, chrom_len)
         tile_len, n_tiles, limit = self._grid(chrom_len)
-        r = local_tile_range(n_tiles)
+        blocks = self._blocks(local_tile_range(n_tiles))
         kern = self._kern(tile_len)
-        staged = []
-        for ev in (expt_ev, ctrl_ev):
+        staged = [[] for _ in range(6)]
+        for j, ev in enumerate((expt_ev, ctrl_ev)):
             if ev is None:
                 ev = (np.zeros(0, np.int64),) * 3
             s, e, c, off = split_events_flat(ev[0], ev[1], ev[2], n_tiles,
                                              tile_len)
-            # every rank pads to the widest tile of all, so the gathered
+            # every card pads to the widest tile of all, so the gathered
             # [t, ...] arrays agree in shape
             w = int(np.diff(off).max())
-            lo, hi = off[r.start], off[r.stop]
-            staged += self._stage_events(s[lo:hi], e[lo:hi], c[lo:hi],
-                                         off[r.start:r.stop + 1] - lo, w,
-                                         tile_len)
-        excl = self._put(split_excl_to_tiles(bed, n_tiles,
-                                             tile_len)[r.start:r.stop])
-        limit = limit[r.start:r.stop]
+            for r, dev in zip(blocks, self.devices):
+                lo, hi = off[r.start], off[r.stop]
+                for i, x in enumerate(self._stage_events(
+                        s[lo:hi], e[lo:hi], c[lo:hi],
+                        off[r.start:r.stop + 1] - lo, w, tile_len, dev)):
+                    staged[3 * j + i].append(x)
+        excl_all = split_excl_to_tiles(bed, n_tiles, tile_len)
+        excl = [self._put(excl_all[r.start:r.stop], d)
+                for r, d in zip(blocks, self.devices)]
+        limit = [limit[r.start:r.stop] for r in blocks]
+        cuts = [b for b in bed if 0 < b < chrom_len]
         (starts, ends, ev, cr, excluded, live, frag_all, cfrag_all,
-         level) = self._call(kern.cov, *staged, excl, limit, levels=True)
+         level) = self._step(kern.cov, *staged, excl, limit, levels=True)
         # tiles whose start is an -E coordinate (a tile-local pair that
         # starts at 0 may be the rest of one cut by the boundary)
-        tile_bound = np.isin(np.arange(r.start, r.stop) * tile_len,
-                             [b for b in bed if 0 < b < chrom_len])
+        tile_bound = [self._put(np.isin(np.arange(r.start, r.stop)
+                                        * tile_len, cuts), d)
+                      for r, d in zip(blocks, self.devices)]
         self._chrom[cidx] = {
             "starts": starts, "ends": ends, "ev": ev, "cr": cr,
             "excluded": excluded, "live": live, "len": chrom_len,
             "tile_len": tile_len, "limit": limit, "level": level,
-            "excl": excl, "tile_bound": self._put(tile_bound),
+            "excl": excl, "tile_bound": tile_bound,
         }
-        return frag_all, cfrag_all
+        # every card holds the gathered sums: the first card's are read
+        return frag_all[0], cfrag_all[0]
 
     def coverage_finish(self, handles) -> Tuple[float, float]:
         """Resolve coverage handles (one pull): float64 sums of the
@@ -272,43 +347,44 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
         for st in self._chrom.values():
             if st.get("host"):
                 continue
-            st["pv"] = self._call(ShardedKernels.stats, st["ev"], st["cr"],
+            st["pv"] = self._each(ShardedKernels.stats, st["ev"], st["cr"],
                                   st["excluded"], self._lam, self._factor)
         self.host_stats(lam, factor)
 
     def merge_rows(self) -> None:
         """Each tile's rows merged into the exact engine's intervals
         (``ShardedKernels.runs``), the [t, M] layout narrowed to the
-        widest tile's interval count on any rank: one pull of every
-        chromosome's gathered counts.  ``cont`` stays for the summits
-        and AUCs of peaks that straddle a tile boundary."""
+        widest tile's interval count on any shard: one pull of every
+        chromosome's counts.  ``cont`` stays for the summits and AUCs of
+        peaks that straddle a tile boundary."""
         pend = []
         keys = ("starts", "ends", "ev", "cr", "excluded")
         for st in self._chrom.values():
             if st.get("host"):
                 continue
             kern = self._kern(st["tile_len"])
-            width = st["starts"].numel() * self.world
-            out = self._call(kern.runs, *(st[key] for key in keys),
+            width = sum(x.numel() for x in st["starts"]) \
+                * self.world // len(self.devices)
+            out = self._step(kern.runs, *(st[key] for key in keys),
                              st["live"], st.pop("level"), st.pop("excl"),
                              st.pop("tile_bound"), self._lam, self._factor)
             st.update(zip(keys, out[:5]), cont=out[7])
-            n = out[5]
-            pend.append((st, width, n, torch.stack([kern.gather(n),
-                                                    kern.gather(out[6])])))
+            pend.append((st, width, out[5], out[6]))
         if not pend:
             return
+        got = self._pull(x for _, _, n, rows in pend for x in (n, rows))
         p = self.perf
-        for (st, width, n, _), counts in zip(pend, self._fetch_many(
-                [c for *_, c in pend])):
-            k = max(int(counts[0].max()), 1)
+        for j, (st, width, ns, _) in enumerate(pend):
+            n, rows = got[2 * j], got[2 * j + 1]
+            k = max(int(n.max()), 1)
             p["interval_rows"] += width
-            p["real_rows"] += int(counts[1].sum())
-            p["merged_rows"] += int(counts[0].sum())
-            p["merged_width"] += k * counts.shape[1]
+            p["real_rows"] += int(rows.sum())
+            p["merged_rows"] += int(n.sum())
+            p["merged_width"] += k * n.shape[0]
             for key in keys:
-                st[key] = st[key][:, :k].contiguous()
-            st["live"] = torch.arange(k, device=n.device) < n[:, None]
+                st[key] = [x[:, :k].contiguous() for x in st[key]]
+            st["live"] = [torch.arange(k, device=x.device) < x[:, None]
+                          for x in ns]
 
     # --- multi-replicate: archive + per-tile Fisher --------------------------
 
@@ -321,10 +397,10 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
             if st.get("host"):
                 rep[cidx] = self.host_archive(st)
                 continue
-            e_b, pv_b, b = self._call(ShardedKernels.rle_pv, st["starts"],
+            e_b, pv_b, b = self._each(ShardedKernels.rle_pv, st["starts"],
                                       st["ends"], st["pv"], st["live"],
                                       st["limit"])
-            edges = self._call(self._kern(st["tile_len"]).run_edges, pv_b, b)
+            edges = self._step(self._kern(st["tile_len"]).run_edges, pv_b, b)
             rep[cidx] = (e_b, pv_b, st["len"], st["tile_len"], st["limit"],
                          edges)
         self._reps.append(rep)
@@ -343,11 +419,13 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
                 self.host_fisher(cidx, present)
                 continue
             kern = self._kern(present[0][3])
-            starts, ends, comb, live = self._call(
+            starts, ends, comb, live = self._each(
                 kern.fisher(len(present)), *(p[0] for p in present),
                 *(p[1] for p in present))
-            cont = torch.stack([both & (first == prev_last) for *_, (
-                first, prev_last, both) in present]).all(0)
+            cont = [torch.stack([both[c] & (first[c] == prev_last[c])
+                                 for *_, (first, prev_last, both)
+                                 in present]).all(0)
+                    for c in range(len(self.devices))]
             self._chrom[cidx] = {
                 "starts": starts, "ends": ends, "pv": comb,
                 "live": live, "len": present[0][2],
@@ -362,7 +440,7 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
         st = self._chrom[cidx]
         if st.get("host"):
             return self.host_pval_pileup(st)
-        e_b, pv_b, b = self._call(ShardedKernels.rle_pv, st["starts"],
+        e_b, pv_b, b = self._each(ShardedKernels.rle_pv, st["starts"],
                                   st["ends"], st["pv"], st["live"],
                                   st["limit"])
         ends, (pv,) = self._stitch(e_b, (pv_b,), b, st)
@@ -374,7 +452,7 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
         st = self._chrom[cidx]
         if st.get("host"):
             return self.host_pvalue_pileups(st)
-        e_b, pv_b, ev_b, cv_b, b = self._call(
+        e_b, pv_b, ev_b, cv_b, b = self._each(
             ShardedKernels.rle, st["starts"], st["ends"], st["pv"], st["ev"],
             st["cr"], st["excluded"], st["live"], self._lam, self._factor)
         ends, (pv, ev, cv) = self._stitch(e_b, (pv_b, ev_b, cv_b), b, st)
@@ -386,7 +464,8 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
         return Pileup(ends, ev), Pileup(ends, cv), Pileup(ends, pv)
 
     def _stitch(self, e_b, vals, b, st):
-        """Per-tile RLE arrays of every rank -> one chromosome RLE (host).
+        """Per-tile RLE arrays of every shard -> one chromosome RLE
+        (host).
 
         Offsets tile-local ends to chromosome coordinates and merges
         the artificial run break at each tile boundary when the
@@ -394,8 +473,7 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
         run's companion values, i.e. the run's final boundary row).
         """
         tile_len = st["tile_len"]
-        kern = self._kern(tile_len)
-        fetched = self._fetch_many([kern.gather(x) for x in (b, e_b) + vals])
+        fetched = self._pull((b, e_b) + tuple(vals))
         b_np, e_np = fetched[0], fetched[1]
         v_np = list(fetched[2:])
         ends_parts, val_parts = [], [[] for _ in v_np]
@@ -421,12 +499,13 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
     # --- stage 3: q-values ---------------------------------------------------
 
     def qvalue_table(self, genome_len: int) -> bool:
-        """Exact genome-wide BH from the per-rank distinct (p, bp) tables.
+        """Exact genome-wide BH from the per-shard distinct (p, bp) tables.
 
         Every chromosome's table is submitted before any is pulled; a
         table that overflowed its width k is computed again, just for
         that chromosome, with k widened to fit -- loud, never a silent
-        truncation.
+        truncation.  Every card holds the gathered tables: the first
+        card's are read.
         """
         ps, ws = [], []
         pend = []
@@ -438,12 +517,12 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
                     ws.append(np.asarray(hw, np.uint64))
                 continue
             kern = self._kern(st["tile_len"])
-            pend.append((st, kern, self._call(
+            pend.append((st, kern, self._step(
                 kern.distinct, st["starts"], st["ends"], st["pv"],
                 st["live"])))
         d_nps = []
         while pend:
-            d_nps = self._fetch_many([out[2] for _, _, out in pend])
+            d_nps = self._fetch_many([out[2][0] for _, _, out in pend])
             redo = [i for i, ((_, kern, _), d_np)
                     in enumerate(zip(pend, d_nps))
                     if not (d_np <= kern.k).all()]
@@ -452,14 +531,14 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
             for i in redo:
                 st = pend[i][0]
                 kern = ShardedKernels(st["tile_len"],
-                                      pow2(int(d_nps[i].max())), self.group)
+                                      pow2(int(d_nps[i].max())), self.cards)
                 self._kernels[st["tile_len"]] = kern
-                pend[i] = (st, kern, self._call(
+                pend[i] = (st, kern, self._step(
                     kern.distinct, st["starts"], st["ends"], st["pv"],
                     st["live"]))
         if pend:
-            flat = self._fetch_many([x for _, _, (pv_all, w_all, _) in pend
-                                     for x in (pv_all, w_all)])
+            flat = self._fetch_many([x[0] for _, _, (pv_all, w_all, _)
+                                     in pend for x in (pv_all, w_all)])
             for j, ((_, kern, _), d_np) in enumerate(zip(pend, d_nps)):
                 pv_g, w_g = flat[2 * j], flat[2 * j + 1]
                 for i, d in enumerate(d_np):
@@ -469,15 +548,20 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
                         ws.append(w_g[i * kern.k:i * kern.k + d]
                                   .astype(np.uint64))
         if not ps:
-            z = torch.zeros(1, dtype=torch.float32, device=self.device)
+            z = self._zeros()
             self._qtable = (z, z)
             self._qtable_host = (np.zeros(0, F32), np.zeros(0, F32))
             return False
         uv, qv, tab_p, tab_q, _, all_one = \
             qvalue.merge_distinct_tables(ps, ws, genome_len, lo=1 << 8)
-        self._qtable = (self._put(tab_p), self._put(tab_q))
+        self._qtable = (self._put_all(tab_p), self._put_all(tab_q))
         self._qtable_host = (uv, qv)
         return all_one
+
+    def _zeros(self) -> list:
+        """A float32 [1] zero on every card."""
+        return [torch.zeros(1, dtype=torch.float32, device=d)
+                for d in self.devices]
 
     # --- stage 4: peaks ------------------------------------------------------
 
@@ -498,8 +582,7 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
         if use_q:
             tab_p, tab_q = self._qtable
         else:
-            tab_p = tab_q = torch.zeros(1, dtype=torch.float32,
-                                        device=self.device)
+            tab_p = tab_q = self._zeros()
         for key in ("ev", "cr", "excluded"):
             st.pop(key, None)
         if max_gap >= st["tile_len"]:
@@ -507,48 +590,55 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
             cap = min(CHROM_PEAK_CAP, rows[0].shape[0])
 
             def chrom(k):
-                return self._call(chrom_peaks, *rows, (tab_p, tab_q),
+                return self._call(chrom_peaks, *rows, (tab_p[0], tab_q[0]),
                                   min_pq, min_auc, min_len, max_gap, use_q,
                                   k)
             return "chrom", (chrom, chrom(cap), cap, rows[0].shape[0])
         kern = self._kern(st["tile_len"])
-        cap = min(PEAK_CAP, st["starts"].shape[1])
+        cap = min(PEAK_CAP, st["starts"][0].shape[1])
 
         def dispatch(k):
-            return self._call(kern.peaks(use_q, min_len, max_gap,
-                                         self.world > 1, k),
+            # not replicated: ``_pull`` gathers what the host merge needs
+            return self._step(kern.peaks(use_q, min_len, max_gap, False, k),
                               st["starts"], st["ends"], st["pv"], st["live"],
                               tab_p, tab_q, min_pq, min_auc)
         return "tiles", (dispatch, dispatch(cap), cap, st, min_pq, min_auc,
                          min_len, max_gap, use_q)
 
     def _chrom_rows(self, st):
-        """The chromosome's live, non-empty rows of every rank in genomic
-        order and chromosome coordinates (int32: a device chromosome is
-        under 2^31 bp), a row that a tile boundary cut in two (``cont``
-        of the later tile, as ``_row_order_peaks`` reads it) joined back
-        into the one interval it is: (starts, ends, p, live).  Every
-        rank holds the same rows, so every rank launches the same
-        shapes.  One accounted fetch: every rank's row count."""
+        """The chromosome's live, non-empty rows of every shard in
+        genomic order and chromosome coordinates (int32: a device
+        chromosome is under 2^31 bp), a row that a tile boundary cut in
+        two (``cont`` of the later tile, as ``_row_order_peaks`` reads
+        it) joined back into the one interval it is: (starts, ends, p,
+        live), on the first card (under a process group every rank
+        holds the same rows, so every rank launches the same shapes).
+        One accounted fetch: every shard's row count."""
         tl = st["tile_len"]
-        starts, ends = st["starts"], st["ends"]
-        t = starts.shape[0]
-        dev = starts.device
-        off = (torch.arange(t, dtype=torch.int64, device=dev)
-               + self.rank * t)[:, None] * tl
-        take = (st["live"] & (ends > starts)).reshape(-1)
-        cols = [(starts + off).reshape(-1), (ends + off).reshape(-1),
-                st["pv"].reshape(-1),
-                ((starts == 0) & st["cont"][:, None]).reshape(-1)]
-        n = self._fetch(gather_rows(take.sum(dtype=torch.int64).reshape(1),
-                                    self.group))
-        cols = [x[take] for x in cols]
-        if self.group is not None:
+        takes, cols = [], []
+        for c, (starts, ends) in enumerate(zip(st["starts"], st["ends"])):
+            t = starts.shape[0]
+            off = (torch.arange(t, dtype=torch.int64, device=starts.device)
+                   + (self.rank + c) * t)[:, None] * tl
+            takes.append((st["live"][c] & (ends > starts)).reshape(-1))
+            cols.append([(starts + off).reshape(-1),
+                         (ends + off).reshape(-1), st["pv"][c].reshape(-1),
+                         ((starts == 0) & st["cont"][c][:, None])
+                         .reshape(-1)])
+        n = self._pull([[x.sum(dtype=torch.int64).reshape(1)
+                         for x in takes]])[0]
+        cols = [[x[take] for x in col] for col, take in zip(cols, takes)]
+        dev = self.device
+        if self.cards.procs is not None:
             width = max(int(n.max()), 1)
             parts = [gather_rows(torch.cat([x, x.new_zeros(
-                width - x.shape[0])]), self.group).split(width) for x in cols]
+                width - x.shape[0])]), self.cards.procs).split(width)
+                for x in cols[0]]
             cols = [torch.cat([p[:int(k)] for p, k in zip(part, n)])
                     for part in parts]
+        else:
+            cols = [torch.cat([col[j].to(dev) for col in cols])
+                    for j in range(4)]
         g_start, g_end, pv, cont = cols
         cut = torch.zeros_like(cont)
         cut[1:] = cont[1:] & (g_start[1:] == g_end[:-1])
@@ -567,20 +657,20 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
         When a tile has more candidates than its slots, the chromosome's
         peak step runs again on the device with the largest count of its
         tiles, rounded up to a power of two (at most the tile width), as
-        every tile's slots (``perf["peak_redispatch"]``).  On several
-        ranks the counts are the gathered ones (``replicated``), so every
-        rank launches the same shape."""
+        every tile's slots (``perf["peak_redispatch"]``).  Every shard's
+        tiles are pulled (gathered across ranks), so every rank
+        launches the same shape."""
         kind, handle = handle
         if kind == "chrom":
             return fetch_chrom_peaks(self, handle)
         dispatch, res, cap, st, min_pq, min_auc, min_len, max_gap, use_q = \
             handle
-        res = self._fetch_many(res)
+        res = self._pull(res)
         n = int(res[-1].max())                 # n_peaks of every tile
         if n > cap:
             self.perf["peak_redispatch"] += 1
-            res = self._fetch_many(dispatch(
-                min(pow2(n), st["starts"].shape[1])))
+            res = self._pull(dispatch(
+                min(pow2(n), st["starts"][0].shape[1])))
         t0 = time.perf_counter()
         tile_len = st["tile_len"]
         # no AUC filter yet: a straddling peak's AUC changes below
@@ -614,33 +704,38 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
         row's midpoint, relative to p_start).  A row that a tile boundary
         cut in two (``cont`` of the later tile, from ``merge_rows`` or,
         on the Fisher path, ``finalize_fisher``) counts as the one
-        interval it is, at its full length.  Each rank selects the rows
-        of its own tiles; ranks hold consecutive tiles, so the gathered
-        rows are in genomic order.  Returns (auc,
-        summit p, summit q, summit offset) arrays."""
+        interval it is, at its full length.  Each card selects the rows
+        of its own tiles; shards hold consecutive tiles, so the pulled
+        rows are in genomic order.  Returns (auc, summit p, summit q,
+        summit offset) arrays."""
         tl = st["tile_len"]
-        starts, ends, pv = st["starts"], st["ends"], st["pv"]
-        stat = assign_qvals(pv.reshape(-1), *self._qtable).reshape(
-            pv.shape) if use_q else pv
         thr = F32(min_pq)
-        t = starts.shape[0]
-        dev = starts.device
-        off = (torch.arange(t, dtype=torch.int64, device=dev)
-               + self.rank * t)[:, None] * tl
-        g_start = (starts + off).reshape(-1)
-        g_end = (ends + off).reshape(-1)
-        cont = ((starts == 0) & st["cont"][:, None]).reshape(-1)
-        sig = st["live"] & (ends > starts) & (stat > float(thr))
-        peak = torch.searchsorted(torch.as_tensor(p_start, device=dev),
-                                  g_start, right=True) - 1
-        take = sig.reshape(-1) & (peak >= 0) & (
-            g_end <= torch.as_tensor(p_end, device=dev)[peak.clamp_min(0)])
-        # the generator runs inside the fetch, so the boolean selection's
-        # host sync is accounted as the fetch it is
-        peak, g_start, g_end, stat, pv, cont = self._fetch_many(
-            gather_ragged(x[take], self.group)
-            for x in (peak, g_start, g_end, stat.reshape(-1),
-                      pv.reshape(-1), cont))
+        sel = []
+        for c, (starts, ends, pv) in enumerate(zip(st["starts"], st["ends"],
+                                                   st["pv"])):
+            stat = assign_qvals(pv.reshape(-1), self._qtable[0][c],
+                                self._qtable[1][c]).reshape(pv.shape) \
+                if use_q else pv
+            t = starts.shape[0]
+            dev = starts.device
+            off = (torch.arange(t, dtype=torch.int64, device=dev)
+                   + (self.rank + c) * t)[:, None] * tl
+            g_start = (starts + off).reshape(-1)
+            g_end = (ends + off).reshape(-1)
+            cont = ((starts == 0) & st["cont"][c][:, None]).reshape(-1)
+            sig = st["live"][c] & (ends > starts) & (stat > float(thr))
+            peak = torch.searchsorted(torch.as_tensor(p_start, device=dev),
+                                      g_start, right=True) - 1
+            take = sig.reshape(-1) & (peak >= 0) & (
+                g_end <= torch.as_tensor(p_end, device=dev)[
+                    peak.clamp_min(0)])
+            sel.append(((peak, g_start, g_end, stat.reshape(-1),
+                         pv.reshape(-1), cont), take))
+        # the selections run inside the pull, whose fetch accounts their
+        # host syncs
+        peak, g_start, g_end, stat, pv, cont = self._pull(
+            ([cols[j][take] for cols, take in sel] for j in range(6)),
+            ragged=True)
         k = len(p_start)
         out = (np.zeros(k, F32), np.full(k, F32(SKIP)), np.full(k, F32(SKIP)),
                np.zeros(k, np.int64))
@@ -667,6 +762,7 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
         return out
 
     def release(self) -> None:
+        """Drop the run's tensors on every card (the kernels stay)."""
         self._chrom.clear()
         self._reps.clear()
         self._qtable = None

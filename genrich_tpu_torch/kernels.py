@@ -16,11 +16,12 @@ loads.  Those of K1-K3 include ``csrc/reference/pval_first.cuh``, a
 frozen copy of the p-value header, not ``csrc/pval.cuh``.
 
 ``LAUNCHES`` counts, per kernel, the calls of its wrapper that
-launched it on the card (the wrappers in ``ops/scan.py``,
-``ops/pipeline.py``, ``ops/chisq.py`` and ``ops/peaks.py`` add one each
-time); a run reads the counts to show that its main path went through
-the kernels.  ``KERNELS_PER_CALL`` names the device kernels that one
-such call runs (K2 runs two, the others one each).
+launched it on a card (the wrappers in ``ops/scan.py``,
+``ops/pipeline.py``, ``ops/chisq.py`` and ``ops/peaks.py`` call
+``count`` each time), and ``CARD_LAUNCHES`` the same per card index; a
+run reads the counts to show that its main path went through the
+kernels on every card it spans.  ``KERNELS_PER_CALL`` names the device
+kernels that one such call runs (K2 runs two, the others one each).
 """
 
 from __future__ import annotations
@@ -80,9 +81,22 @@ _ref_lib: Optional[ctypes.CDLL] = None
 BUILD_INFO: Dict[str, object] = {}
 
 
+CARD_LAUNCHES: Dict[int, Dict[str, int]] = {}
+
+
+def count(name: str, device) -> None:
+    """One launch of ``name``'s kernel on ``device`` (a CUDA
+    ``torch.device``), counted in ``LAUNCHES`` and ``CARD_LAUNCHES``."""
+    LAUNCHES[name] += 1
+    card = CARD_LAUNCHES.setdefault(device.index,
+                                    dict.fromkeys(LAUNCHES, 0))
+    card[name] += 1
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    CARD_LAUNCHES.clear()
 
 
 def _sources(src_dir: Path):

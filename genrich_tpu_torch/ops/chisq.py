@@ -213,7 +213,7 @@ def _fisher_combine_cuda(pvals: torch.Tensor) -> torch.Tensor:
                                        kernels.ptr(out),
                                        kernels.stream_of(pvals))
         kernels.check(rc, "fisher_combine")
-    kernels.LAUNCHES["fisher_combine"] += 1
+    kernels.count("fisher_combine", pvals.device)
     return out
 
 

@@ -131,7 +131,7 @@ def _peak_reduce_cuda(starts, ends, stat, pval, qval, sig, first, last,
             last.data_ptr(), starts.shape[0], k,
             float(np.float32(min_pq)), *rows, kernels.stream_of(starts))
         kernels.check(rc, "peak_reduce")
-    kernels.LAUNCHES["peak_reduce"] += 1
+    kernels.count("peak_reduce", dev)
     auc, max_stat, spv, sqv = buf[:4].unbind(0)
     spos, slen = buf[4:].view(torch.int32).unbind(0)
     return auc, max_stat, spv, sqv, spos, slen
@@ -270,7 +270,7 @@ def _gap_join_cuda(starts, ends, stat, live, min_pq, max_gap, k, lib=None):
             cand[0].data_ptr(), cand[1].data_ptr(), exists.data_ptr(),
             n.data_ptr(), state.data_ptr(), pairs.data_ptr(), stream)
         kernels.check(rc, "gap_join")
-    kernels.LAUNCHES["gap_join"] += 1
+    kernels.count("gap_join", dev)
     return PeakRows(sig.view(torch.bool), skp.view(torch.bool), cand[0],
                     cand[1], exists.view(torch.bool), n)
 

@@ -204,7 +204,7 @@ def _tile_stats_cuda(expt_val, ctrl_raw, excluded, factor, lam):
             kernels.ptr(pval), m, kernels.ptr(tables),
             kernels.stream_of(expt_val))
         kernels.check(rc, "tile_stats")
-    kernels.LAUNCHES["tile_stats"] += 1
+    kernels.count("tile_stats", expt_val.device)
     return pval
 
 

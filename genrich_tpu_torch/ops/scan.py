@@ -82,7 +82,7 @@ def _coverage_scan_cuda(packed: torch.Tensor, groups: int,
             int(lam is not None), kernels.ptr(vals), kernels.ptr(pval),
             kernels.ptr(scratch), kernels.stream_of(packed))
         kernels.check(rc, "coverage_scan")
-    kernels.LAUNCHES["coverage_scan"] += 1
+    kernels.count("coverage_scan", dev)
     return vals, (pval if lam is not None else None)
 
 

@@ -70,6 +70,34 @@ def rank_device(device, rank: int) -> torch.device:
     return device
 
 
+def local_devices(device) -> list:
+    """The devices of a process with no process group, one shard each:
+    ``cuda`` without an index spans every card this process sees (the
+    JAX engine's mesh over ``jax.devices()``; ``CUDA_VISIBLE_DEVICES``
+    restricts it), ``cuda:i`` and ``cpu`` are one, and a list or tuple
+    is taken as it is (a device may repeat).  A CUDA device that is not
+    there raises."""
+    if isinstance(device, (list, tuple)):
+        devices = [torch.device(d) for d in device]
+    else:
+        devices = [torch.device(device)]
+        if devices[0].type == "cuda" and devices[0].index is None:
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
+    if not devices:
+        raise ValueError("no device given")
+    for d in devices:
+        if d.type == "cuda" and not (
+                torch.cuda.is_available()
+                and 0 <= (d.index or 0) < torch.cuda.device_count()):
+            raise RuntimeError(f"device {d} requested but this process "
+                               f"sees {torch.cuda.device_count()} CUDA "
+                               f"cards")
+        if d.type not in ("cuda", "cpu"):
+            raise ValueError(f"unsupported device {d}")
+    return devices
+
+
 def _proc() -> tuple:
     """(process count, this process's rank) of the default group."""
     import torch.distributed as dist

@@ -1,22 +1,28 @@
 """Sharding of the genome-tile pipeline (twin of parallel/mesh.py).
 
-The genome is cut into fixed-length tiles; a rank holds a contiguous
-block of them, a ``[t, ...]`` batch on its device.  Where the JAX
-package runs each step as a ``shard_map`` over a 1-D device mesh, the
-port runs it over this rank's tiles, one tile after the other (``vmap``
-written out), and the three global couplings of the JAX module become
-``torch.distributed`` collectives when a process group is given, local
-operations otherwise:
+The genome is cut into fixed-length tiles; a shard holds a contiguous
+block of them, a ``[t, ...]`` batch on its card.  Where the JAX package
+runs each step as a ``shard_map`` over a 1-D device mesh, the port runs
+it over each shard's tiles, one tile after the other (``vmap`` written
+out), and the three global couplings of the JAX module become
+collectives over a group of shards, local operations without one:
 
-  - weighted fragment length -> lambda: every rank gets every tile's
-    sum (a rank-ordered ``all_gather``, the JAX module's
+  - weighted fragment length -> lambda: every shard gets every tile's
+    sum (a shard-ordered gather, the JAX module's
     ``replicated_concat``), so each runs the same float64 host sum;
-  - inter-tile pileup carry: per-tile class-delta totals are
-    ``all_gather``-ed and prefix-summed, the scan carry for fragments
-    that span tile boundaries;
+  - inter-tile pileup carry: per-tile class-delta totals are gathered
+    and prefix-summed, the scan carry for fragments that span tile
+    boundaries;
   - the distinct (p, bp) tables for the exact BH, and the per-tile peak
     arrays when ``replicated``, ride the same gather; peaks straddling
     tile boundaries merge on the host (``merge_tile_peaks``).
+
+A group is a ``torch.distributed`` process group (one shard a process,
+on its card: ``all_gather``) or a ``CardGroup``, the cards of this
+process, one shard each, the JAX module's mesh over ``jax.devices()``:
+a gather copies every card's rows to every card (peer copies), and the
+steps take and give lists of per-card tensors.  A ``CardGroup`` may
+also span the processes of a process group, one card each.
 
 The host-side numpy helpers (``split_events_to_tiles``,
 ``split_excl_to_tiles``, ``merge_tile_peaks`` and its loop oracle,
@@ -27,8 +33,8 @@ its padding that the sharded engine uploads, is the port's own.
 
 from __future__ import annotations
 
-from functools import partial
-from typing import Optional
+from functools import partial, wraps
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -42,22 +48,66 @@ from ..ops.pipeline import (TileResult, analyze_tile_core,
 PEAK_CAP = 4096            # per-tile candidate slots (call_peaks k)
 
 
+class CardGroup:
+    """This process's cards as shards of one group, in card order.
+
+    ``devices``: one device a shard (a device may repeat: two shards on
+    one card); None for one shard on whatever device its tensors are.
+    ``procs``: a ``torch.distributed`` process group whose ranks each
+    hold one card, the shards ordered by rank; several cards a rank is
+    not supported.  Per-card values are lists, one entry a card.
+    """
+
+    def __init__(self, devices: Optional[Sequence] = None, procs=None):
+        self.devices = None if devices is None \
+            else [torch.device(d) for d in devices]
+        self.n_local = 1 if devices is None else len(self.devices)
+        if self.n_local < 1:
+            raise ValueError("a CardGroup needs at least one device")
+        if procs is not None and self.n_local > 1:
+            raise ValueError("several cards a rank of a process group are "
+                             "not supported")
+        self.procs = procs
+        n_proc, rank = world_rank(procs)
+        self.size = n_proc * self.n_local       # shards in all
+        self.first = rank * self.n_local        # this process's first
+
+    def gather(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Per-card [t, ...] -> per-card [size * t, ...]: every shard's
+        rows in shard order, on every card."""
+        if len(xs) != self.n_local:
+            raise ValueError(f"{len(xs)} tensors for {self.n_local} cards")
+        if self.procs is not None:
+            return [gather_rows(xs[0], self.procs)]
+        if self.n_local == 1:
+            return list(xs)
+        return [torch.cat([x.to(d) for x in xs]) for d in self.devices]
+
+
 def world_rank(group) -> tuple:
-    """(world size, rank) of ``group``; (1, 0) without one."""
+    """(shards, this process's first shard) of ``group``: a process
+    group's (world size, rank), a ``CardGroup``'s shards; (1, 0)
+    without one."""
     if group is None:
         return 1, 0
+    if isinstance(group, CardGroup):
+        return group.size, group.first
     import torch.distributed as dist
     return dist.get_world_size(group), dist.get_rank(group)
 
 
-def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
-    """Rank-local [t, ...] -> [W*t, ...] in rank order, on every rank.
+def gather_rows(x, group):
+    """Shard-local [t, ...] -> [W*t, ...] in shard order, on every
+    shard.
 
-    ``all_gather`` over ``group`` (bool rides as uint8); ``x`` itself
-    without a group.
+    ``all_gather`` over a process group (bool rides as uint8); over a
+    ``CardGroup`` ``x`` is a list of per-card tensors and so is the
+    result; ``x`` itself without a group.
     """
     if group is None:
         return x
+    if isinstance(group, CardGroup):
+        return group.gather(x)
     import torch.distributed as dist
     w, _ = world_rank(group)
     src = x.to(torch.uint8) if x.dtype == torch.bool else x
@@ -68,15 +118,94 @@ def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     return out.to(torch.bool) if x.dtype == torch.bool else out
 
 
-def exclusive_carries(totals: torch.Tensor, group) -> torch.Tensor:
-    """This rank's [t, 4] carries: the exclusive prefix of every tile's
-    class totals in global tile order."""
-    t = totals.shape[0]
+def gather_ragged(x, group):
+    """Shard-local 1-D rows of any length -> every shard's rows
+    concatenated in shard order, on every shard; ``x`` without a group.
+    Over a ``CardGroup`` ``x`` is a list of per-card tensors and so is
+    the result."""
+    if group is None:
+        return x
+    if isinstance(group, CardGroup):
+        if group.procs is not None:
+            return [gather_ragged(x[0], group.procs)]
+        return [torch.cat([part.to(d) for part in x]) for d in
+                group.devices] if group.n_local > 1 else list(x)
+    n = gather_rows(torch.tensor([x.shape[0]], device=x.device),
+                    group).tolist()
+    width = max(n)
+    if width == 0:
+        return x
+    pad = torch.zeros(width - x.shape[0], dtype=x.dtype, device=x.device)
+    parts = gather_rows(torch.cat([x, pad]), group).split(width)
+    return torch.cat([part[:k] for part, k in zip(parts, n)])
+
+
+def _own_rows(full: torch.Tensor, shard: int, t: int) -> torch.Tensor:
+    return full[shard * t:(shard + 1) * t]
+
+
+def exclusive_carries(totals, group):
+    """Each shard's [t, 4] carries: the exclusive prefix of every
+    tile's class totals in global tile order.  Over a ``CardGroup``
+    ``totals`` is a list of per-card tensors and so is the result."""
+    if isinstance(group, CardGroup):
+        return [_own_rows(_exclusive(full), group.first + c, x.shape[0])
+                for c, (full, x) in enumerate(zip(group.gather(totals),
+                                                  totals))]
     _, rank = world_rank(group)
-    flat = gather_rows(totals, group)
-    excl = torch.cat([torch.zeros_like(flat[:1]),
+    return _own_rows(_exclusive(gather_rows(totals, group)), rank,
+                     totals.shape[0])
+
+
+def _exclusive(flat: torch.Tensor) -> torch.Tensor:
+    return torch.cat([torch.zeros_like(flat[:1]),
                       torch.cumsum(flat, dim=0, dtype=torch.int32)[:-1]])
-    return excl[rank * t:(rank + 1) * t]
+
+
+def each(fn, *args, **kw):
+    """``fn`` on each card: list arguments hold one value a card, the
+    others are shared; a tuple result becomes a tuple (a named one
+    stays named) of per-card lists, any other a list."""
+    n = {len(a) for a in args if isinstance(a, list)}
+    if len(n) != 1:
+        raise ValueError(f"per-card arguments of lengths {sorted(n)}")
+    outs = [fn(*(a[c] if isinstance(a, list) else a for a in args), **kw)
+            for c in range(n.pop())]
+    return _by_field(outs)
+
+
+def _by_field(outs: list):
+    """A list of per-card results -> per-card lists of each field."""
+    if not isinstance(outs[0], tuple):
+        return outs
+    fields = [list(x) for x in zip(*outs)]
+    return type(outs[0])(*fields) if hasattr(outs[0], "_fields") \
+        else tuple(fields)
+
+
+def _first(out):
+    """The one card's entries of a step's per-card result."""
+    if isinstance(out, list):
+        return out[0]
+    if isinstance(out, tuple):
+        fields = [_first(x) for x in out]
+        return type(out)(*fields) if hasattr(out, "_fields") \
+            else tuple(fields)
+    return out
+
+
+def _cardwise(step):
+    """A step of ``ShardedKernels`` written over per-card lists.  Over a
+    ``CardGroup`` it takes and gives them; otherwise (no group, or one
+    rank of a process group) it takes and gives one card's tensors."""
+    @wraps(step)
+    def run(self, *args, **kw):
+        if self.listed:
+            return step(self, *args, **kw)
+        return _first(step(self, *(
+            [a] if isinstance(a, (torch.Tensor, np.ndarray)) else a
+            for a in args), **kw))
+    return run
 
 
 def _stack(rows):
@@ -85,12 +214,15 @@ def _stack(rows):
 
 
 class ShardedKernels:
-    """The steps of the sharded pipeline over this rank's tiles.
+    """The steps of the sharded pipeline over each shard's tiles.
 
     One instance per tile length (and distinct-table width ``k``).
-    Every step takes and returns [t, ...] tensors on the rank's device;
-    only the fragment sums, the distinct (p, bp) tables and, with
-    ``replicated``, the peak arrays are gathered across ranks.
+    Every step takes and returns [t, ...] tensors on a shard's card: one
+    card's tensors without a group or under a process group, lists of
+    per-card tensors over a ``CardGroup`` (each step is issued to every
+    card before any result is read).  Only the fragment sums, the
+    distinct (p, bp) tables, the tiles' edges and, with ``replicated``,
+    the peak arrays are gathered across shards.
 
       cov:      events -> resident per-tile interval arrays (K1, one
                 launch per tile with its own carry), per-tile fragment
@@ -101,12 +233,13 @@ class ShardedKernels:
                 the previous tile's last interval;
       run_edges: the first and last p-value runs of a replicate's
                 tiles, from which the Fisher rows' ``cont`` follows;
-      stats:    -log10 p per interval (K2, one launch over the rank's
+      stats:    -log10 p per interval (K2, one launch over a card's
                 tiles: the function is elementwise);
-      distinct: the rank's distinct (p, bp) table, fixed width k;
+      distinct: each shard's distinct (p, bp) table, fixed width k;
       peaks:    q assignment through the host's (p -> q) table, then the
                 peak caller per tile (K4);
-      rle, rle_pv, fisher: the log, archive and Fisher steps (K3).
+      rle, rle_pv, fisher: the log, archive and Fisher steps (K3), one
+                card's tiles each (``each`` runs them on every card).
     """
 
     def __init__(self, tile_len: int, k_distinct: int = 1 << 13,
@@ -114,11 +247,28 @@ class ShardedKernels:
         self.tile_len = int(tile_len)
         self.k = int(k_distinct)
         self.group = group
-        self.rank = world_rank(group)[1]
+        self.listed = isinstance(group, CardGroup)
+        self.cards = group if self.listed else CardGroup(procs=group)
 
     def gather(self, x):
         return gather_rows(x, self.group)
 
+    def _shard(self, c: int) -> int:
+        return self.cards.first + c
+
+    def _prev(self, xs):
+        """Per-card [t] -> the value of the tile before each tile in
+        global order (the first tile gets its own); the tile before may
+        be on another shard, so every tile's value is gathered."""
+        return [_own_rows(torch.cat([full[:1], full[:-1]]), self._shard(c),
+                          x.shape[0])
+                for c, (full, x) in enumerate(zip(self.cards.gather(xs),
+                                                  xs))]
+
+    def _first_tile(self, c: int, t: int, device) -> torch.Tensor:
+        return torch.arange(t, device=device) + self._shard(c) * t == 0
+
+    @_cardwise
     def cov(self, es, ee, ec, cs, ce, cc, excl, limit,
             levels: bool = False):
         """[t, E] events (count 0 pads), [t, K, 2] exclusions, host
@@ -126,15 +276,23 @@ class ShardedKernels:
         and the gathered per-tile fragment sums [W*t] (expt, ctrl);
         with ``levels``, then the exact treatment levels [t, M]
         (``tile_coverage``'s ninth array)."""
-        carry_e = exclusive_carries(tile_class_totals(es, ee, ec), self.group)
-        carry_c = exclusive_carries(tile_class_totals(cs, ce, cc), self.group)
-        out = _stack(tile_coverage(es[i], ee[i], ec[i], cs[i], ce[i], cc[i],
-                                   excl[i], self.tile_len, carry_e[i],
-                                   carry_c[i], int(limit[i]), levels)
-                     for i in range(es.shape[0]))
-        return out[:6] + (self.gather(out[6]), self.gather(out[7])) \
-            + out[8:]
+        carry_e = exclusive_carries(
+            [tile_class_totals(*x) for x in zip(es, ee, ec)], self.cards)
+        carry_c = exclusive_carries(
+            [tile_class_totals(*x) for x in zip(cs, ce, cc)], self.cards)
+        outs = [_stack(tile_coverage(es[c][i], ee[c][i], ec[c][i],
+                                     cs[c][i], ce[c][i], cc[c][i],
+                                     excl[c][i], self.tile_len,
+                                     carry_e[c][i], carry_c[c][i],
+                                     int(limit[c][i]), levels)
+                       for i in range(es[c].shape[0]))
+                for c in range(len(es))]
+        frag = self.cards.gather([o[6] for o in outs])
+        cfrag = self.cards.gather([o[7] for o in outs])
+        return _by_field([o[:6] + (f, cf) + o[8:]
+                          for o, f, cf in zip(outs, frag, cfrag)])
 
+    @_cardwise
     def runs(self, starts, ends, ev, cr, excluded, live, level, excl,
              tile_bound, lam, factor):
         """Each tile's rows merged into the exact engine's intervals
@@ -147,35 +305,41 @@ class ShardedKernels:
         exact treatment level and control value, with no -E coordinate
         at the tile start): one interval of the exact engine that the
         tile boundary cuts in two.  The previous tile may be on another
-        rank, so every tile's last interval is gathered."""
-        (s, e, v, c, x, w, net, n, n_rows) = _stack(
-            pileup_runs(starts[i], ends[i], ev[i], cr[i], excluded[i],
-                        live[i], level[i], excl[i], lam, factor)
-            for i in range(starts.shape[0]))
-        t = n.shape[0]
-        last = (n.long() - 1).clamp_min(0)[:, None]
-        prev = []
-        for a in (w, net, x):
-            g = self.gather(a.gather(1, last)[:, 0])
-            prev.append(torch.cat([g[:1], g[:-1]])[self.rank * t:
-                                                    (self.rank + 1) * t])
-        first_tile = torch.arange(t, device=n.device) + self.rank * t == 0
-        cont = ((n > 0) & ~first_tile & ~tile_bound & (x[:, 0] == prev[2])
-                & (x[:, 0] | ((w[:, 0] == prev[0]) & (net[:, 0] == prev[1]))))
-        return s, e, v, c, x, n, n_rows, cont
+        shard, so every tile's last interval is gathered."""
+        per = [_stack(pileup_runs(starts[c][i], ends[c][i], ev[c][i],
+                                  cr[c][i], excluded[c][i], live[c][i],
+                                  level[c][i], excl[c][i], lam, factor)
+                      for i in range(starts[c].shape[0]))
+               for c in range(len(starts))]
+        last = [(p[7].long() - 1).clamp_min(0)[:, None] for p in per]
+        prev = [self._prev([p[j].gather(1, lc)[:, 0]
+                            for p, lc in zip(per, last)])
+                for j in (5, 6, 4)]                     # w, net, x
+        out = []
+        for c, (s, e, v, cr_, x, w, net, n, n_rows) in enumerate(per):
+            first = self._first_tile(c, n.shape[0], n.device)
+            cont = ((n > 0) & ~first & ~tile_bound[c]
+                    & (x[:, 0] == prev[2][c])
+                    & (x[:, 0] | ((w[:, 0] == prev[0][c])
+                                  & (net[:, 0] == prev[1][c]))))
+            out.append((s, e, v, cr_, x, n, n_rows, cont))
+        return _by_field(out)
 
     @staticmethod
     def stats(ev, cr, excluded, lam, factor):
         return tile_stats(ev.reshape(-1), cr.reshape(-1),
                           excluded.reshape(-1), factor, lam).reshape(ev.shape)
 
+    @_cardwise
     def distinct(self, starts, ends, pval, live):
-        """The rank's tiles flattened into one [k] table; returns the
+        """Each shard's tiles flattened into one [k] table; returns the
         gathered (p [W*k], bp [W*k], counts [W])."""
-        pv_k, w_k, d = distinct_pvals_k(starts.reshape(-1),
-                                        ends.reshape(-1), pval.reshape(-1),
-                                        live.reshape(-1), self.k)
-        return self.gather(pv_k), self.gather(w_k), self.gather(d.reshape(1))
+        tabs = [distinct_pvals_k(s.reshape(-1), e.reshape(-1),
+                                 p.reshape(-1), lv.reshape(-1), self.k)
+                for s, e, p, lv in zip(starts, ends, pval, live)]
+        return (self.cards.gather([t[0] for t in tabs]),
+                self.cards.gather([t[1] for t in tabs]),
+                self.cards.gather([t[2].reshape(1) for t in tabs]))
 
     @staticmethod
     def rle(starts, ends, pv, ev, cr, excluded, live, lam, factor):
@@ -189,48 +353,52 @@ class ShardedKernels:
                              int(limit[i]))
                       for i in range(starts.shape[0]))
 
+    @_cardwise
     def run_edges(self, pv_b, b):
         """One replicate's per-tile RLE (``rle_pv``: p [t, M], run counts
         [t]) -> (each tile's first run's p, the last run's p of the tile
         before it, and whether both exist) [t]; the padding rows are no
-        runs.  The tile before may be on another rank, so every tile's
+        runs.  The tile before may be on another shard, so every tile's
         last run is gathered."""
-        t = b.shape[0]
-        has = b > 0
-        last = pv_b.gather(1, (b.long() - 1).clamp_min(0)[:, None])[:, 0]
-        prev = []
-        for a in (last, has):
-            g = self.gather(a)
-            prev.append(torch.cat([g[:1], g[:-1]])[self.rank * t:
-                                                    (self.rank + 1) * t])
-        first_tile = torch.arange(t, device=b.device) + self.rank * t == 0
-        return pv_b[:, 0], prev[0], has & prev[1] & ~first_tile
+        has = [n > 0 for n in b]
+        last = [p.gather(1, (n.long() - 1).clamp_min(0)[:, None])[:, 0]
+                for p, n in zip(pv_b, b)]
+        prev_p, prev_has = self._prev(last), self._prev(has)
+        return _by_field([
+            (p[:, 0], prev_p[c], has[c] & prev_has[c]
+             & ~self._first_tile(c, p.shape[0], p.device))
+            for c, p in enumerate(pv_b)])
 
     def peaks(self, use_q: bool, min_len: int, max_gap: int,
               replicated: bool, k_peaks: int):
         """The peak-calling step, ``k_peaks`` candidate slots a tile.
         With ``replicated`` the per-tile peak arrays are gathered so
-        every rank holds all of them (the host boundary merge needs
+        every shard holds all of them (the host boundary merge needs
         every tile)."""
         return partial(self._peaks, use_q, min_len, max_gap, replicated,
                        k_peaks)
 
+    @_cardwise
     def _peaks(self, use_q, min_len, max_gap, replicated, k_peaks, starts,
                ends, pval, live, tab_p, tab_q, min_pq, min_auc):
-        if use_q:
-            stat = assign_qvals(pval.reshape(-1), tab_p,
-                                tab_q).reshape(pval.shape)
-            qv = stat
-        else:
-            stat = pval
-            qv = torch.full_like(pval, SKIP)
-        res = TilePeaks(*_stack(
-            call_peaks(starts[i], ends[i], stat[i], pval[i], qv[i], live[i],
-                       float(np.float32(min_pq)), float(np.float32(min_auc)),
-                       min_len, max_gap, k_peaks)
-            for i in range(starts.shape[0])))
+        out = []
+        for c, pv in enumerate(pval):
+            if use_q:
+                stat = assign_qvals(pv.reshape(-1), tab_p[c],
+                                    tab_q[c]).reshape(pv.shape)
+                qv = stat
+            else:
+                stat = pv
+                qv = torch.full_like(pv, SKIP)
+            out.append(TilePeaks(*_stack(
+                call_peaks(starts[c][i], ends[c][i], stat[i], pv[i], qv[i],
+                           live[c][i], float(np.float32(min_pq)),
+                           float(np.float32(min_auc)), min_len, max_gap,
+                           k_peaks)
+                for i in range(pv.shape[0]))))
+        res = _by_field(out)
         if replicated:
-            res = TilePeaks(*(self.gather(f) for f in res))
+            res = TilePeaks(*(self.cards.gather(f) for f in res))
         return res
 
     def fisher(self, r: int):

@@ -12,10 +12,12 @@ pipeline's ``perf`` dict (``findpeaks_s`` split into ``peak_fetch_s``,
 the sharded engine's boundary merge ``peak_merge_s`` among it, and
 ``peak_write_s``, the writer), the device time (kernels and copies,
 summed from the profiler's device events), the card's idle share (1 -
-device time / wall) and the top device entries.  With ``--chip`` also
-Genrich's ChIP-seq runs of ``chip_smoke.py``: ``chip`` (``-t A -c B``)
-and ``chip_fisher`` (``-t A,B -c C,C``), each with ``-r -p 0.01 -a 20
--E BLK.bed -e chr3``.
+device time / wall), the same per card (``device_ms_by_card``,
+``idle_share_by_card``: the sharded engine spans every card the
+process sees) with each card's launches, and the top device entries.
+With ``--chip`` also Genrich's ChIP-seq runs of ``chip_smoke.py``:
+``chip`` (``-t A -c B``) and ``chip_fisher`` (``-t A,B -c C,C``), each
+with ``-r -p 0.01 -a 20 -E BLK.bed -e chr3``.
 
 No device path calls ``torch.cummax`` (PyTorch's
 ``tensor_kernel_scan_innermost_dim_with_indices``): the gap-join runs
@@ -35,7 +37,8 @@ commit, unpacked with ``git archive``), it then runs in child
 processes, parent / this tree / this tree / parent, the main path, the
 Fisher path with both engines and, with ``--log-bam``, the ``-f``/``-k``
 log run on that BAM, each cold and warm, and prints each run's wall,
-peak device memory (``torch.cuda.max_memory_allocated``) and the md5
+peak device memory of each card (``torch.cuda.max_memory_allocated``)
+and the md5
 of each output file.  Each child's CLI makes native ingest load
 through its own tree's ``ingest.ensure_native()``; the child prints the
 library it used.
@@ -66,20 +69,24 @@ sys.path.insert(0, tree)
 import torch
 from genrich_tpu_torch import cli
 from genrich_tpu_torch.ingest import ensure_native
+cards = range(torch.cuda.device_count())
 for name, args, flags in runs:
     res = {}
     for label in ("cold", "warm"):
         outs = {f: os.path.join(out_dir, name + "_" + label + f)
                 for f in flags}
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        for i in cards:
+            torch.cuda.synchronize(i)
+            torch.cuda.reset_peak_memory_stats(i)
         t0 = time.perf_counter()
         rc = cli.main(args + [x for f in flags for x in (f, outs[f])]
                       + ["--device", "cuda"])
-        torch.cuda.synchronize()
+        for i in cards:
+            torch.cuda.synchronize(i)
         res[label] = {
             "rc": rc, "wall_s": time.perf_counter() - t0,
-            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "max_memory_allocated_by_card": [
+                torch.cuda.max_memory_allocated(i) for i in cards],
             "md5": {f: hashlib.md5(open(o, "rb").read()).hexdigest()
                     for f, o in outs.items()},
             "native_ingest": ensure_native()["path"]}
@@ -98,6 +105,20 @@ def _device_events(prof):
             us = e.self_cuda_time_total
         evs.append((us / 1e3, e.count, e.key))
     return sorted(evs, reverse=True)
+
+
+def _device_ms_by_card(prof):
+    """Device milliseconds of one profiled run on each card index."""
+    import torch
+    per = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        per[e.device_index] = per.get(e.device_index, 0.0) + us / 1e3
+    return dict(sorted(per.items()))
 
 
 def record_shortfall(records, launches):
@@ -137,20 +158,21 @@ def profile_path(name, ts, engine="jax", extra=(), flags=FLAGS):
     from torch.profiler import ProfilerActivity, profile
 
     from . import cli, kernels
+    from .engine.perf import synchronize_cards
     out = os.path.join(tempfile.mkdtemp(), "out.np")
     args = ["-t", ts, "-o", out, *extra] + flags + [
         "--engine", engine, "--device", "cuda"]
     if cli.main(args) != 0:
         raise SystemExit(f"{name}: cold run failed")
     for attempt in range(1, ATTEMPTS + 1):
-        torch.cuda.synchronize()
+        synchronize_cards()
         kernels.reset_launches()
         perf = {}
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             rc = cli.main(args, perf=perf)
-            torch.cuda.synchronize()
+            synchronize_cards()
             wall = time.perf_counter() - t0
         if rc != 0:
             raise SystemExit(f"{name}: warm run failed")
@@ -168,10 +190,15 @@ def profile_path(name, ts, engine="jax", extra=(), flags=FLAGS):
                          f"disagreed with the launches in all {ATTEMPTS} "
                          f"warm runs; no breakdown")
     device_ms = sum(ms for ms, _, _ in evs)
+    by_card = _device_ms_by_card(prof)
     scans = cummax_records([(key, n) for _, n, key in evs])
     print(f"profile {name} " + json.dumps(
         {"engine": engine, "wall_s": wall, "device_ms": device_ms,
-         "idle_share": 1.0 - device_ms / 1e3 / wall, "attempt": attempt,
+         "idle_share": 1.0 - device_ms / 1e3 / wall,
+         "device_ms_by_card": by_card,
+         "idle_share_by_card": {i: 1.0 - ms / 1e3 / wall
+                                for i, ms in by_card.items()},
+         "card_launches": kernels.CARD_LAUNCHES, "attempt": attempt,
          "cummax_records": scans, "launches": dict(kernels.LAUNCHES),
          "perf": perf}))
     for ms, n, key in evs[:TOP]:

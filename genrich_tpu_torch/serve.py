@@ -9,19 +9,23 @@ library is found once.
     (e.g. ``-t in.bam -o out.np --engine sharded -r -q 0.05``), after
     the default flags given on the command line;
   - runs it with the cached engine of its ``--engine`` kind (``jax``,
-    the default: ``TorchEngine``; ``sharded``: ``ShardedTorchEngine``),
-    all on one ``device``, and calls the engine's ``release()`` after
-    every analysis; an ``--engine exact`` line runs with no engine, on
-    the host, as ``genrich_tpu/serve.py`` runs it;
+    the default: ``TorchEngine`` on one card; ``sharded``:
+    ``ShardedTorchEngine``, over every card the process sees for
+    ``--device cuda``), and calls the engine's ``release()`` after
+    every analysis, which frees its tensors on every card; an
+    ``--engine exact`` line runs with no engine, on the host, as
+    ``genrich_tpu/serve.py`` runs it;
   - prints one status line per analysis to stdout:
       ``OK <wall_seconds> [<perf_json>]``  or  ``ERR <wall_seconds>``
     (stderr carries the usual -v output and the error), and ``READY``
     at startup.  The JSON holds the analysis's stage walls
     (``ingest_s``, ``device_rep_s``, ``findpeaks_s``) and the engine's
     upload/dispatch/fetch accounting, on a card also the analysis's
-    peak device memory (``max_memory_allocated``, bytes); an exact
-    line's has the walls ``ingest_s`` and ``findpeaks_s`` only.  Split
-    the line on the first two whitespace fields only.
+    peak device memory of each card the engine spans
+    (``max_memory_allocated_by_card``, bytes, in its device order) and
+    their maximum (``max_memory_allocated``); an exact line's has the
+    walls ``ingest_s`` and ``findpeaks_s`` only.  Split the line on
+    the first two whitespace fields only.
 
 An empty line or ``EXIT`` ends the loop.  A failing analysis, an
 unexpected exception included, answers ``ERR`` and serving goes on.
@@ -72,16 +76,19 @@ def serve_loop(default_args: Optional[List[str]] = None, stdin=None,
             native_ingest(p)
             perf: dict = {}
             on_card = eng is not None and dev.type == "cuda"
+            cards = getattr(eng, "devices", [getattr(eng, "device", dev)])
             if on_card:
-                torch.cuda.reset_peak_memory_stats(dev)
+                for d in cards:
+                    torch.cuda.reset_peak_memory_stats(d)
             try:
                 run(p, engine=eng, perf=perf)
             finally:
                 if eng is not None:
                     eng.release()    # per-run state; kernels stay loaded
             if on_card:
-                perf["max_memory_allocated"] = \
-                    torch.cuda.max_memory_allocated(dev)
+                mem = [torch.cuda.max_memory_allocated(d) for d in cards]
+                perf["max_memory_allocated_by_card"] = mem
+                perf["max_memory_allocated"] = max(mem)
             msg = f"OK {time.perf_counter() - t0:.3f}"
             if perf:
                 msg += " " + json.dumps(

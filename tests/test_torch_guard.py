@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -137,10 +138,57 @@ def test_no_module_of_the_port_imports_jax_or_genrich_tpu():
 
 
 def test_chip_smoke_imports_neither_in_its_own_process():
-    """chip_smoke.py's reference child is a string run by another
-    interpreter, so the AST of the file sees only what the smoke's
-    own process imports."""
+    """The AST of the file: what the smoke's own process imports (a
+    child's code string is text to it; the next test reads those)."""
     assert _imports(os.path.join(oracle.REPO, "chip_smoke.py")) == []
+
+
+# an import of jax or genrich_tpu (not genrich_tpu_torch) in code text
+_IMPORT_TEXT = re.compile(
+    r"\bfrom\s+(?:genrich_tpu|jax)(?:\.[\w.]+)?\s+import\b"
+    r"|\bimport\s+(?:genrich_tpu|jax)(?![\w])")
+
+
+def _import_strings(path):
+    """(line, text) of every string constant of ``path`` that imports
+    jax or genrich_tpu (code run by ``python -c``, ``exec`` or a child)
+    or names genrich_tpu as a module (``-m genrich_tpu``)."""
+    found = []
+    for node in ast.walk(ast.parse(open(path).read(), path)):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and _IMPORT_TEXT.search(node.value):
+            found.append((node.lineno, node.value[:80]))
+        if isinstance(node, (ast.List, ast.Tuple)):
+            words = [e.value if isinstance(e, ast.Constant) else None
+                     for e in node.elts]
+            found += [(node.lineno, f"-m {b}") for a, b in zip(words,
+                                                              words[1:])
+                      if a == "-m" and isinstance(b, str)
+                      and re.fullmatch(r"genrich_tpu(?:\.[\w.]+)?", b)]
+    return found
+
+
+def test_no_code_string_of_the_port_or_the_smoke_imports_the_jax_package(
+        tmp_path):
+    """Neither chip_smoke.py nor any module of genrich_tpu_torch runs
+    jax or genrich_tpu in a child process: no string of theirs imports
+    either or names genrich_tpu as a module to run."""
+    pkg = os.path.join(oracle.REPO, "genrich_tpu_torch")
+    paths = [os.path.join(d, f) for d, _, fs in os.walk(pkg)
+             for f in fs if f.endswith(".py")]
+    paths.append(os.path.join(oracle.REPO, "chip_smoke.py"))
+    bad = {os.path.relpath(p, oracle.REPO): _import_strings(p)
+           for p in paths}
+    assert not {k: v for k, v in bad.items() if v}
+    # the check finds each kind of such string, and not the port's
+    probe = tmp_path / "probe.py"
+    probe.write_text(
+        'A = "import sys; from genrich_tpu.ingest import native"\n'
+        'B = [sys.executable, "-m", "genrich_tpu", "-t", "x"]\n'
+        'C = "import jax.numpy as jnp"\n'
+        'D = "from genrich_tpu_torch import cli; import genrich_tpu_torch"\n'
+        'E = [sys.executable, "-m", "genrich_tpu_torch"]\n')
+    assert [ln for ln, _ in _import_strings(str(probe))] == [1, 2, 3]
 
 
 # (name, flags, files the run must write); each CLI path of the port

@@ -263,6 +263,8 @@ def test_straddling_summit_counts_a_cut_interval_once():
           "live": torch.tensor([[i < len(x) for i in range(width)]
                                 for x in tiles]),
           "cont": torch.tensor([False, True])}
+    # the engine keeps one tensor a card: this engine has one card
+    st = {k: [v] if torch.is_tensor(v) else v for k, v in st.items()}
     eng = ShardedTorchEngine("cpu", n_shards=2)
     auc, spv, sqv, spos = eng._row_order_peaks(
         st, np.array([3000]), np.array([4400]), F32(2.0), False)
@@ -273,6 +275,6 @@ def test_straddling_summit_counts_a_cut_interval_once():
         want = F32(want + F32(F32(e - s) * F32(F32(p) - F32(2.0))))
     assert auc[0] == want
     # cut and not joined, the 100-bp interval would win
-    st["cont"] = torch.tensor([False, False])
+    st["cont"] = [torch.tensor([False, False])]
     assert eng._row_order_peaks(st, np.array([3000]), np.array([4400]),
                                 F32(2.0), False)[3][0] == 3250 - 3000

@@ -393,6 +393,8 @@ def test_row_order_auc_joins_a_row_cut_by_the_tile_boundary():
           "live": torch.from_numpy(np.stack([np.arange(width) < len(x[0])
                                              for x in tiles])),
           "cont": torch.tensor([False, True])}
+    # the engine keeps one tensor a card: this engine has one card
+    st = {k: [v] if torch.is_tensor(v) else v for k, v in st.items()}
     eng = ShardedTorchEngine("cpu", n_shards=2)
     got = eng._row_order_peaks(st, np.array([starts[lo]]),
                                np.array([ends[hi]]), min_pq, False)[0]
