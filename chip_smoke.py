@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (genrich_tpu_torch) on one card.
 
-    python3 chip_smoke.py [--phase sharded_cards]
+    python3 chip_smoke.py [--phase sharded_cards|sharded_ranks]
 
-It needs one card; phase 14 spans every card the machine has.
+It needs one card; phases 14 and 15 span every card the machine has.
 
 Phases, each printed on its own line; any failure raises and exits
 non-zero, and the result line is printed only when every phase passed:
@@ -165,8 +165,28 @@ non-zero, and the result line is printed only when every phase passed:
    sharded_cards`` runs phase 1, the build, the BAMs and this phase
    alone (making its one-card references on cuda:0), with no result
    line.
-15. The last lines: the kernels JSON (``launches_by_path`` with the
-   ChIP paths, the bench and ``sharded_cards``, each kernel's sums on
+15. Several shards a rank (``sharded_ranks``), on the main path's BAM
+   and flags and on ``chip_fisher``: one NCCL rank of two contexts on
+   cuda:0 (``ShardedTorchEngine(["cuda:0", "cuda:0"])`` under a
+   one-rank group), and on a machine of two cards or more two NCCL rank
+   children, cold and warm: on four cards or more (an even count) the
+   CLI with ``--engine sharded --device cuda``, ``LOCAL_WORLD_SIZE=2``
+   and ``LOCAL_RANK=r`` (half the cards a rank), otherwise
+   ``ShardedTorchEngine([f"cuda:{r}"] * 2)`` through ``pipeline.run``;
+   the main path once more under torch.profiler (device ms a card, and
+   of it NCCL's kernels, copies between cards and copies on a card).
+   The gates of phase 14 on every output of every rank (the recorded
+   md5, TorchEngine's and the one-card sharded engine's bytes, no host
+   peak call, K1, K2, K5 and K4, and K3 on ``chip_fisher``, on every
+   card of every rank, each child reporting its
+   ``kernels.CARD_LAUNCHES``); no child imports jax or genrich_tpu, and
+   a child that exits non-zero fails the phase.  Printed: cards, ranks,
+   shards a rank, each run's wall, ``device_rep_s`` and peak memory a
+   card.  ``python3 chip_smoke.py --phase sharded_ranks`` runs phase 1,
+   the build, the BAMs and this phase alone, with no result line.
+16. The last lines: the kernels JSON (``launches_by_path`` with the
+   ChIP paths, the bench, ``sharded_cards`` and ``sharded_ranks``, each
+   kernel's sums on
    them under ``<path>_path``, K1's lambda mode on the bench's light tile under
    ``lambda_mode.bench_path``), the
    nvidia-smi line and {"ok": true, "device": {...}}; neither jax nor
@@ -2004,6 +2024,25 @@ def _one_card_refs(name, args):
     return refs
 
 
+def _hold_output(where, name, path, want, perf, cards, used, need, zero):
+    """The gates of phases 14 and 15 on the output ``path`` of path
+    ``name``: the recorded md5 and the bytes of TorchEngine and of the
+    one-card sharded engine (``want``), no host peak call, and
+    ``need``'s kernels launched on every card of ``used``
+    (``cards``: launches by card).  Returns the md5."""
+    got, md5 = open(path, "rb").read(), _md5(path)
+    if md5 != RECORDED_MD5[name] or got != want["torch"] \
+            or got != want["one_card"]:
+        raise AssertionError(f"{where}: md5 {md5}, not the recorded bytes")
+    if perf["host_peak_chroms"]:
+        raise AssertionError(f"{where}: the host peak caller ran")
+    faults = {i: need({**zero, **cards.get(i, {})}) for i in used}
+    faults = {i: f for i, f in faults.items() if f}
+    if faults:
+        raise AssertionError(f"{where}: {faults}: {cards}")
+    return md5
+
+
 def sharded_cards_phase(bam_a, bam_b, bam_c, bed):
     """``--engine sharded`` with no process group over every card of the
     machine (``--device cuda``), cold and warm, then once over two
@@ -2046,12 +2085,8 @@ def sharded_cards_phase(bam_a, bam_b, bam_c, bed):
                                                "cuda"])
                 shards = n_cards
             got = open(out, "rb").read()
-            md5 = _md5(out)
-            used = [0] if label == "two_contexts" else range(n_cards)
-            faults = {i: need({**zero, **cards.get(i, {})}) for i in used}
-            faults = {i: f for i, f in faults.items() if f}
             say(f"sharded_cards_{name}_{label}", cards=n_cards,
-                shards=shards, wall_s=wall, md5=md5,
+                shards=shards, wall_s=wall, md5=_md5(out),
                 recorded_md5=RECORDED_MD5[name],
                 equal_to_torch_engine=got == want["torch"],
                 equal_to_one_card=got == want["one_card"],
@@ -2063,34 +2098,250 @@ def sharded_cards_phase(bam_a, bam_b, bam_c, bed):
                 ingest_s=perf.get("ingest_s"),
                 device_rep_s=perf.get("device_rep_s"),
                 findpeaks_s=perf.get("findpeaks_s"))
-            if md5 != RECORDED_MD5[name] or got != want["torch"] \
-                    or got != want["one_card"]:
-                raise AssertionError(f"sharded_cards {name} {label}: md5 "
-                                     f"{md5}, not the recorded bytes")
-            if perf["host_peak_chroms"]:
-                raise AssertionError(f"sharded_cards {name} {label}: the "
-                                     f"host peak caller ran")
-            if faults:
-                raise AssertionError(f"sharded_cards {name} {label}: "
-                                     f"{faults}: {cards}")
+            _hold_output(f"sharded_cards {name} {label}", name, out, want,
+                         perf, cards, [0] if label == "two_contexts"
+                         else range(n_cards), need, zero)
             if name == "main" and label == "cold":
                 main_counts = {k: sum(c[k] for c in cards.values())
                                for k in zero}
     return main_counts
 
 
+def rank_run(label, argv, devices=None, profiled=False):
+    """One run of phase 15 in this process, with the counts and peak
+    memory set to 0 just before it and read just after: the CLI with
+    ``--engine sharded --device cuda`` (``devices`` None) or
+    ``ShardedTorchEngine(devices)`` through ``pipeline.run``; with
+    ``profiled`` under torch.profiler.  Returns its record: wall,
+    launches and peak memory per card, perf, the process group's rank
+    and size, native ingest, the modules of jax or genrich_tpu loaded
+    (none may be) and, profiled, device ms per card and their part in
+    NCCL's kernels and in copies between cards and on a card."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from genrich_tpu_torch import cli, kernels, pipeline
+    from genrich_tpu_torch import prof as gprof
+    from genrich_tpu_torch.engine import perf as eperf
+    from genrich_tpu_torch.engine.sharded_bridge import ShardedTorchEngine
+    perf = {}
+    eperf.synchronize_cards()
+    eperf.reset_peak_memory()
+    kernels.reset_launches()
+    with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+          if profiled else contextlib.nullcontext()) as pr:
+        t0 = time.perf_counter()
+        if devices is None:
+            rc = cli.main(argv + ["--engine", "sharded", "--device", "cuda"],
+                          perf=perf)
+        else:
+            p = cli.parse_port_args(argv)
+            cli.native_ingest(p)
+            engine = ShardedTorchEngine(devices)
+            pipeline.run(p, engine=engine, perf=perf)
+            engine.release()
+            rc = 0
+        eperf.synchronize_cards()
+        wall = time.perf_counter() - t0
+    mem = eperf.peak_memory()
+    cards = {i: dict(c) for i, c in kernels.CARD_LAUNCHES.items()}
+    rec = {"label": label, "rc": rc, "wall_s": wall,
+           "rank": dist.get_rank(), "ranks": dist.get_world_size(),
+           "native": _native_used(), "launches_by_card": cards,
+           "max_memory_allocated_by_card": {i: mem[i] for i in cards
+                                            if i < len(mem)},
+           "perf": {k: perf.get(k) for k in (
+               "host_peak_chroms", "grid_tile_len", "grid_tiles",
+               "straddling_peaks", "fetch_n", "dispatch_n", "ingest_s",
+               "device_rep_s", "findpeaks_s")},
+           "loaded": sorted({m.split(".")[0] for m in sys.modules}
+                            & {"jax", "genrich_tpu"})}
+    if profiled:
+        rec["device_ms_by_card"] = gprof._device_ms_by_card(pr)
+        rec["comm_ms_by_card"] = gprof.comm_ms_by_card(pr)
+    return rec
+
+
+def rank_child(cfg):
+    """A rank child of phase 15: ``rank_run`` of each of ``cfg["runs"]``
+    ([label, argv, profiled]; "{rank}" in an argument is this rank) over
+    ``cfg["devices"]``, one JSON line each, then the process group is
+    destroyed."""
+    import torch.distributed as dist
+    for label, argv, profiled in cfg["runs"]:
+        argv = [a.replace("{rank}", os.environ["RANK"]) for a in argv]
+        print(json.dumps(rank_run(label, argv, cfg["devices"], profiled)),
+              flush=True)
+    dist.destroy_process_group()
+
+
+# A rank child of phase 15: argv is the repo and its settings as JSON.
+_RANK_CHILD = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+               "import chip_smoke; "
+               "chip_smoke.rank_child(json.loads(sys.argv[2]))")
+
+
+def _rank_children(runs, cli_form):
+    """Two NCCL ranks, one child process each, running ``runs``: on four
+    cards or more the CLI with ``--engine sharded --device cuda``,
+    ``LOCAL_WORLD_SIZE=2`` and ``LOCAL_RANK=r`` (each rank half the
+    cards; ``cli_form``), otherwise ``ShardedTorchEngine([f"cuda:{r}"]
+    * 2)`` through ``pipeline.run``.
+    Returns each run's records, one a rank; a child that fails fails
+    the phase."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if k not in NCCL_ENV}
+    env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+               WORLD_SIZE="2")
+    procs = []
+    for r in (0, 1):
+        extra = {"LOCAL_WORLD_SIZE": "2", "LOCAL_RANK": str(r)} \
+            if cli_form else {}
+        cfg = {"devices": None if cli_form else [f"{DEV}:{r}"] * 2,
+               "runs": runs}
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _RANK_CHILD, REPO, json.dumps(cfg)],
+            env={**env, **extra, "RANK": str(r)}, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    try:
+        logs = [p.communicate(timeout=400) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for r, (p, (_, err)) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"sharded_ranks rank {r}: exit code "
+                                 f"{p.returncode}: {err[-3000:]}")
+    recs = [[json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+            for out, _ in logs]
+    if any(len(rs) != len(runs) for rs in recs):
+        raise AssertionError(f"sharded_ranks: {[len(rs) for rs in recs]} "
+                             f"records for {len(runs)} runs")
+    return [list(rec) for rec in zip(*recs)]
+
+
+def _hold_rank_runs(form, label, out, recs, want, need, used, zero):
+    """The gates of phase 15 on one run's records, one a rank, each rank
+    having written ``out`` with "{rank}" its rank: exit code 0, the
+    group's size and rank, native ingest, no jax or genrich_tpu,
+    ``_hold_output`` on each rank's file and cards, and launches on
+    every card of ``used`` and on no other.  Prints the run's line;
+    returns the launches by card."""
+    name = label.split()[0]
+    every = {}
+    for r, rec in enumerate(recs):
+        where = f"sharded_ranks {form} {label} rank {r}"
+        if rec["rc"] != 0 or rec["ranks"] != len(recs) or rec["rank"] != r:
+            raise AssertionError(f"{where}: {rec}")
+        if not rec["native"] or rec["loaded"]:
+            raise AssertionError(f"{where}: Python ingest or "
+                                 f"{rec['loaded']}")
+        cards = {int(i): c for i, c in rec["launches_by_card"].items()}
+        md5 = _hold_output(where, name, out.replace("{rank}", str(r)), want,
+                           rec["perf"], cards, cards, need, zero)
+        every.update(cards)
+    if set(every) != used:
+        raise AssertionError(f"sharded_ranks {form} {label}: launches on "
+                             f"cards {sorted(every)}, not {sorted(used)}")
+    line = {"form": form, "ranks": len(recs), "cards": len(used),
+            "md5": md5, "wall_s": [rec["wall_s"] for rec in recs],
+            "device_rep_s": [rec["perf"]["device_rep_s"] for rec in recs],
+            "ingest_s": [rec["perf"]["ingest_s"] for rec in recs],
+            "launches_by_card": every,
+            "max_memory_allocated_by_card": {
+                i: m for rec in recs
+                for i, m in rec["max_memory_allocated_by_card"].items()},
+            "grid": [recs[0]["perf"]["grid_tile_len"],
+                     recs[0]["perf"]["grid_tiles"]],
+            "straddling_peaks": recs[0]["perf"]["straddling_peaks"]}
+    for key in ("device_ms_by_card", "comm_ms_by_card"):
+        if key in recs[0]:
+            line[key] = {i: v for rec in recs for i, v in rec[key].items()}
+    say(f"sharded_ranks_{form}_{label.replace(' ', '_')}", **line)
+    return every
+
+
+def sharded_ranks_phase(bam_a, bam_b, bam_c, bed):
+    """Several shards a rank of an NCCL group, on the main path's BAM and
+    flags and on ``chip_fisher``, cold and warm (and main once more
+    under torch.profiler): one rank of two contexts on cuda:0
+    (``ShardedTorchEngine(["cuda:0", "cuda:0"])`` under a one-rank
+    group) on any machine, and with two cards or more two rank children
+    (``_rank_children``).  Every run is held by ``_hold_rank_runs``.
+    Returns the main path's cold launches of its widest form (the
+    children's, else the one rank's), summed over the cards."""
+    import torch
+    from genrich_tpu_torch import kernels
+    n_cards = torch.cuda.device_count()
+    zero = dict.fromkeys(kernels.LAUNCHES, 0)
+    run_dir = os.path.join(WORK, "chip_smoke", "sharded_ranks")
+    os.makedirs(run_dir, exist_ok=True)
+    paths = {"main": (["-t", bam_a] + FLAGS, _need_main),
+             "chip_fisher": (["-t", f"{bam_a},{bam_b}", "-c",
+                              f"{bam_c},{bam_c}"] + chip_flags(bed),
+                             _need_every)}
+    wants = {name: {k: open(p, "rb").read() for k, p in
+                    _one_card_refs(name, args).items()}
+             for name, (args, _) in paths.items()}
+
+    def runs(form):
+        return [[f"{name} {label}", args + ["-o", os.path.join(
+            run_dir, f"{name}_{form}_{label}_r{{rank}}.np")],
+            label == "profiled"]
+            for name, (args, _) in paths.items()
+            for label in ("cold", "warm") + (("profiled",) if name == "main"
+                                             else ())]
+
+    forms = [("one_rank", {0}, None)]
+    if n_cards >= 2:
+        cli_form = n_cards >= 4 and n_cards % 2 == 0
+        forms.append(("two_ranks", set(range(n_cards)) if cli_form
+                      else {0, 1}, cli_form))
+    else:
+        say("sharded_ranks_two_ranks", skipped="one card: NCCL takes no "
+            "two ranks on one card")
+    counts = None
+    for form, used, cli_form in forms:
+        if form == "one_rank":
+            with one_rank_nccl():
+                recs = []
+                for label, argv, profiled in runs(form):
+                    recs.append([rank_run(label, [
+                        a.replace("{rank}", "0") for a in argv],
+                        [f"{DEV}:0"] * 2, profiled)])
+                    _need_nccl()
+        else:
+            recs = _rank_children(runs(form), cli_form)
+        for (label, argv, _), rs in zip(runs(form), recs):
+            every = _hold_rank_runs(form, label, argv[-1], rs,
+                                    wants[label.split()[0]],
+                                    paths[label.split()[0]][1], used, zero)
+            if label == "main cold":
+                counts = {k: sum(c[k] for c in every.values()) for k in zero}
+    return counts
+
+
 T0 = time.perf_counter()
 T0 = time.perf_counter()
+
+
+ALONE = {"sharded_cards": sharded_cards_phase,
+         "sharded_ranks": sharded_ranks_phase}
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--phase", "sharded_cards"]):
-        raise SystemExit("usage: chip_smoke.py [--phase sharded_cards]")
+    if argv and (len(argv) != 2 or argv[0] != "--phase"
+                 or argv[1] not in ALONE):
+        raise SystemExit("usage: chip_smoke.py [--phase sharded_cards|"
+                         "sharded_ranks]")
     smi = card()
     start_synth()
     try:
-        return run_sharded_cards() if argv else run_phases(smi)
+        return run_alone(ALONE[argv[1]]) if argv else run_phases(smi)
     finally:
         stop_synth()
 
@@ -2108,13 +2359,13 @@ def _blacklist() -> str:
     return path
 
 
-def run_sharded_cards() -> int:
-    """``--phase sharded_cards``: the build, the BAMs and phase 14 alone
-    (the one-card references it needs made on cuda:0); no result
-    line."""
+def run_alone(phase) -> int:
+    """``--phase sharded_cards`` or ``sharded_ranks``: the build, the BAMs
+    and phase 14 or 15 alone (the one-card references it needs made on
+    cuda:0); no result line."""
     build()
     bams = [synth_bam(k) for k in ("a", "b", "c")]
-    sharded_cards_phase(*bams, _blacklist())
+    phase(*bams, _blacklist())
     say("done", seconds=time.perf_counter() - T0)
     return 0
 
@@ -2170,6 +2421,8 @@ def run_phases(smi) -> int:
     bench_counts, chip_sums["bench"], lam_bench = bench_phase(bam_a)
     chip_counts["bench"] = bench_counts
     chip_counts["sharded_cards"] = sharded_cards_phase(bam_a, bam_b, bam_c,
+                                                       _blacklist())
+    chip_counts["sharded_ranks"] = sharded_ranks_phase(bam_a, bam_b, bam_c,
                                                        _blacklist())
     entries[0]["lambda_mode"]["bench_path"] = lam_bench
     entries[0]["lambda_mode"]["p_max_abs_err"] = max(

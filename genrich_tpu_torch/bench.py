@@ -3,6 +3,8 @@
     python -m genrich_tpu_torch.bench [--device cuda|cpu] [--kernel-only]
         [--configs atac,control,fisher,chip,chip_fisher] [--reps N]
         [--out PATH]
+    python -m genrich_tpu_torch.bench --scaling [--device cuda|cpu]
+        [--reps N] [--out PATH]
 
 The port's counterpart of the repo's ``bench.py`` and
 ``scripts/bench_e2e.py``, which drive the JAX package.  It imports
@@ -44,6 +46,20 @@ sources), so the headline's ``e2e_exact_ratio`` is the paired exact /
 The full dict goes to ``.bench_cache/bench_torch_detail.json`` (or
 ``--out``); the last stdout line is ``compact_headline``, with
 ``bench.py``'s keys and the card's name and power limit.
+
+The scaling leg (``--scaling``, alone), the counterpart of
+``scripts/bench_scaling.py``: the script's fixed work (8 tiles of 2^16
+bp, 4,096 events a tile, a control, an exclusion, q-values, peaks
+across a tile boundary) and a rung at the light tile's size (8 tiles of
+2^24 bp, 2^19 events a tile), each through ``sharded_analyze_full`` and
+``merge_tile_peaks`` over D = 1, 2, 4 and 8 shards, warm, median of 9,
+in three forms: D contexts on ``cuda:0``; D cards, where the host has
+them; two NCCL ranks of D/2 cards each, in child processes, where the
+host has D cards.  It writes ``.bench_cache/bench_torch_scaling.json``
+(or ``--out``) and prints it as the last line: per rung and form the
+script's ``t_ms_by_D``, ``overhead_pct_by_D`` and
+``efficiency_pct_by_D`` (against one context), and it fails unless
+every leg's peaks are D = 1's.
 """
 
 from __future__ import annotations
@@ -421,6 +437,218 @@ def kernel_legs(device, reps=REPS, prod_reps=PROD_REPS, tile_len=TILE_LEN,
     else:
         out["kernel"]["roofline"] = out["kernel_production"]["roofline"] = {
             "frac_vs_ideal_sort": None, "note": "not measured: no card"}
+    return out
+
+
+# --- scaling leg ------------------------------------------------------------
+
+# scripts/bench_scaling.py's rung (8 tiles of 2^16 bp, 4,096 events a
+# tile), then the light tile's size, where the card has work to do
+SCALING_RUNGS = ((8, 1 << 16, 1 << 12), (8, TILE_LEN, EVENTS_PER_TILE))
+SCALING_DS = (1, 2, 4, 8)
+SCALING_REPS = 9
+SCALING_OUT = os.path.join(WORK, "bench_torch_scaling.json")
+
+
+def scaling_fixture(tiles, tile_len, events_per_tile):
+    """``scripts/bench_scaling.py``'s fixed work: background events and
+    two clusters (one inside tile 0, one across the last tile boundary)
+    with a control of as many background events, split into
+    [tiles, w] rows of one width, and one exclusion in tile 0; drawn
+    from ``np.random.RandomState(7)`` by the script's draws."""
+    from .parallel.mesh import split_events_to_tiles
+    genome = tiles * tile_len
+    rng = np.random.RandomState(7)
+    n = tiles * events_per_tile
+
+    def events(n_bg, clusters):
+        s = [rng.randint(0, genome - 256, n_bg)]
+        for (lo, hi, k) in clusters:
+            s.append(rng.randint(lo, hi, k))
+        s = np.concatenate(s).astype(np.int64)
+        e = np.minimum(s + rng.randint(40, 200, len(s)), genome)
+        return s, e, np.ones(len(s), np.int32)
+
+    b = (tiles - 1) * tile_len
+    expt = events(n, [(tile_len // 2, tile_len // 2 + 400, n // 8),
+                      (b - 300, b + 300, n // 8)])
+    ctrl = events(n, [])
+    t = split_events_to_tiles(*expt, tiles, tile_len)
+    c = split_events_to_tiles(*ctrl, tiles, tile_len)
+    w = 1
+    while w < max(t[0].shape[1], c[0].shape[1]):
+        w <<= 1
+
+    def pad(a, v):
+        return np.pad(a, ((0, 0), (0, w - a.shape[1])), constant_values=v)
+    excl = np.full((tiles, 1, 2), tile_len, np.int32)
+    excl[0, 0] = (100, 300)
+    return (pad(t[0], tile_len), pad(t[1], tile_len), pad(t[2], 0),
+            pad(c[0], tile_len), pad(c[1], tile_len), pad(c[2], 0), excl,
+            tile_len, genome)
+
+
+def scaling_leg(devices, fixture, reps=SCALING_REPS, procs=None):
+    """The script's ``time_leg`` over a ``CardGroup`` of ``devices``
+    (and the ranks of ``procs``): each shard's block of tiles on its
+    device, then ``sharded_analyze_full`` (q-values on) and
+    ``merge_tile_peaks``, once to warm up and ``reps`` times timed by
+    the host clock (the merge reads the peaks on the host, so every
+    card has finished).  Returns (median seconds, merged peaks as
+    JSON-able rows)."""
+    from .ops.peaks import TilePeaks
+    from .ops.pipeline import TileResult
+    from .parallel import mesh
+    arrays, (tile_len, genome) = fixture[:7], fixture[7:]
+    cards = mesh.CardGroup(devices, procs)
+    per = arrays[0].shape[0] // cards.size
+    blocks = [slice((cards.first + c) * per, (cards.first + c + 1) * per)
+              for c in range(cards.n_local)]
+    args = [[torch.as_tensor(x[b], device=d)
+             for b, d in zip(blocks, cards.devices)] for x in arrays]
+    kern = mesh.ShardedKernels(tile_len, group=cards)
+
+    def step():
+        res, _, _ = mesh.sharded_analyze_full(
+            *args, tile_len, genome, 1.0, 2.0, 0, 100, True, kern=kern,
+            group=cards)
+        host = TilePeaks(*(f.cpu().numpy() for f in res.peaks))
+        return mesh.merge_tile_peaks(TileResult(host, None, None), tile_len,
+                                     2.0, 0, 100)
+    merged = step()
+    if not merged:
+        raise AssertionError("the scaling fixture must produce peaks")
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        step()
+        times.append(time.perf_counter() - t0)
+    return _median(times), [[int(p[0]), int(p[1]), float(p[2]),
+                             float(p[3]), float(p[4]), int(p[5])]
+                            for p in merged]
+
+
+# A rank of the scaling leg's "ranks" form: argv is the repo and the
+# rank's settings as JSON; prints its median seconds and peaks.
+_SCALING_RANK = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from genrich_tpu_torch import bench
+print(json.dumps(bench.scaling_rank(json.loads(sys.argv[2]))))
+"""
+
+
+def scaling_rank(cfg):
+    """One rank of a two-rank leg: joins the process group from the
+    environment (NCCL on CUDA, gloo on the CPU), then ``scaling_leg``
+    over its ``cfg["devices"]``."""
+    import torch.distributed as dist
+    from .parallel.distributed import init_distributed
+    procs = init_distributed(cfg["devices"])
+    try:
+        t, peaks = scaling_leg(cfg["devices"],
+                               scaling_fixture(*cfg["rung"]), cfg["reps"],
+                               procs)
+    finally:
+        dist.destroy_process_group()
+    return {"t_s": t, "peaks": peaks}
+
+
+def _rank_legs(devices_by_rank, rung, reps, timeout=900):
+    """``scaling_rank`` in one child process a rank (no jax imported),
+    all started together; returns each rank's result.  CPU ranks share
+    the host's cores (each spinning on all of them slows gloo's
+    collectives dozens of times over)."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    n = len(devices_by_rank)
+    env = _env({"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+                "WORLD_SIZE": str(n), "GLOO_SOCKET_IFNAME": "lo"})
+    if torch.device(devices_by_rank[0][0]).type == "cpu":
+        env["OMP_NUM_THREADS"] = str(max(1, (os.cpu_count() or n) // n))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _SCALING_RANK, REPO, json.dumps(
+            {"devices": devs, "rung": list(rung), "reps": reps})],
+        env={**env, "RANK": str(r)}, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+        for r, devs in enumerate(devices_by_rank)]
+    try:
+        logs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for r, (p, (_, err)) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"scaling rank {r}: exit code "
+                               f"{p.returncode}: {err[-2000:]}")
+    return [json.loads(out.splitlines()[-1]) for out, _ in logs]
+
+
+def scaling_forms(device, ds):
+    """{form: {D: devices}}: "contexts", D shards on one device
+    (``cuda:0`` or the CPU); "cards", D cards of this host, where it has
+    them; "ranks", two ranks of D/2 devices each (distinct cards on
+    CUDA: NCCL takes no two ranks on one card; CPU contexts under
+    gloo)."""
+    if device.type == "cpu":
+        return {"contexts": {d: ["cpu"] * d for d in ds},
+                "ranks": {d: [["cpu"] * (d // 2)] * 2
+                          for d in ds if d >= 2 and d % 2 == 0}}
+    n = torch.cuda.device_count()
+    cards = [f"cuda:{i}" for i in range(n)]
+    return {"contexts": {d: ["cuda:0"] * d for d in ds},
+            "cards": {d: cards[:d] for d in ds if 2 <= d <= n},
+            "ranks": {d: [cards[:d // 2], cards[d // 2:d]]
+                      for d in ds if d >= 2 and d % 2 == 0 and d <= n}}
+
+
+def scaling(device, ds=SCALING_DS, rungs=SCALING_RUNGS, reps=SCALING_REPS):
+    """``scripts/bench_scaling.py`` on the port: each rung's fixed work
+    (``scaling_fixture``) over D = ``ds`` shards in each form of
+    ``scaling_forms``, the same total work at every D.  Per form
+    ``t_ms_by_D`` (the median leg), ``overhead_pct_by_D`` and
+    ``efficiency_pct_by_D`` against one context's t(1), under the
+    script's names; every leg's peaks must equal D = 1's (raises)."""
+    if device.type == "cuda":
+        from . import kernels
+        kernels.library()
+    out = {"device": card_line(device), "cards": torch.cuda.device_count()
+           if device.type == "cuda" else 0, "reps": reps, "rungs": []}
+    for rung in rungs:
+        fixture = scaling_fixture(*rung)
+        forms = {}
+        base = peaks0 = None
+        for form, by_d in scaling_forms(device, ds).items():
+            if not by_d:
+                continue
+            t_ms = {}
+            for d, devs in by_d.items():
+                if form == "ranks":
+                    got = _rank_legs(devs, rung, reps)
+                    t = max(g["t_s"] for g in got)
+                    legs = [g["peaks"] for g in got]
+                else:
+                    t, peaks = scaling_leg(devs, fixture, reps)
+                    legs = [peaks]
+                peaks0 = legs[0] if peaks0 is None else peaks0
+                if any(p != peaks0 for p in legs):
+                    raise AssertionError(f"{form} D={d}: peaks differ from "
+                                         f"D=1's")
+                t_ms[str(d)] = 1e3 * t
+                base = t_ms[str(d)] if base is None else base
+            forms[form] = {
+                "devices": {str(d): v for d, v in by_d.items()},
+                "t_ms_by_D": t_ms,
+                "overhead_pct_by_D": {d: 100.0 * (t - base) / base
+                                      for d, t in t_ms.items()},
+                "efficiency_pct_by_D": {d: 100.0 * base / t
+                                        for d, t in t_ms.items()}}
+        out["rungs"].append({"tiles": rung[0], "tile_len": rung[1],
+                             "events_per_tile": rung[2],
+                             "peaks": len(peaks0), "forms": forms})
     return out
 
 
@@ -813,6 +1041,12 @@ def card_line(device):
         .splitlines()[0]
 
 
+def _write(path, out):
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1, sort_keys=True, default=str)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m genrich_tpu_torch.bench")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -823,7 +1057,12 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, help="reps of every leg (default: "
                     f"{REPS} light, {PROD_REPS} production, "
                     "GENRICH_BENCH_E2E_REPS or 3 end to end)")
-    ap.add_argument("--out", default=DETAIL, help="the detail JSON")
+    ap.add_argument("--scaling", action="store_true",
+                    help="the scaling leg alone (scripts/bench_scaling.py's "
+                    "measure over 1-8 shards a form); its JSON is the last "
+                    "line")
+    ap.add_argument("--out", help=f"the detail JSON (default: {DETAIL}, "
+                    f"with --scaling {SCALING_OUT})")
     a = ap.parse_args(argv)
     configs = [c for c in a.configs.split(",") if c]
     bad = [c for c in configs if c not in CONFIGS]
@@ -835,11 +1074,16 @@ def main(argv=None) -> int:
             raise SystemExit("bench: no CUDA card "
                              "(torch.cuda.is_available() is False)")
         device = torch.device("cuda", 0)
+    if a.scaling:
+        out = scaling(device, reps=a.reps or SCALING_REPS)
+        _write(a.out or SCALING_OUT, out)
+        print(json.dumps(out))
+        return 0
     t0 = time.perf_counter()
     out = kernel_legs(device, reps=a.reps or REPS,
                       prod_reps=a.reps or PROD_REPS)
     out["device"] = card_line(device)
-    out["detail"] = a.out
+    out["detail"] = a.out or DETAIL
     ok = True
     if not a.kernel_only:
         reps = a.reps or int(os.environ.get("GENRICH_BENCH_E2E_REPS", "3"))
@@ -848,9 +1092,7 @@ def main(argv=None) -> int:
         out["e2e"] = bench_e2e(make_bams(keys), configs, reps, a.device)
         ok = out["e2e"]["ok"]
     out["seconds"] = time.perf_counter() - t0
-    os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
-    with open(a.out, "w") as f:
-        json.dump(out, f, indent=1, sort_keys=True, default=str)
+    _write(out["detail"], out)
     k = out["kernel"]
     print(f"# {k['dispatches']}x{k['batch']} tiles x {k['events_per_tile']} "
           f"events, median {k['median_s']:.3f} s over {len(k['rep_s'])} "

@@ -10,10 +10,14 @@ Flags are parsed by ``params.parse_args``; the analysis is
 ``--engine jax`` selects ``TorchEngine``, ``--engine sharded`` the
 tile-sharded ``ShardedTorchEngine``: over every card the process sees
 for ``--device cuda`` (``CUDA_VISIBLE_DEVICES`` restricts them;
-``--device cuda:i`` pins one), or one card a rank of a
+``--device cuda:i`` pins one), or over the ranks of a
 ``torch.distributed`` group joined from ``MASTER_ADDR``/``MASTER_PORT``/
-``WORLD_SIZE``/``RANK``; the names are the JAX package's, so its
-argument strings run unchanged.  The port's default engine is ``jax``;
+``WORLD_SIZE``/``RANK``, each with its own cards: for ``--device cuda``
+the rank's share of the host's cards when torchrun's
+``LOCAL_WORLD_SIZE`` and ``LOCAL_RANK`` are set (``LOCAL_WORLD_SIZE=1``:
+every card the process sees, the JAX package's one process a host),
+else the card ``RANK`` modulo the host's; the names are the JAX
+package's, so its argument strings run unchanged.  The port's default engine is ``jax``;
 the JAX package's (the ``Params`` default) is ``exact``.  ``--engine
 exact`` is the host engine by name, as in the JAX package:
 ``pipeline.run`` with no device engine, numpy on the host with C-exact
@@ -79,12 +83,17 @@ Other options:
 
 
 EXTRA_USAGE = """Options of the PyTorch port:
-  --device <str>   cuda (def.; sharded: every visible card), cuda:<i>
+  --device <str>   cuda (def.; sharded: every visible card, or a
+                     torch.distributed rank's share of them), cuda:<i>
                      or cpu; not read by --engine exact
   --engine <str>   jax (def.; one tensor per chromosome), sharded
-                     (tiles over the cards; one card a torch.distributed
-                     rank from MASTER_ADDR, MASTER_PORT, WORLD_SIZE,
-                     RANK) or exact (the host engine: numpy, no device)
+                     (tiles over the cards; with MASTER_ADDR,
+                     MASTER_PORT, WORLD_SIZE, RANK over the ranks of a
+                     torch.distributed group, each rank's cards
+                     device_count / LOCAL_WORLD_SIZE from LOCAL_RANK
+                     when those are set, else card RANK modulo the
+                     host's) or exact (the host engine: numpy, no
+                     device)
   --serve          One analysis per stdin line (READY; OK/ERR per line)
 """
 

@@ -37,15 +37,20 @@ step is issued to every card before any result is read, and the
 collectives of ``parallel/mesh.py`` over a ``CardGroup`` (peer copies)
 couple them.  Under a process group
 (``parallel/distributed.init_distributed``: NCCL on CUDA, gloo on the
-CPU) each rank keeps one card (``rank_device``) and the collectives
-span the ranks.  ``n_shards`` (the JAX engine's mesh size D) defaults
+CPU) each rank keeps its own cards (``rank_devices``: a list as given,
+"cuda:i" one, a bare "cuda" the rank's share of the host's cards under
+torchrun's ``LOCAL_WORLD_SIZE``, else the card ``RANK`` modulo the
+host's), every rank the same count, and the collectives join a rank's
+cards on its first before one collective across the ranks: the JAX
+engine's mesh over every process's devices.  ``n_shards`` (the JAX engine's mesh size D) defaults
 to the shards in all; on one card a chromosome of the 2.75 Gbp
 main-path genome is five tiles of 2^28 bp.  Tests pass ``n_shards=8``
 to cut the grid as the JAX tests' 8 virtual devices do.
 
 The engine's per-chromosome state holds one tensor a card in a list;
 host reads pull every card's rows (``_pull``: one accounted fetch a
-card) and join them in shard order.
+card, or under a process group the rank's cards joined and gathered
+across the ranks, one fetch) and join them in shard order.
 
 What the JAX engine does for the TPU and this one does not: no monotone
 event-width floor and no power-of-two size buckets (eager PyTorch needs
@@ -68,9 +73,9 @@ from ..ops.compact import assign_qvals
 from ..ops.peaks import TilePeaks
 from ..ops.pipeline import TileResult
 from ..parallel.distributed import (init_distributed, local_devices,
-                                    local_tile_range, rank_device)
+                                    local_tile_range, rank_devices)
 from ..parallel.mesh import (PEAK_CAP, CardGroup, ShardedKernels, each,
-                             gather_ragged, gather_rows, merge_tile_peaks,
+                             gather_rows, merge_tile_peaks,
                              world_rank, split_events_flat,
                              split_excl_to_tiles)
 from . import qvalue
@@ -106,7 +111,8 @@ def expand_flat(fs, fe, fc, off, n_tiles: int, width: int, tile_len: int):
 class ShardedTorchEngine(PerfMixin, HostChromMixin):
     """Per-run sharded device context over ``device``: every card the
     process sees for "cuda", one for "cuda:i" or "cpu", or a list of
-    devices; under a process group the rank's one card."""
+    devices; under a process group the rank's cards
+    (``rank_devices``)."""
 
     MAX_TILE_LEN = 1 << 28   # keeps positions well inside int32; a
                              # chromosome longer than D * cap gets
@@ -117,15 +123,9 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
         listed = isinstance(device, (list, tuple))
         for d in device if listed else [device]:
             check_device(d)
-        devices = local_devices(device)
-        # under a process group a bare "cuda" is the rank's card
-        procs = init_distributed(devices[0] if listed else device)
-        if procs is not None:
-            if listed and len(devices) > 1:
-                raise ValueError("several cards a rank of a process group "
-                                 "are not supported")
-            devices = [rank_device(devices[0] if listed else device,
-                                   world_rank(procs)[1])]
+        procs = init_distributed(device)
+        devices = local_devices(device) if procs is None \
+            else rank_devices(device, world_rank(procs)[1])
         for d in devices:
             # a card that cannot take a tensor fails here, not mid-run
             torch.zeros(1, device=d)
@@ -181,9 +181,10 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
 
     def _pull(self, values, ragged: bool = False) -> list:
         """Per-card values -> numpy, each every shard's rows in shard
-        order: across a process group gathered first (1-D rows of any
-        length with ``ragged``), then pulled from each card (one
-        accounted fetch a card) and joined on the host.  ``values`` may
+        order: across a process group the rank's cards joined on its
+        first and gathered across the ranks (1-D rows of any length with
+        ``ragged``), then pulled from each card (one accounted fetch a
+        card) and joined on the host.  ``values`` may
         be a generator: it runs inside the fetch, so the host syncs of
         its selections are accounted as the fetch they are."""
         procs = self.cards.procs
@@ -192,8 +193,7 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
         def flat():
             for v in values:
                 if procs is not None:
-                    v = [(gather_ragged if ragged else gather_rows)(
-                        v[0], procs)]
+                    v = [self.cards.gather_first(v, ragged)]
                 sizes.append(len(v))
                 yield from v
         got = iter(self._fetch_many(flat()))
@@ -629,16 +629,19 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
                          for x in takes]])[0]
         cols = [[x[take] for x in col] for col, take in zip(cols, takes)]
         dev = self.device
+        # the rank's cards' rows joined on its first card, in card order
+        cols = [torch.cat([col[j].to(dev) for col in cols])
+                for j in range(4)]
         if self.cards.procs is not None:
-            width = max(int(n.max()), 1)
+            # padded to the most rows a rank holds, for one gather across
+            # the ranks
+            per_rank = n.reshape(-1, len(self.devices)).sum(1)
+            width = max(int(per_rank.max()), 1)
             parts = [gather_rows(torch.cat([x, x.new_zeros(
                 width - x.shape[0])]), self.cards.procs).split(width)
-                for x in cols[0]]
-            cols = [torch.cat([p[:int(k)] for p, k in zip(part, n)])
+                for x in cols]
+            cols = [torch.cat([p[:int(k)] for p, k in zip(part, per_rank)])
                     for part in parts]
-        else:
-            cols = [torch.cat([col[j].to(dev) for col in cols])
-                    for j in range(4)]
         g_start, g_end, pv, cont = cols
         cut = torch.zeros_like(cont)
         cut[1:] = cont[1:] & (g_start[1:] == g_end[:-1])

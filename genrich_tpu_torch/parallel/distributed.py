@@ -1,12 +1,15 @@
 """Process groups and tile partitioning (twin of parallel/distributed.py).
 
 Each rank of a ``torch.distributed`` process group owns a contiguous
-block of the genome's tiles and keeps its rows on its own device; the
-collectives of ``mesh.py`` (the carries' and fragment sums' gathers,
-the distinct (p, bp) tables, the replicated peak arrays) are the only
-traffic between ranks.  There is no global-array constructor: where
-the JAX module's ``make_global`` builds one ``jax.Array`` from every
-process's rows, a rank here passes its own rows to the steps.
+block of the genome's tiles and spreads it over its own devices
+(``rank_devices``), one block a device, as the JAX module spreads a
+process's block over its local devices; the collectives of ``mesh.py``
+(the carries' and fragment sums' gathers, the distinct (p, bp) tables,
+the replicated peak arrays) are the only traffic between ranks, each
+joining the rank's devices on its first before one collective across
+the ranks.  There is no global-array constructor: where the JAX
+module's ``make_global`` builds one ``jax.Array`` from every process's
+rows, a rank here passes its devices' rows to the steps.
 
 ``init_distributed`` joins a group from the standard environment
 (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``): NCCL when
@@ -24,7 +27,7 @@ import torch
 
 from ..ops.peaks import TilePeaks
 from ..ops.pipeline import TileResult
-from .mesh import (ShardedKernels, merge_tile_peaks,
+from .mesh import (CardGroup, ShardedKernels, merge_tile_peaks,
                    sharded_analyze_full, split_events_to_tiles,
                    split_excl_to_tiles)
 
@@ -36,17 +39,20 @@ def init_distributed(device) -> Optional[object]:
 
     Returns None (no group, local steps) unless ``MASTER_ADDR``,
     ``WORLD_SIZE`` and ``RANK`` are all set.  The backend is NCCL for a
-    CUDA ``device`` and gloo for the CPU; a group that is already
-    initialised with the other backend, or that fails to form, raises.
+    CUDA ``device`` (a list: its first) and gloo for the CPU, and the
+    current card is the rank's first (``rank_devices``); a group that is
+    already initialised with the other backend, or that fails to form,
+    raises.
     """
     import torch.distributed as dist
 
-    device = torch.device(device)
-    want = "nccl" if device.type == "cuda" else "gloo"
+    first = device[0] if isinstance(device, (list, tuple)) else device
+    kind = torch.device(first).type
+    want = "nccl" if kind == "cuda" else "gloo"
     if dist.is_initialized():
         if dist.get_backend() != want:
             raise RuntimeError(f"process group uses {dist.get_backend()}, "
-                               f"but a {device.type} device needs {want}")
+                               f"but a {kind} device needs {want}")
         return dist.group.WORLD
     if not all(os.environ.get(k) for k in _ENV):
         return None
@@ -54,20 +60,45 @@ def init_distributed(device) -> Optional[object]:
         if not torch.cuda.is_available():
             raise RuntimeError("NCCL process group requested but no CUDA "
                                "card is available")
-        torch.cuda.set_device(rank_device(device, int(os.environ["RANK"])))
+        # every collective of the rank runs from its first card
+        torch.cuda.set_device(rank_devices(device,
+                                           int(os.environ["RANK"]))[0])
     dist.init_process_group(want, init_method="env://",
                             world_size=int(os.environ["WORLD_SIZE"]),
                             rank=int(os.environ["RANK"]))
     return dist.group.WORLD
 
 
-def rank_device(device, rank: int) -> torch.device:
-    """A rank's device: ``cuda`` without an index becomes the card
-    ``rank`` modulo the cards of this host."""
+def rank_devices(device, rank: int) -> list:
+    """A rank's devices under a process group, one shard each.
+
+    A list or tuple is taken as it is (a device may repeat), ``cuda:i``
+    and ``cpu`` are one device.  A bare ``cuda`` is, when torchrun's
+    ``LOCAL_WORLD_SIZE`` is set, the rank's share of this host's cards:
+    ``k = device_count() // LOCAL_WORLD_SIZE`` cards from ``LOCAL_RANK *
+    k`` (an uneven split raises); so ``LOCAL_WORLD_SIZE=1`` is one
+    process a host over every card it sees, the JAX package's form.
+    Otherwise a bare ``cuda`` is the one card ``rank`` modulo this
+    host's cards.  A CUDA device that is not there raises.
+    """
+    if isinstance(device, (list, tuple)):
+        return local_devices(device)
     device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        return torch.device("cuda", rank % torch.cuda.device_count())
-    return device
+    if device.type != "cuda" or device.index is not None:
+        return local_devices(device)
+    n = torch.cuda.device_count()
+    if not os.environ.get("LOCAL_WORLD_SIZE"):
+        return local_devices([torch.device("cuda", rank % max(n, 1))])
+    per_host = int(os.environ["LOCAL_WORLD_SIZE"])
+    if "LOCAL_RANK" not in os.environ:
+        raise ValueError("LOCAL_WORLD_SIZE is set but LOCAL_RANK is not")
+    if per_host < 1 or n % per_host or n == 0:
+        raise ValueError(f"{n} CUDA cards do not split evenly over "
+                         f"LOCAL_WORLD_SIZE={per_host} ranks")
+    k = n // per_host
+    local = int(os.environ["LOCAL_RANK"])
+    return local_devices([torch.device("cuda", i)
+                          for i in range(local * k, (local + 1) * k)])
 
 
 def local_devices(device) -> list:
@@ -146,9 +177,11 @@ def distributed_analyze(start, end, count, n_tiles: int,
     """Full multi-process sharded analysis of one chromosome.
 
     Every process calls this with the same parameters and the whole
-    event lists; each keeps only its own tiles' rows (on ``device``,
-    the card ``rank`` modulo this host's cards for a bare "cuda"), the
-    collectives span the default process group (if any), and the
+    event lists; each keeps only its own tiles' rows, cut into one
+    contiguous block a device of ``rank_devices(device, rank)`` (a list
+    of devices, a device may repeat; for a bare "cuda" the rank's share
+    of this host's cards, or one), the collectives span the default
+    process group (if any) and the devices of every rank, and the
     outputs that reach the host (fragment sums, the distinct (p, bp)
     tables, the per-tile peak arrays) are gathered so that every
     process computes the identical final peak list.
@@ -157,8 +190,8 @@ def distributed_analyze(start, end, count, n_tiles: int,
     [(start, end, auc, summit_pval, summit_qval, summit_pos)] list.
     """
     group = init_distributed(device)
-    dev = rank_device(device, _proc()[1])
-    kern = ShardedKernels(tile_len, k_distinct, group)
+    cards = CardGroup(rank_devices(device, _proc()[1]), group)
+    kern = ShardedKernels(tile_len, k_distinct, cards)
 
     if ctrl is None:
         ctrl = (np.zeros(0, np.int64), np.zeros(0, np.int64),
@@ -175,6 +208,10 @@ def distributed_analyze(start, end, count, n_tiles: int,
         pad_to = w
 
     r = local_tile_range(n_tiles)
+    if len(r) % cards.n_local:
+        raise ValueError(f"a rank's {len(r)} tiles do not split over its "
+                         f"{cards.n_local} devices")
+    per = len(r) // cards.n_local
     es, ee, ec = host_local_events(start, end, count, n_tiles,
                                    tile_len, pad_to)
     cs, ce, cc = host_local_events(ctrl[0], ctrl[1], ctrl[2],
@@ -182,12 +219,14 @@ def distributed_analyze(start, end, count, n_tiles: int,
     excl = split_excl_to_tiles(excl_bed or [], n_tiles, tile_len)
     if limit is None:
         limit = np.full(n_tiles, tile_len, np.int32)
-    args = [torch.as_tensor(x, device=dev) for x in
-            (es, ee, ec, cs, ce, cc, excl[r.start:r.stop])]
+    limit = np.asarray(limit)[r.start:r.stop]
+    blocks = [slice(c * per, (c + 1) * per) for c in range(cards.n_local)]
+    args = [[torch.as_tensor(x[b], device=d)
+             for b, d in zip(blocks, cards.devices)]
+            for x in (es, ee, ec, cs, ce, cc, excl[r.start:r.stop])]
     res, lam, factor = sharded_analyze_full(
         *args, tile_len, genome_len, min_pq, min_auc, min_len, max_gap,
-        qval_opt, k_distinct, np.asarray(limit)[r.start:r.stop], kern,
-        group)
+        qval_opt, k_distinct, [limit[b] for b in blocks], kern, cards)
     host = TilePeaks(*(f.cpu().numpy() for f in res.peaks))
     peaks = merge_tile_peaks(TileResult(host, None, None), tile_len,
                              min_auc, min_len, max_gap)

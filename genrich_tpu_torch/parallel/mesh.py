@@ -22,7 +22,11 @@ on its card: ``all_gather``) or a ``CardGroup``, the cards of this
 process, one shard each, the JAX module's mesh over ``jax.devices()``:
 a gather copies every card's rows to every card (peer copies), and the
 steps take and give lists of per-card tensors.  A ``CardGroup`` may
-also span the processes of a process group, one card each.
+also span the processes of a process group, every rank with the same
+number of cards, as the JAX mesh spans every process's devices: shard
+``rank * n_local + c`` is card c of that rank (processes major, local
+devices minor), and a gather joins each rank's cards on its first card
+before one ``all_gather`` across the ranks.
 
 The host-side numpy helpers (``split_events_to_tiles``,
 ``split_excl_to_tiles``, ``merge_tile_peaks`` and its loop oracle,
@@ -49,13 +53,16 @@ PEAK_CAP = 4096            # per-tile candidate slots (call_peaks k)
 
 
 class CardGroup:
-    """This process's cards as shards of one group, in card order.
+    """The shards of one group, in shard order: this process's cards and,
+    under a process group, every rank's.
 
     ``devices``: one device a shard (a device may repeat: two shards on
     one card); None for one shard on whatever device its tensors are.
     ``procs``: a ``torch.distributed`` process group whose ranks each
-    hold one card, the shards ordered by rank; several cards a rank is
-    not supported.  Per-card values are lists, one entry a card.
+    hold ``n_local`` cards, the same count on every rank (checked here
+    with one gather: unequal counts raise ``ValueError`` on every rank);
+    card c of rank r is shard ``r * n_local + c``.  Per-card values are
+    lists, one entry a card.
     """
 
     def __init__(self, devices: Optional[Sequence] = None, procs=None):
@@ -64,24 +71,58 @@ class CardGroup:
         self.n_local = 1 if devices is None else len(self.devices)
         if self.n_local < 1:
             raise ValueError("a CardGroup needs at least one device")
-        if procs is not None and self.n_local > 1:
-            raise ValueError("several cards a rank of a process group are "
-                             "not supported")
         self.procs = procs
         n_proc, rank = world_rank(procs)
+        if procs is not None:
+            counts = gather_rows(torch.tensor(
+                [self.n_local], device=self._home(procs)), procs).tolist()
+            if len(set(counts)) > 1:
+                raise ValueError(f"the ranks of the process group hold "
+                                 f"{counts} cards; every rank needs the "
+                                 f"same count")
         self.size = n_proc * self.n_local       # shards in all
         self.first = rank * self.n_local        # this process's first
 
-    def gather(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    def _home(self, procs) -> torch.device:
+        """The rank's first card, where its collectives run."""
+        if self.devices is not None:
+            return self.devices[0]
+        import torch.distributed as dist
+        if dist.get_backend(procs) == "nccl":
+            return torch.device("cuda", torch.cuda.current_device())
+        return torch.device("cpu")
+
+    def gather(self, xs: List[torch.Tensor],
+               ragged: bool = False) -> List[torch.Tensor]:
         """Per-card [t, ...] -> per-card [size * t, ...]: every shard's
-        rows in shard order, on every card."""
+        rows in shard order, on every card (with ``ragged``, 1-D rows of
+        any length a shard)."""
+        if self.procs is None:
+            self._check(xs)
+            if self.n_local == 1:
+                return list(xs)
+            return [torch.cat([x.to(d) for x in xs]) for d in self.devices]
+        full = self.gather_first(xs, ragged)
+        return [full] + [full.to(d) for d in (self.devices or [])[1:]]
+
+    def gather_first(self, xs: List[torch.Tensor],
+                     ragged: bool = False) -> torch.Tensor:
+        """Every shard's rows in shard order on this rank's first card:
+        the rank's cards' rows peer-copied onto it in card order, then,
+        under a process group, one ``all_gather`` across the ranks from
+        it (``gather_ragged``'s with ``ragged``)."""
+        self._check(xs)
+        home = xs[0].device
+        joined = xs[0] if len(xs) == 1 \
+            else torch.cat([x.to(home) for x in xs])
+        if self.procs is None:
+            return joined
+        return (gather_ragged if ragged else gather_rows)(joined,
+                                                          self.procs)
+
+    def _check(self, xs) -> None:
         if len(xs) != self.n_local:
             raise ValueError(f"{len(xs)} tensors for {self.n_local} cards")
-        if self.procs is not None:
-            return [gather_rows(xs[0], self.procs)]
-        if self.n_local == 1:
-            return list(xs)
-        return [torch.cat([x.to(d) for x in xs]) for d in self.devices]
 
 
 def world_rank(group) -> tuple:
@@ -126,10 +167,7 @@ def gather_ragged(x, group):
     if group is None:
         return x
     if isinstance(group, CardGroup):
-        if group.procs is not None:
-            return [gather_ragged(x[0], group.procs)]
-        return [torch.cat([part.to(d) for part in x]) for d in
-                group.devices] if group.n_local > 1 else list(x)
+        return group.gather(x, ragged=True)
     n = gather_rows(torch.tensor([x.shape[0]], device=x.device),
                     group).tolist()
     width = max(n)
@@ -485,39 +523,45 @@ def sharded_analyze_full(es, ee, ec, cs, ce, cc, excl, tile_len: int,
                          kern: Optional[ShardedKernels] = None, group=None):
     """Full pipeline over this rank's tiles: ctrl + exclusions + exact BH.
 
-    Inputs are this rank's [t, ...] tensors on its device; ``excl`` is
-    [t, K, 2] tile-local exclusions padded with tile_len; ``limit`` [t]
-    (host ints) clips each tile's span at the chromosome's end.
-    Returns (TileResult(peak arrays of every rank when ``group`` is
-    given, else this rank's; the gathered fragment sums), lambda,
-    factor).
+    Inputs are this rank's [t, ...] tensors on its device, or over a
+    ``CardGroup`` lists of each card's; ``excl`` is [t, K, 2] tile-local
+    exclusions padded with tile_len; ``limit`` [t] (host ints, a list of
+    each card's over a ``CardGroup``) clips each tile's span at the
+    chromosome's end.  Returns (TileResult(peak arrays of every shard,
+    on the first card; the gathered fragment sums), lambda, factor).
     """
     if kern is None:
         kern = ShardedKernels(tile_len, k_distinct, group)
+    if not kern.listed:
+        # one card's tensors: the same steps over a list of one card
+        kern = ShardedKernels(kern.tile_len, kern.k, kern.cards)
+        es, ee, ec, cs, ce, cc, excl = ([x] for x in (es, ee, ec, cs, ce,
+                                                      cc, excl))
+        limit = None if limit is None else [limit]
     if limit is None:
-        limit = np.full(es.shape[0], tile_len, np.int64)
+        limit = [np.full(x.shape[0], tile_len, np.int64) for x in es]
     (starts, ends, ev, cr, excluded, live, frag_all,
      cfrag_all) = kern.cov(es, ee, ec, cs, ce, cc, excl, limit)
-    frag = float(frag_all.cpu().numpy().astype(np.float64).sum())
-    cfrag = float(cfrag_all.cpu().numpy().astype(np.float64).sum())
+    frag = float(frag_all[0].cpu().numpy().astype(np.float64).sum())
+    cfrag = float(cfrag_all[0].cpu().numpy().astype(np.float64).sum())
     lam = np.float32(frag / genome_len)
     factor = np.float32(1.0) if cfrag == 0.0 \
         else np.float32(frag / cfrag)
-    pval = kern.stats(ev, cr, excluded, lam, factor)
+    pval = each(kern.stats, ev, cr, excluded, lam, factor)
     if qval_opt:
-        pv_all, w_all, d_all = (x.cpu().numpy() for x in kern.distinct(
+        pv_all, w_all, d_all = (x[0].cpu().numpy() for x in kern.distinct(
             starts, ends, pval, live))
         tab_p, tab_q, _, _ = exact_q_table(pv_all, w_all, d_all, kern.k,
                                            genome_len)
     else:
         tab_p = np.full(1, np.inf, np.float32)
         tab_q = np.zeros(1, np.float32)
-    dev = es.device
-    peaks = kern.peaks(qval_opt, min_len, max_gap, group is not None,
-                       PEAK_CAP)(
-        starts, ends, pval, live, torch.as_tensor(tab_p, device=dev),
-        torch.as_tensor(tab_q, device=dev), min_pq, min_auc)
-    return TileResult(peaks, frag_all, None), lam, factor
+    tabs = [[torch.as_tensor(t, device=x.device) for x in es]
+            for t in (tab_p, tab_q)]
+    # replicated: over one card with no process group the identity
+    peaks = kern.peaks(qval_opt, min_len, max_gap, True, PEAK_CAP)(
+        starts, ends, pval, live, *tabs, min_pq, min_auc)
+    return TileResult(_first(peaks), frag_all[0], None), lam, factor
 
 
 def merge_tile_peaks(result: TileResult, tile_len: int,

@@ -14,7 +14,10 @@ the sharded engine's boundary merge ``peak_merge_s`` among it, and
 summed from the profiler's device events), the card's idle share (1 -
 device time / wall), the same per card (``device_ms_by_card``,
 ``idle_share_by_card``: the sharded engine spans every card the
-process sees) with each card's launches, and the top device entries.
+process sees; its runs join no process group) with each card's
+launches and its device time in NCCL's kernels and in copies between
+cards and on a card (``comm_ms_by_card``), and the top device
+entries.
 With ``--chip`` also Genrich's ChIP-seq runs of ``chip_smoke.py``:
 ``chip`` (``-t A -c B``) and ``chip_fisher`` (``-t A,B -c C,C``), each
 with ``-r -p 0.01 -a 20 -E BLK.bed -e chr3``.
@@ -121,6 +124,28 @@ def _device_ms_by_card(prof):
     return dict(sorted(per.items()))
 
 
+def comm_ms_by_card(prof):
+    """Device milliseconds of one profiled run on each card index in
+    NCCL's kernels (``nccl``), in copies between two cards (``ptop``:
+    the collectives' peer copies) and in copies on one card (``dtod``)."""
+    import torch
+    per = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        kind = "nccl" if "nccl" in e.name.lower() else "ptop" \
+            if "PtoP" in e.name else "dtod" if "DtoD" in e.name else None
+        if kind is None:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        card = per.setdefault(e.device_index, dict.fromkeys(
+            ("nccl", "ptop", "dtod"), 0.0))
+        card[kind] += us / 1e3
+    return dict(sorted(per.items()))
+
+
 def record_shortfall(records, launches):
     """Hand kernels whose device records disagree with their launches.
 
@@ -198,6 +223,7 @@ def profile_path(name, ts, engine="jax", extra=(), flags=FLAGS):
          "device_ms_by_card": by_card,
          "idle_share_by_card": {i: 1.0 - ms / 1e3 / wall
                                 for i, ms in by_card.items()},
+         "comm_ms_by_card": comm_ms_by_card(prof),
          "card_launches": kernels.CARD_LAUNCHES, "attempt": attempt,
          "cummax_records": scans, "launches": dict(kernels.LAUNCHES),
          "perf": perf}))

@@ -11,7 +11,8 @@ library is found once.
   - runs it with the cached engine of its ``--engine`` kind (``jax``,
     the default: ``TorchEngine`` on one card; ``sharded``:
     ``ShardedTorchEngine``, over every card the process sees for
-    ``--device cuda``), and calls the engine's ``release()`` after
+    ``--device cuda``, or under a process group the rank's cards), and
+    calls the engine's ``release()`` after
     every analysis, which frees its tensors on every card; an
     ``--engine exact`` line runs with no engine, on the host, as
     ``genrich_tpu/serve.py`` runs it;

@@ -28,10 +28,13 @@ gloo ranks give.
 
 On a host with CUDA cards (each test skips with fewer than it needs):
 K1-K5 launched on ``cuda:1`` equal their plain versions, counted on
-card 1; and two and four NCCL ranks of the CLI (one card each) write
-the bytes of one card and of every card in one process.  These import
-no jax: ``python -m pytest tests/test_torch_multicard.py -k
-"second_card or nccl"``.
+card 1; two and four NCCL ranks of the CLI (one card each) write the
+bytes of one card and of every card in one process; and several cards
+a rank, two ranks of the CLI with ``LOCAL_WORLD_SIZE=2`` on four cards
+and one rank of two contexts on cuda:0, write the bytes of one card
+with every kernel launched on every card.  These import no jax:
+``python -m pytest tests/test_torch_multicard.py -k "second_card or
+nccl"``.
 """
 
 from __future__ import annotations
@@ -205,14 +208,19 @@ def test_cards_write_the_one_context_bytes(tmp_path, monkeypatch, w,
             assert abs(x - float(fb[i])) <= tol * max(1.0, abs(x)), (a, b)
 
 
-def test_engine_on_cards_refuses_what_it_cannot_use():
-    """No fallback: a device this process does not have, or several
-    devices a rank of a process group, raise."""
+def test_engine_on_cards_refuses_what_it_cannot_use(monkeypatch):
+    """No fallback: a device this process does not have, a shard count
+    the cards do not divide, or ranks of a process group that hold
+    unequal card counts (here the gather of the counts stands in for two
+    ranks; test_torch_multirank.py runs them), raise."""
     with pytest.raises(RuntimeError, match="CUDA card"):
         ShardedTorchEngine(["cpu", f"cuda:{torch.cuda.device_count()}"])
     with pytest.raises(ValueError, match="multiple"):
         ShardedTorchEngine(["cpu"] * 4, n_shards=6)
-    with pytest.raises(ValueError, match="several cards"):
+    monkeypatch.setattr(mesh, "world_rank", lambda procs: (2, 0))
+    monkeypatch.setattr(mesh, "gather_rows",
+                        lambda x, procs: torch.cat([x, x - 1]))
+    with pytest.raises(ValueError, match=r"\[2, 1\] cards"):
         mesh.CardGroup(["cpu", "cpu"], procs=object())
 
 
@@ -390,3 +398,85 @@ def test_nccl_ranks_write_the_one_card_bytes(cuda, tmp_path, ranks):
     assert (tmp_path / "every.np").read_bytes() == want
     for i in range(ranks):
         assert (tmp_path / f"r{i}.np").read_bytes() == want, i
+
+
+# A rank of the several-cards check: argv is the repo, the engine's
+# devices as JSON (null: the CLI with --engine sharded --device cuda),
+# then the CLI flags; prints the launches per card and perf.
+_RANK = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch.distributed as td
+from genrich_tpu_torch import cli, kernels, pipeline
+from genrich_tpu_torch.engine.sharded_bridge import ShardedTorchEngine
+devices, argv = json.loads(sys.argv[2]), sys.argv[3:]
+perf = {}
+if devices is None:
+    assert cli.main(argv + ["--engine", "sharded", "--device", "cuda"],
+                    perf=perf) == 0
+else:
+    p = cli.parse_port_args(argv)
+    cli.native_ingest(p)
+    eng = ShardedTorchEngine(devices)
+    pipeline.run(p, engine=eng, perf=perf)
+print(json.dumps({"cards": kernels.CARD_LAUNCHES, "world": [
+    td.get_world_size(), td.get_rank()],
+    "host_peak_chroms": perf["host_peak_chroms"],
+    "loaded": sorted({m.split(".")[0] for m in sys.modules}
+                     & {"jax", "genrich_tpu"})}))
+td.destroy_process_group()
+"""
+
+
+@pytest.mark.parametrize("form", ["two_ranks_of_two_cards",
+                                  "one_rank_of_two_contexts"])
+def test_nccl_ranks_of_several_cards_write_the_one_card_bytes(
+        cuda, tmp_path, form):
+    """Several cards a rank of an NCCL group, on the ChIP Fisher fixture:
+    two ranks of the CLI with ``LOCAL_WORLD_SIZE=2`` (each rank two of
+    four cards), or one rank of two contexts on cuda:0; each rank writes
+    the bytes of one card, with K1-K5 launched on every card and no
+    host peak call."""
+    from test_torch_parallel import _free_port
+    _cards(4 if form == "two_ranks_of_two_cards" else 1)
+    args = _chip_args(tmp_path, 2)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
+                        "LOCAL_WORLD_SIZE", "LOCAL_RANK")}
+    env["PYTHONPATH"] = REPO
+    one = _cli(args + ["--engine", "sharded", "--device", "cuda:0"], env,
+               str(tmp_path / "one.np"))
+    assert one.wait(timeout=300) == 0, one.stderr.read()[-2000:]
+    ranks = 2 if form == "two_ranks_of_two_cards" else 1
+    env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+               WORLD_SIZE=str(ranks))
+    procs = []
+    for r in range(ranks):
+        extra = {"LOCAL_WORLD_SIZE": "2", "LOCAL_RANK": str(r)} \
+            if ranks == 2 else {}
+        devices = None if ranks == 2 else ["cuda:0", "cuda:0"]
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _RANK, REPO, json.dumps(devices)] + args
+            + ["-o", str(tmp_path / f"r{r}.np")],
+            env={**env, **extra, "RANK": str(r)}, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    try:
+        logs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, f"rank {r}:\n{logs[r][1][-2000:]}"
+    want = (tmp_path / "one.np").read_bytes()
+    assert want.count(b"\n") > 10
+    every = {}
+    for r, (out, _) in enumerate(logs):
+        rec = json.loads(out.splitlines()[-1])
+        assert rec["world"] == [ranks, r] and rec["loaded"] == []
+        assert rec["host_peak_chroms"] == 0
+        every.update(rec["cards"])
+        assert (tmp_path / f"r{r}.np").read_bytes() == want, r
+    assert sorted(every) == (["0", "1", "2", "3"] if ranks == 2 else ["0"])
+    for c in every.values():
+        assert all(n > 0 for n in c.values()), every
