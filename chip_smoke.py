@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (genrich_tpu_torch) on one card.
 
-    python3 chip_smoke.py [--phase sharded_cards|sharded_ranks]
+    python3 chip_smoke.py [--phase sharded_cards|sharded_ranks|ladder]
 
 It needs one card; phases 14 and 15 span every card the machine has.
 
@@ -184,8 +184,34 @@ non-zero, and the result line is printed only when every phase passed:
    shards a rank, each run's wall, ``device_rep_s`` and peak memory a
    card.  ``python3 chip_smoke.py --phase sharded_ranks`` runs phase 1,
    the build, the BAMs and this phase alone, with no result line.
-16. The last lines: the kernels JSON (``launches_by_path`` with the
-   ChIP paths, the bench, ``sharded_cards`` and ``sharded_ranks``, each
+16. The ladder (``ladder``): the 10M-pair rung of ``python -m
+   genrich_tpu_torch.bench --mem`` (perf_synth's seed 7 on the 2.75 Gbp
+   genome, ``-r -j -q 0.05 -a 20``; its BAM synthesised by a child
+   process started with the others, about 513 s, while phases 2-15
+   run): ``bench.mem_rung`` with one rep, the port's ``--engine exact
+   -v`` child (the oracle) and a serve child per device engine (no
+   process group) with a cold and a warm line, and every check of the
+   bench's rung: the rows against the exact output, the summits
+   (``testing.check_summits``; the exact engine's -f log written only
+   when a summit differs), cold == warm bytes, no chromosome on the host
+   peak caller, K1, K2, K5 and K4 launched on every card in every line
+   (each serve line's ``launches_by_card``, its counts set to 0 just
+   before the analysis and read just after).  Printed: the walls, the
+   stage seconds, ``max_memory_allocated_by_card`` and each child's
+   host RSS.  Then one more TorchEngine run in this process keeps the
+   inputs of the largest chromosome's own K1, K2, K5 and K4 calls: K1
+   bitwise to its plain version, K2 within rtol = atol = 1e-5 (its rows
+   read from its tables and beyond them printed; the 10M call stays
+   below the tables, so K2 is held again on the call with every 40th
+   row's coverage raised to an integral value of 8,192 to 33,290), K5
+   bitwise, K4 with its summit fields exact and its AUC bitwise to the
+   row-order sum (each also bitwise to its first design, as on the main
+   path), each call's rows and device ms printed.  ``python3 chip_smoke.py --phase
+   ladder`` runs phase 1, the build, its BAM and this phase alone, with
+   no result line.
+17. The last lines: the kernels JSON (``launches_by_path`` with the
+   ChIP paths, the bench, ``sharded_cards``, ``sharded_ranks``,
+   ``ladder`` and ``ladder_sharded``, each
    kernel's sums on
    them under ``<path>_path``, K1's lambda mode on the bench's light tile under
    ``lambda_mode.bench_path``), the
@@ -236,10 +262,12 @@ DEV = "cuda"
 SM_CLOCK_HZ = 1.98e9           # H100 SXM boost clock (data sheet)
 FADD_CYCLES = 4                # dependent float32 add latency
 BUSY_CYCLES = 2_000_000        # about 1 ms of spinning ahead of a timing
+N_LADDER = 10_000_000   # phase 16: the second rung of bench --mem
 # (pairs, seed) of each BAM: main path / Fisher replicate A, Fisher
-# replicate B, logs, and the control of the ChIP Fisher replicates
+# replicate B, logs, the control of the ChIP Fisher replicates, and the
+# ladder's rung (bench.ladder_bam's name)
 BAMS = {"a": (N_PAIRS, 7), "b": (N_PAIRS, 8), "log": (N_LOG_PAIRS, 7),
-        "c": (N_PAIRS // 2, 9)}
+        "c": (N_PAIRS // 2, 9), "ladder": (N_LADDER, 7)}
 
 
 def say(phase: str, **kw) -> None:
@@ -276,12 +304,14 @@ def _bam_path(key: str) -> str:
     return os.path.join(WORK, f"atac_e2e_hg_{n}{tag}.bam")
 
 
-def start_synth():
-    """Start scripts/perf_synth.py for every BAM of ``BAMS`` missing from
-    .bench_cache/, one child process each, all at once (about 40 s for
-    2M pairs; one after the other they took 105 s)."""
+def start_synth(keys):
+    """Start scripts/perf_synth.py for every BAM of ``keys`` (of
+    ``BAMS``) missing from .bench_cache/, one child process each, all at
+    once (about 40 s for 2M pairs; one after the other they took 105 s;
+    the ladder's 10M pairs take about 513 s, while phases 2-15 run)."""
     os.makedirs(WORK, exist_ok=True)
-    for key, (n, seed) in BAMS.items():
+    for key in keys:
+        n, seed = BAMS[key]
         path = _bam_path(key)
         if not os.path.exists(path):
             SYNTH[key] = (subprocess.Popen(
@@ -2328,8 +2358,130 @@ T0 = time.perf_counter()
 T0 = time.perf_counter()
 
 
+# --- the ladder's 10M rung -------------------------------------------------
+
+def _largest(calls, name):
+    """The call of ``name`` with the most rows: the largest chromosome's."""
+    return max(calls[name], key=lambda c: c[0].shape[0])
+
+
+def _k2_tables(args):
+    """K2's rows on a call: those it reads from its tables (``table_p``,
+    ``table_params``), those that run the arithmetic in full beyond them,
+    and of those the integral values at or above ``testing.STATS_TABLE``."""
+    from genrich_tpu_torch import testing
+    c = testing.tile_stats_opcount(*args)
+    b = c["branches"]
+    expt = args[0]
+    integral = (expt >= testing.STATS_TABLE) & (expt.trunc() == expt) \
+        & ~args[2]
+    return {"rows": c["rows"], "main": b["main"], "table_p": b["table_p"],
+            "table_params": b["table_params"],
+            "beyond_tables": b["main"] - b["table_p"] - b["table_params"],
+            "integral_at_or_above_table": int(integral.sum()),
+            "max_expt": float(expt.max())}
+
+
+def _raised_past_tables(call, stride=40, top=33_290):
+    """K2's call ``call`` with every ``stride``-th row's coverage raised
+    to an integral value from ``testing.STATS_TABLE`` to ``top`` (the
+    most the 60M rung's largest call held), so that its beyond-table
+    branch runs on the rows, lambdas and exclusions of a real call: the
+    10M rung's own coverage stays below the tables."""
+    import torch
+    from genrich_tpu_torch import testing
+    expt = call[0].clone()
+    idx = torch.arange(0, expt.shape[0], stride, device=expt.device)
+    span = top - testing.STATS_TABLE + 1
+    expt[idx] = (testing.STATS_TABLE + (idx * 7) % span).to(expt.dtype)
+    return [expt] + list(call[1:])
+
+
+def ladder_phase(bam):
+    """Phase 16: the 10M rung of ``bench --mem`` (``bench.mem_rung``, one
+    rep: the exact child, then the cold and a warm line of a serve child
+    per device engine, all of its checks), then the inputs of the
+    largest chromosome's own K1, K2, K5 and K4 calls from one more
+    TorchEngine run, each kernel held to its plain version there.
+    Returns {"ladder": TorchEngine's warm launches, "ladder_sharded":
+    the sharded engine's} and each kernel's sums."""
+    from genrich_tpu_torch import bench
+    t0 = time.perf_counter()
+    rung = bench.mem_rung(N_LADDER, bam, reps=1, device=DEV, work=WORK,
+                          timeout=1800.0)
+    engines = {}
+    for eng in bench.ENGINES:
+        e = rung[eng]
+        engines[eng] = {k: e[k] for k in (
+            "cold_s", "rep_s", "ready_s", "cold_stages", "stages",
+            "max_memory_allocated_by_card", "rss_mb", "ratio_reps",
+            "peak_redispatch", "host_peak_chroms", "launches_by_card",
+            "rows", "summits")}
+    say("ladder", pairs=N_LADDER, bam_mb=rung["bam_mb"],
+        records=rung["records"], peaks=rung["peaks"],
+        exact_s=rung["exact_s"], exact_rss_mb=rung["exact_rss_mb"],
+        exact_phases=rung["exact_phases"], engines=engines,
+        exact_log_written=rung["exact_log_written"], checks=rung["checks"],
+        faults=rung["faults"], seconds=time.perf_counter() - t0)
+    failed = [k for k, v in rung["checks"].items() if not v]
+    if failed:
+        raise AssertionError(f"ladder: failed checks {failed}: "
+                             f"{rung['faults']}")
+    counts = {f"ladder{'' if eng == 'jax' else '_' + eng}":
+              rung[eng]["launches_by_card"][-1]["0"]
+              for eng in bench.ENGINES}
+    return counts, ladder_kernels(bam)
+
+
+def ladder_kernels(bam, label="ladder"):
+    """One more TorchEngine run on ``bam`` keeping the inputs of its K1,
+    K2, K5 and K4 calls; the largest chromosome's call of each held to
+    its plain version (and its first design), with K2's rows read from
+    its tables and beyond them.  Returns each kernel's sums."""
+    import torch
+    from genrich_tpu_torch.engine import torch_bridge
+    from genrich_tpu_torch.ops import peaks, pipeline
+    t0 = time.perf_counter()
+    calls = kernel_inputs(label, bam, [(pipeline, "coverage_scan"),
+                                       (torch_bridge, "tile_stats"),
+                                       (peaks, "peak_candidates"),
+                                       (peaks, "peak_reduce")])
+    big = {name: _largest(calls, name) for name in calls}
+    del calls
+    k2_args = [a.to(torch.device(DEV)) if torch.is_tensor(a) else a
+               for a in big["tile_stats"]]
+    tables = _k2_tables(k2_args)
+    del k2_args
+    say(f"{label}_k2_tables", **tables)
+    raised = _raised_past_tables(big["tile_stats"])
+    raised_tables = _k2_tables([a.to(torch.device(DEV))
+                                if torch.is_tensor(a) else a
+                                for a in raised])
+    say(f"{label}_raised_k2_tables", **raised_tables)
+    if not raised_tables["integral_at_or_above_table"]:
+        raise AssertionError(f"{label}: no raised row reaches K2's "
+                             f"beyond-table branch")
+    k2 = k2_path_phase([big["tile_stats"]], label)
+    k2_raised = k2_path_phase([raised], f"{label} raised")
+    del raised
+    sums = {"coverage_scan": k1_path_phase([big["coverage_scan"]], label),
+            "tile_stats": dict(k2, tables=tables, raised=dict(
+                k2_raised, tables=raised_tables), max_abs_err=max(
+                k2["max_abs_err"], k2_raised["max_abs_err"])),
+            "gap_join": k5_path_phase([big["peak_candidates"]], label),
+            "peak_reduce": k4_path_phase([big["peak_reduce"]], label)}
+    say(f"{label}_kernels", seconds=time.perf_counter() - t0,
+        **{name: {k: v[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "max_abs_err")}
+           for name, v in sums.items()})
+    return sums
+
+
 ALONE = {"sharded_cards": sharded_cards_phase,
-         "sharded_ranks": sharded_ranks_phase}
+         "sharded_ranks": sharded_ranks_phase, "ladder": ladder_phase}
+# the BAMs each run makes (``start_synth``)
+NEEDS = {"sharded_cards": ("a", "b", "c"), "sharded_ranks": ("a", "b", "c"),
+         "ladder": ("ladder",)}
 
 
 def main(argv=None) -> int:
@@ -2337,11 +2489,11 @@ def main(argv=None) -> int:
     if argv and (len(argv) != 2 or argv[0] != "--phase"
                  or argv[1] not in ALONE):
         raise SystemExit("usage: chip_smoke.py [--phase sharded_cards|"
-                         "sharded_ranks]")
+                         "sharded_ranks|ladder]")
     smi = card()
-    start_synth()
+    start_synth(NEEDS[argv[1]] if argv else BAMS)
     try:
-        return run_alone(ALONE[argv[1]]) if argv else run_phases(smi)
+        return run_alone(argv[1]) if argv else run_phases(smi)
     finally:
         stop_synth()
 
@@ -2359,13 +2511,16 @@ def _blacklist() -> str:
     return path
 
 
-def run_alone(phase) -> int:
-    """``--phase sharded_cards`` or ``sharded_ranks``: the build, the BAMs
-    and phase 14 or 15 alone (the one-card references it needs made on
-    cuda:0); no result line."""
+def run_alone(name) -> int:
+    """``--phase sharded_cards``, ``sharded_ranks`` or ``ladder``: the
+    build, the BAMs and phase 14, 15 or 16 alone (the one-card
+    references phases 14-15 need made on cuda:0); no result line."""
     build()
-    bams = [synth_bam(k) for k in ("a", "b", "c")]
-    phase(*bams, _blacklist())
+    bams = [synth_bam(k) for k in NEEDS[name]]
+    if name == "ladder":
+        ladder_phase(*bams)
+    else:
+        ALONE[name](*bams, _blacklist())
     say("done", seconds=time.perf_counter() - T0)
     return 0
 
@@ -2424,6 +2579,8 @@ def run_phases(smi) -> int:
                                                        _blacklist())
     chip_counts["sharded_ranks"] = sharded_ranks_phase(bam_a, bam_b, bam_c,
                                                        _blacklist())
+    ladder_counts, chip_sums["ladder"] = ladder_phase(synth_bam("ladder"))
+    chip_counts.update(ladder_counts)
     entries[0]["lambda_mode"]["bench_path"] = lam_bench
     entries[0]["lambda_mode"]["p_max_abs_err"] = max(
         entries[0]["lambda_mode"]["p_max_abs_err"], lam_bench["p_max_abs_err"])

@@ -24,8 +24,11 @@ library is found once.
     upload/dispatch/fetch accounting, on a card also the analysis's
     peak device memory of each card the engine spans
     (``max_memory_allocated_by_card``, bytes, in its device order) and
-    their maximum (``max_memory_allocated``); an exact line's has the
-    walls ``ingest_s`` and ``findpeaks_s`` only.  Split the line on
+    their maximum (``max_memory_allocated``); a device line's also has
+    the analysis's hand-kernel launches per card index
+    (``launches_by_card``, ``kernels.CARD_LAUNCHES``: empty on the CPU,
+    where the wrappers run their plain versions); an exact line's has
+    the walls ``ingest_s`` and ``findpeaks_s`` only.  Split the line on
     the first two whitespace fields only.
 
 An empty line or ``EXIT`` ends the loop.  A failing analysis, an
@@ -43,6 +46,7 @@ from typing import List, Optional
 
 import torch
 
+from . import kernels
 from .cli import make_engine, native_ingest, parse_port_args
 from .engine.torch_bridge import check_device
 from .errors import GenrichError
@@ -81,6 +85,7 @@ def serve_loop(default_args: Optional[List[str]] = None, stdin=None,
             if on_card:
                 for d in cards:
                     torch.cuda.reset_peak_memory_stats(d)
+            kernels.reset_launches()
             try:
                 run(p, engine=eng, perf=perf)
             finally:
@@ -90,6 +95,9 @@ def serve_loop(default_args: Optional[List[str]] = None, stdin=None,
                 mem = [torch.cuda.max_memory_allocated(d) for d in cards]
                 perf["max_memory_allocated_by_card"] = mem
                 perf["max_memory_allocated"] = max(mem)
+            if eng is not None:
+                perf["launches_by_card"] = {
+                    i: dict(c) for i, c in kernels.CARD_LAUNCHES.items()}
             msg = f"OK {time.perf_counter() - t0:.3f}"
             if perf:
                 msg += " " + json.dumps(

@@ -399,3 +399,57 @@ def test_bench_runs_with_jax_and_genrich_tpu_refused(tmp_path):
     assert "SUM True" in r.stdout and "LOADED []" in r.stdout, r.stderr
     assert r.returncode == 1 and "no CUDA card" in r.stderr
     assert not (tmp_path / ".bench_cache").exists()
+
+
+# refuses jax and genrich_tpu in every Python process that finds it on
+# PYTHONPATH (the bench's serve, exact and perf_synth children), and
+# leaves a line per process, its pid and argv, in the file GUARD_PIDS
+# names
+_SITECUSTOMIZE = """
+import os, sys
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "genrich_tpu"):
+            raise ImportError("refused: " + name)
+        return None
+sys.meta_path.insert(0, Refuse())
+with open(os.environ["GUARD_PIDS"], "a") as f:
+    f.write(f"{os.getpid()} {' '.join(sys.argv)}\\n")
+"""
+
+_LADDER = """
+import json, sys
+from genrich_tpu_torch import bench
+small = (("chr1", 30_000_000), ("chr2", 20_000_000), ("chr3", 15_000_000))
+mem = bench.mem_ladder([20_000], reps=1, device="cpu", work="w",
+                       chroms=small, timeout=300, out_path="mem.json")
+ov = bench.overlap([20_000], work="w", chroms=small, timeout=300,
+                   out_path="overlap.json")
+print("OK", mem["ok"], ov["ok"])
+print("LOADED", sorted({m.split(".")[0] for m in sys.modules}
+                       & {"jax", "genrich_tpu"}))
+"""
+
+
+def test_bench_ladder_and_overlap_run_with_jax_and_genrich_tpu_refused(
+        tmp_path):
+    """``bench --mem`` and ``--overlap`` (one rung of 20,000 pairs on the
+    CPU) with both imports refused in the bench's own process and in
+    every child it starts: perf_synth, the ``--engine exact`` runs and
+    the serve children of both device engines."""
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_SITECUSTOMIZE)
+    pids = tmp_path / "pids.txt"
+    env = {**_env(), "GUARD_PIDS": str(pids),
+           "PYTHONPATH": f"{site}{os.pathsep}{oracle.REPO}"}
+    r = subprocess.run([sys.executable, "-c", _LADDER], cwd=str(tmp_path),
+                       capture_output=True, text=True, env=env)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "OK True True" in r.stdout and "LOADED []" in r.stdout
+    procs = pids.read_text().splitlines()
+    for child in (".bam.tmp", "--serve", "--engine exact"):
+        assert any(child in p for p in procs), (child, procs)
+    # the bench itself, perf_synth, two serve children, one exact run of
+    # the ladder and six of the overlap legs, each one a process
+    assert len(procs) >= 11, procs
