@@ -79,8 +79,9 @@ non-zero, and the result line is printed only when every phase passed:
    (bitwise), K5 as on the main path's, times.
 7. Sharded main path: the main path's BAM and flags with ``--engine
    sharded`` under a one-rank NCCL process group (MASTER_ADDR,
-   MASTER_PORT, RANK=0, WORLD_SIZE=1 set for the phase, so the
-   collectives run through NCCL on the card), cold and warm, against
+   MASTER_PORT, RANK=0, WORLD_SIZE=1 set for the phase and the group
+   made from them before its runs, so the collectives run through NCCL
+   on the card), cold and warm, against
    phase 4's exact file.  Prints the grid (2^28-bp tiles, 5 per
    chromosome), the merged peaks that straddle a tile boundary and the
    chromosomes the host peak caller finished.  Checks: K1, K2, K5 and K4
@@ -182,8 +183,17 @@ non-zero, and the result line is printed only when every phase passed:
    ``kernels.CARD_LAUNCHES``); no child imports jax or genrich_tpu, and
    a child that exits non-zero fails the phase.  Printed: cards, ranks,
    shards a rank, each run's wall, ``device_rep_s`` and peak memory a
-   card.  ``python3 chip_smoke.py --phase sharded_ranks`` runs phase 1,
-   the build, the BAMs and this phase alone, with no result line.
+   card.  Then ``python -m genrich_tpu_torch --engine sharded --device
+   cuda`` itself as NCCL rank processes, on both paths: one rank
+   (``WORLD_SIZE=1``) on any machine, and two ranks of one card each on
+   two cards or more; the CLI joins the group and leaves it.  Each rank
+   must exit with 0, with no abort, "has NOT been destroyed", fatal
+   error or traceback in its output, and write the one-card bytes.
+   Printed: the exit codes, each rank's wall and its teardown (its
+   narrowPeak's mtime to its exit), and, in this process, the wall of
+   leaving a one-rank group (barrier and destroy), 5 times.  ``python3
+   chip_smoke.py --phase sharded_ranks`` runs phase 1, the build, the
+   BAMs and this phase alone, with no result line.
 16. The ladder (``ladder``): the 10M-pair rung of ``python -m
    genrich_tpu_torch.bench --mem`` (perf_synth's seed 7 on the 2.75 Gbp
    genome, ``-r -j -q 0.05 -a 20``; its BAM synthesised by a child
@@ -1498,31 +1508,48 @@ def fisher_path(bam_a, bam_b):
 NCCL_ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
 
 
-@contextmanager
-def one_rank_nccl():
-    """The environment of a one-rank process group for the phase: the
-    sharded engine joins it with NCCL on the card; it is destroyed
-    after."""
-    import torch.distributed as dist
+def _free_port() -> int:
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+        return sock.getsockname()[1]
+
+
+@contextmanager
+def one_rank_env():
+    """The environment of a one-rank process group on 127.0.0.1 for the
+    block (``NCCL_ENV``, a free port)."""
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
                       RANK="0", WORLD_SIZE="1")
     try:
         yield
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
         for k in NCCL_ENV:
             os.environ.pop(k, None)
+
+
+@contextmanager
+def one_rank_nccl():
+    """A one-rank process group for the phase, made here from
+    ``one_rank_env`` (``init_distributed``: NCCL on the card) before its
+    runs, so that the sharded engine and the CLI find it and keep it
+    (the CLI leaves only a group that it joined); it is destroyed
+    after."""
+    import torch.distributed as dist
+    from genrich_tpu_torch.parallel.distributed import init_distributed
+    with one_rank_env():
+        try:
+            init_distributed(DEV)
+            yield
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
 
 
 def _need_nccl():
     import torch.distributed as dist
     if not dist.is_initialized() or dist.get_backend() != "nccl" \
             or dist.get_world_size() != 1:
-        raise AssertionError("the sharded engine did not join a one-rank "
+        raise AssertionError("the sharded engine ran under no one-rank "
                              "NCCL process group")
     return dist.get_backend()
 
@@ -2193,11 +2220,14 @@ def rank_run(label, argv, devices=None, profiled=False):
 
 
 def rank_child(cfg):
-    """A rank child of phase 15: ``rank_run`` of each of ``cfg["runs"]``
-    ([label, argv, profiled]; "{rank}" in an argument is this rank) over
-    ``cfg["devices"]``, one JSON line each, then the process group is
-    destroyed."""
+    """A rank child of phase 15: joins the process group from the
+    environment itself (so that the CLI keeps it across the runs), then
+    ``rank_run`` of each of ``cfg["runs"]`` ([label, argv, profiled];
+    "{rank}" in an argument is this rank) over ``cfg["devices"]``, one
+    JSON line each, then destroys the group."""
     import torch.distributed as dist
+    from genrich_tpu_torch.parallel.distributed import init_distributed
+    init_distributed(cfg["devices"] or DEV)
     for label, argv, profiled in cfg["runs"]:
         argv = [a.replace("{rank}", os.environ["RANK"]) for a in argv]
         print(json.dumps(rank_run(label, argv, cfg["devices"], profiled)),
@@ -2219,11 +2249,8 @@ def _rank_children(runs, cli_form):
     * 2)`` through ``pipeline.run``.
     Returns each run's records, one a rank; a child that fails fails
     the phase."""
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
     env = {k: v for k, v in os.environ.items() if k not in NCCL_ENV}
-    env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+    env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
                WORLD_SIZE="2")
     procs = []
     for r in (0, 1):
@@ -2294,6 +2321,96 @@ def _hold_rank_runs(form, label, out, recs, want, need, used, zero):
     return every
 
 
+# what the stderr of a rank of the CLI must not hold: an abort at exit,
+# a group that the process never left (PyTorch's two wordings), a crash
+UNCLEAN = ("terminate called", "has NOT been destroyed",
+           "destroy_process_group() was not called", "Fatal Python error",
+           "Traceback")
+
+
+def leave_ms(reps=5):
+    """The wall of ``scoped_group``'s leave of a one-rank process group
+    that its block joined from the environment (NCCL on the card) after
+    one collective: the barrier and ``destroy_process_group``, ms, each
+    of ``reps`` in this process."""
+    import torch
+    import torch.distributed as dist
+    from genrich_tpu_torch.parallel.distributed import (init_distributed,
+                                                        scoped_group)
+    walls = []
+    for _ in range(reps):
+        with one_rank_env(), scoped_group():
+            init_distributed(DEV)
+            dist.all_reduce(torch.ones(1, device=f"{DEV}:0"))
+            t0 = time.perf_counter()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if dist.is_initialized():
+            raise AssertionError("scoped_group left its group up")
+    return walls
+
+
+def cli_ranks(n, name, args, want, run_dir):
+    """``python -m genrich_tpu_torch ... --engine sharded --device cuda``
+    itself as ``n`` NCCL ranks, a process of its own each, on card
+    ``RANK`` (one card a rank): the CLI joins the group from
+    MASTER_ADDR, MASTER_PORT, WORLD_SIZE and RANK and leaves it.  Every
+    rank must exit with 0 and an output free of ``UNCLEAN``, and write
+    the bytes of path ``name`` on one card (``want``, the recorded
+    md5).  Prints the exit codes, each rank's wall and its teardown:
+    from its narrowPeak's last write (the file's mtime, a few ms
+    coarse) to its exit as seen here, interpreter and CUDA teardown
+    included."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in NCCL_ENV + ("LOCAL_WORLD_SIZE", "LOCAL_RANK")}
+    env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+               WORLD_SIZE=str(n), PYTHONPATH=REPO)
+    outs = [os.path.join(run_dir, f"{name}_cli_{n}_r{r}.np")
+            for r in range(n)]
+    logs = [os.path.join(run_dir, f"{name}_cli_{n}_r{r}.log")
+            for r in range(n)]
+    procs = []
+    t0 = time.time()
+    for r in range(n):
+        with open(logs[r], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "genrich_tpu_torch"] + args
+                + ["-o", outs[r], "--engine", "sharded", "--device", DEV],
+                env={**env, "RANK": str(r)}, cwd=REPO, stdout=log,
+                stderr=subprocess.STDOUT))
+    ended = [None] * n
+    try:
+        while None in ended:
+            for r, p in enumerate(procs):
+                if ended[r] is None and p.poll() is not None:
+                    ended[r] = time.time()
+            if time.time() - t0 > 400:
+                raise AssertionError(f"sharded_ranks cli {n} {name}: "
+                                     f"ranks still running after 400 s")
+            time.sleep(0.001)
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    rcs = [p.returncode for p in procs]
+    text = [open(log).read() for log in logs]
+    for r in range(n):
+        where = f"sharded_ranks cli {n} {name} rank {r}"
+        marks = [m for m in UNCLEAN if m in text[r]]
+        if rcs[r] != 0 or marks:
+            raise AssertionError(f"{where}: exit code {rcs[r]}, {marks}: "
+                                 f"{text[r][-3000:]}")
+        got = open(outs[r], "rb").read()
+        if _md5(outs[r]) != RECORDED_MD5[name] or got != want["torch"] \
+                or got != want["one_card"]:
+            raise AssertionError(f"{where}: md5 {_md5(outs[r])}, not the "
+                                 f"one-card bytes")
+    say(f"sharded_ranks_cli_{n}_{name}", ranks=n, exit_codes=rcs,
+        wall_s=[e - t0 for e in ended],
+        teardown_ms=[(e - os.stat(o).st_mtime) * 1e3
+                     for e, o in zip(ended, outs)],
+        md5=_md5(outs[0]), output_bytes=[len(t) for t in text])
+
+
 def sharded_ranks_phase(bam_a, bam_b, bam_c, bed):
     """Several shards a rank of an NCCL group, on the main path's BAM and
     flags and on ``chip_fisher``, cold and warm (and main once more
@@ -2301,8 +2418,11 @@ def sharded_ranks_phase(bam_a, bam_b, bam_c, bed):
     (``ShardedTorchEngine(["cuda:0", "cuda:0"])`` under a one-rank
     group) on any machine, and with two cards or more two rank children
     (``_rank_children``).  Every run is held by ``_hold_rank_runs``.
-    Returns the main path's cold launches of its widest form (the
-    children's, else the one rank's), summed over the cards."""
+    Then the wall of leaving a one-rank group (``leave_ms``), and the
+    CLI itself as NCCL rank processes on both paths (``cli_ranks``): one
+    rank on any machine, and two ranks of one card each with two cards
+    or more.  Returns the main path's cold launches of its widest form
+    (the children's, else the one rank's), summed over the cards."""
     import torch
     from genrich_tpu_torch import kernels
     n_cards = torch.cuda.device_count()
@@ -2351,6 +2471,13 @@ def sharded_ranks_phase(bam_a, bam_b, bam_c, bed):
                                     paths[label.split()[0]][1], used, zero)
             if label == "main cold":
                 counts = {k: sum(c[k] for c in every.values()) for k in zero}
+    say("sharded_ranks_leave", one_rank_leave_ms=leave_ms())
+    for n in (1, 2) if n_cards >= 2 else (1,):
+        for name, (args, _) in paths.items():
+            cli_ranks(n, name, args, wants[name], run_dir)
+    if n_cards < 2:
+        say("sharded_ranks_cli_2", skipped="one card: NCCL takes no two "
+            "ranks on one card")
     return counts
 
 

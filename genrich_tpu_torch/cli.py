@@ -34,6 +34,7 @@ to stderr and exit 1.
 
 from __future__ import annotations
 
+import contextlib
 import re
 import sys
 from typing import List, Optional, Tuple
@@ -180,22 +181,34 @@ def main(argv: Optional[List[str]] = None,
         sys.stderr.write(f"Error! {e}\n")
         return 1
 
-    from .pipeline import run
+    scope = contextlib.nullcontext()
+    if params.engine != "exact":     # the host engine loads no torch
+        from .parallel.distributed import scoped_group
+        scope = scoped_group()
     try:
-        engine = make_engine(params.engine, device)
-    except (RuntimeError, ValueError) as e:
-        sys.stderr.write(f"Error! {e}\n")
-        return 1
-    native_ingest(params)
-    try:
-        run(params, engine=engine, perf=perf)
+        with scope:
+            _analyse(params, device, perf)
     except GenrichError as e:
         sys.stderr.write(e.render() + "\n")
         return 1
-    except ValueError as e:          # a flag the engine cannot honour
+    except ValueError as e:          # no engine, or a flag it cannot honour
         sys.stderr.write(f"Error! {e}\n")
         return 1
     return 0
+
+
+def _analyse(params: Params, device: str, perf: Optional[dict]) -> None:
+    """``pipeline.run`` of ``params`` with an engine of its kind on
+    ``device``; an engine that cannot be made raises ValueError.  The
+    engine lives in this frame only, so that a process group it joined
+    has no holder left when the call ends (``scoped_group``)."""
+    from .pipeline import run
+    try:
+        engine = make_engine(params.engine, device)
+    except RuntimeError as e:
+        raise ValueError(str(e)) from e
+    native_ingest(params)
+    run(params, engine=engine, perf=perf)
 
 
 if __name__ == "__main__":

@@ -14,12 +14,17 @@ rows, a rank here passes its devices' rows to the steps.
 ``init_distributed`` joins a group from the standard environment
 (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``): NCCL when
 the device is CUDA, gloo on the CPU.  Without those variables it does
-nothing and every step runs locally.
+nothing and every step runs locally.  ``scoped_group`` leaves a group
+that was joined inside its block (the CLI runs each analysis in one,
+the server its whole loop); a group that was there before stays its
+maker's to end.
 """
 
 from __future__ import annotations
 
 import os
+import traceback
+from contextlib import contextmanager
 from typing import Optional
 
 import numpy as np
@@ -67,6 +72,54 @@ def init_distributed(device) -> Optional[object]:
                             world_size=int(os.environ["WORLD_SIZE"]),
                             rank=int(os.environ["RANK"]))
     return dist.group.WORLD
+
+
+@contextmanager
+def scoped_group():
+    """Runs a block, then leaves the default process group if the block
+    joined it (``init_distributed``); a group that was there before the
+    block stays.
+
+    The group is left on every way out of the block: after a clean end
+    the ranks first meet at a barrier, so that no rank closes its
+    connections while a peer still finishes a collective; after an
+    exception (which goes on) there is no barrier, since the peers may
+    be inside another collective, and a peer left waiting fails on the
+    closed connections.  The block's objects that hold the group (an
+    engine, its ``CardGroup``) must be gone when it ends: then
+    ``destroy_process_group`` drops the group's last reference, and its
+    destructor joins gloo's worker threads while the interpreter still
+    runs.  A gloo worker left running into interpreter teardown can
+    release a finished collective's tensors after finalization began;
+    taking the interpreter lock there ends the thread inside a
+    ``noexcept`` frame, and the process aborts with "terminate called
+    without an active exception".  Under NCCL, leaving is what lets the
+    group's pending work finish (a group destructed without it warns
+    that it was "NOT destroyed").
+    """
+    import torch.distributed as dist
+
+    def joined() -> bool:
+        return dist.is_available() and dist.is_initialized()
+
+    before = joined()
+    try:
+        yield
+    except BaseException as e:
+        if not before and joined():
+            # the traceback's finished frames hold the engine, and with
+            # it the group: their locals go first
+            traceback.clear_frames(e.__traceback__)
+            dist.destroy_process_group()
+        raise
+    if not before and joined():
+        try:
+            if dist.get_backend() == "nccl":
+                dist.barrier(device_ids=[torch.cuda.current_device()])
+            else:
+                dist.barrier()
+        finally:
+            dist.destroy_process_group()
 
 
 def rank_devices(device, rank: int) -> list:

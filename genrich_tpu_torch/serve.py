@@ -33,7 +33,9 @@ library is found once.
 
 An empty line or ``EXIT`` ends the loop.  A failing analysis, an
 unexpected exception included, answers ``ERR`` and serving goes on.
-``--device cuda`` without a card is an error before ``READY``.
+``--device cuda`` without a card is an error before ``READY``.  A
+process group that a sharded engine joined from the environment is
+left when the loop ends (``parallel.distributed.scoped_group``).
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from . import kernels
 from .cli import make_engine, native_ingest, parse_port_args
 from .engine.torch_bridge import check_device
 from .errors import GenrichError
+from .parallel.distributed import scoped_group
 
 
 def serve_loop(default_args: Optional[List[str]] = None, stdin=None,
@@ -63,6 +66,16 @@ def serve_loop(default_args: Optional[List[str]] = None, stdin=None,
     except (RuntimeError, ValueError) as e:
         sys.stderr.write(f"Error! {e}\n")
         return 1
+    with scoped_group():
+        _serve(default_args, stdin, stdout, device, dev)
+    return 0
+
+
+def _serve(default_args: List[str], stdin, stdout, device: str,
+           dev: torch.device) -> None:
+    """The loop of ``serve_loop``; its engines live in this frame only,
+    so that a process group they joined has no holder left when it
+    ends."""
     engines = {}
 
     from .pipeline import run
@@ -116,4 +129,3 @@ def serve_loop(default_args: Optional[List[str]] = None, stdin=None,
             traceback.print_exc()
             print(f"ERR {time.perf_counter() - t0:.3f}", file=stdout,
                   flush=True)
-    return 0

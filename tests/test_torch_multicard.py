@@ -257,6 +257,7 @@ group = distributed.init_distributed("cpu")
 rank = dist.get_rank()
 out = _collectives(_inputs(rank), group)
 json.dump([x.tolist() for x in out], open(sys.argv[3], "w"))
+del group    # its last holder: destroy_process_group then joins its threads
 dist.destroy_process_group()
 """
 
@@ -373,7 +374,8 @@ def _cli(args, env, out):
 def test_nccl_ranks_write_the_one_card_bytes(cuda, tmp_path, ranks):
     """``--engine sharded`` as ``ranks`` NCCL ranks (one card each),
     on one card (``--device cuda:0``) and over every card of one
-    process: the same bytes, the ChIP Fisher fixture."""
+    process: the same bytes, the ChIP Fisher fixture; each rank leaves
+    its group (no "has NOT been destroyed" on its stderr)."""
     _cards(ranks)
     from test_torch_parallel import _free_port
     args = _chip_args(tmp_path, 2) + ["--engine", "sharded"]
@@ -393,6 +395,10 @@ def test_nccl_ranks_write_the_one_card_bytes(cuda, tmp_path, ranks):
     logs = [p.communicate(timeout=300) for p in procs]
     for i, p in enumerate(procs):
         assert p.returncode == 0, f"rank {i}:\n{logs[i][1][-2000:]}"
+        # each rank left its group (tests/test_torch_multirank.py)
+        for mark in ("terminate called", "has NOT been destroyed",
+                     "destroy_process_group() was not called"):
+            assert mark not in logs[i][1], f"rank {i}:\n{logs[i][1]}"
     want = (tmp_path / "one.np").read_bytes()
     assert want.count(b"\n") > 10
     assert (tmp_path / "every.np").read_bytes() == want
@@ -409,7 +415,11 @@ sys.path.insert(0, sys.argv[1])
 import torch.distributed as td
 from genrich_tpu_torch import cli, kernels, pipeline
 from genrich_tpu_torch.engine.sharded_bridge import ShardedTorchEngine
+from genrich_tpu_torch.parallel import distributed
 devices, argv = json.loads(sys.argv[2]), sys.argv[3:]
+# the script's own group, which it ends: the CLI keeps a group made
+# before it (and leaves one that it joined)
+distributed.init_distributed(devices or "cuda")
 perf = {}
 if devices is None:
     assert cli.main(argv + ["--engine", "sharded", "--device", "cuda"],

@@ -23,8 +23,20 @@ ranks.  Here, on the CPU under gloo (spawned processes, the port only):
   controlled replicates; the caps cut small (re-dispatch on the
   device); a -g of 2^28 (one call a chromosome over every shard's
   rows); and the -f/-k logs;
-- ranks of unequal shard counts raise on both ranks; torchrun's
-  ``LOCAL_WORLD_SIZE`` splits a host's cards evenly or raises;
+- ranks of unequal shard counts raise on both ranks, through the CLI's
+  own path; torchrun's ``LOCAL_WORLD_SIZE`` splits a host's cards
+  evenly or raises;
+- ``python -m genrich_tpu_torch --engine sharded --device cpu`` itself as
+  two gloo ranks: the bytes of one process of two shards, and every rank
+  leaves the group it joined before the interpreter's teardown, after a
+  run and after an analysis error; in this process, ``scoped_group``
+  and the CLI and the server under a one-rank group leave a group
+  joined inside them and keep one made before;
+- every rank process of this file ends with no process group and no
+  gloo thread left when its interpreter starts to finalize (``_AT_EXIT``;
+  a gloo worker still running there can take the interpreter lock
+  after finalization began, and the process aborts with "terminate
+  called without an active exception");
 - the bench's ``--scaling`` legs on the script's rung at D = 1, 2 and 4
   contexts and 2 ranks x 1 and x 2 contexts give the same peaks, under
   the JSON keys of scripts/bench_scaling.py.
@@ -32,19 +44,23 @@ ranks.  Here, on the CPU under gloo (spawned processes, the port only):
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed as td
 
 import conftest  # noqa: F401  (8 virtual CPU devices for JAX)
 import dist2_worker as w
 
-from genrich_tpu_torch import bench, params, pipeline
+from genrich_tpu_torch import bench, cli, params, pipeline, serve
 from genrich_tpu_torch.engine.sharded_bridge import ShardedTorchEngine
 from genrich_tpu_torch.parallel import distributed as tdist
 from genrich_tpu_torch.parallel import mesh
@@ -75,11 +91,39 @@ class Refuse:
 sys.meta_path.insert(0, Refuse())
 """
 
+# Registered when the interpreter starts, so it runs last of the atexit
+# calls, just before the interpreter finalizes: writes whether a process
+# group is still up and the names of the gloo threads still running.
+_AT_EXIT = """
+import atexit, json, os, sys
+def _at_exit():
+    names = []
+    for t in os.listdir("/proc/self/task"):
+        try:
+            names.append(open(f"/proc/self/task/{t}/comm").read().strip())
+        except OSError:
+            pass
+    dist = sys.modules.get("torch.distributed")
+    up = bool(dist and dist.is_available() and dist.is_initialized())
+    sys.stderr.write("at exit: " + json.dumps(
+        {"group": up, "gloo_threads": sorted(n for n in names
+                                             if "gloo" in n)}) + "\\n")
+atexit.register(_at_exit)
+"""
+LEFT = {"group": False, "gloo_threads": []}
+# what a rank's stderr must not hold: an abort at exit, a group never
+# left (PyTorch's two wordings)
+UNCLEAN = ("terminate called", "has NOT been destroyed",
+           "destroy_process_group() was not called")
+
 
 def _ranks(script, argv_of, n=2, timeout=TIMEOUT):
     """``script`` as ``n`` gloo ranks on 127.0.0.1 (argv: repo, tests,
-    then ``argv_of(rank)``); returns each rank's (rc, stdout, stderr),
-    every process ended."""
+    then ``argv_of(rank)``), or with ``script`` None ``python -m
+    genrich_tpu_torch`` itself (argv: ``argv_of(rank)``); every rank
+    refuses jax and genrich_tpu and runs ``_AT_EXIT`` (a
+    ``sitecustomize``).  Returns each rank's (rc, stdout, stderr), every
+    process ended."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("XLA_FLAGS", "PYTHONPATH")}
     # the ranks share the cores: each spinning on all of them slows
@@ -87,23 +131,42 @@ def _ranks(script, argv_of, n=2, timeout=TIMEOUT):
     env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
                WORLD_SIZE=str(n), GLOO_SOCKET_IFNAME="lo",
                OMP_NUM_THREADS=str(max(1, (os.cpu_count() or n) // n)))
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", _REFUSE + script, REPO, HERE]
-        + argv_of(i), env={**env, "RANK": str(i)}, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for i in range(n)]
-    try:
-        logs = [p.communicate(timeout=timeout) for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-            p.wait()
+    cmd = [sys.executable, "-m", "genrich_tpu_torch"] if script is None \
+        else [sys.executable, "-c", script, REPO, HERE]
+    with tempfile.TemporaryDirectory() as site:
+        with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+            f.write(_REFUSE + _AT_EXIT)
+        env["PYTHONPATH"] = os.pathsep.join([site, REPO])
+        procs = [subprocess.Popen(
+            cmd + argv_of(i), env={**env, "RANK": str(i)},
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for i in range(n)]
+        try:
+            logs = [p.communicate(timeout=timeout) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
     return [(p.returncode, out, err) for p, (out, err) in zip(procs, logs)]
 
 
-def _ok(runs):
-    for i, (rc, _, err) in enumerate(runs):
-        assert rc == 0, f"rank {i}:\n{err[-2000:]}"
-    return [json.loads(out.splitlines()[-1]) for _, out, _ in runs]
+def _at_exit(err):
+    """A rank's ``_AT_EXIT`` record from its stderr."""
+    lines = [ln for ln in err.splitlines() if ln.startswith("at exit: ")]
+    assert len(lines) == 1, err[-2000:]
+    return json.loads(lines[0][len("at exit: "):])
+
+
+def _ok(runs, rc=0):
+    """Each rank's last stdout line as JSON, once every rank exited with
+    ``rc``, a stderr free of ``UNCLEAN`` and no group or gloo thread
+    left at its interpreter's teardown."""
+    for i, (got, _, err) in enumerate(runs):
+        assert got == rc, f"rank {i}:\n{err[-2000:]}"
+        assert not [m for m in UNCLEAN if m in err], f"rank {i}:\n{err}"
+        assert _at_exit(err) == LEFT, f"rank {i}:\n{err[-2000:]}"
+    return [json.loads(out.splitlines()[-1]) if out.strip() else None
+            for _, out, _ in runs]
 
 
 # --- distributed_analyze on 2 ranks x 4 contexts -----------------------------
@@ -178,6 +241,9 @@ xs = [_inputs(2 * rank + c) for c in (0, 1)]
 out = _collectives([list(x) for x in zip(*xs)], cards)
 print(json.dumps({"world": mesh.world_rank(cards),
                   "out": [[c.tolist() for c in x] for x in out]}))
+# the group's holders go first: destroy_process_group then drops its
+# last reference and joins its threads
+del cards, procs
 td.destroy_process_group()
 """
 
@@ -222,6 +288,7 @@ print(json.dumps({"shards": [eng.world, eng.rank, len(eng.devices)],
                   **{k: perf[k] for k in (
                       "straddling_peaks", "host_peak_chroms",
                       "peak_redispatch", "grid_tile_len", "grid_tiles")}}))
+del eng    # the group's holder goes first (as in _COLLECTIVES)
 td.destroy_process_group()
 """
 
@@ -303,28 +370,147 @@ def test_two_ranks_of_two_contexts_write_one_process_bytes(tmp_path,
         assert all(r["straddling_peaks"] == 0 for r in ranks)
 
 
+# --- the CLI itself as ranks, and leaving the group -------------------------
+
+def _cli_argv(sam, out):
+    return ["-t", sam, "-o", out] + FLAGS + ["--engine", "sharded",
+                                             "--device", "cpu"]
+
+
+@pytest.mark.parametrize("case", ["analysis", "analysis_error"])
+def test_cli_as_two_gloo_ranks_leaves_its_group_before_teardown(tmp_path,
+                                                                case):
+    """``python -m genrich_tpu_torch --engine sharded --device cpu`` itself
+    as two gloo ranks (one CPU context each) on the straddle fixture,
+    and on an input that is not there (met after the engine joined the
+    group): rc 0 (1), a stderr free of ``UNCLEAN``, and at each rank's
+    last atexit call no group up and no gloo thread running (a gloo
+    worker that still runs then can release a finished collective's
+    tensors after finalization began, and the rank aborts with
+    "terminate called without an active exception").  After a run each
+    rank's narrowPeak is the bytes of one process of the same two shards
+    (the grid sets column 7 of a peak across a tile boundary on the
+    CPU, ROADMAP's "Not a fault")."""
+    sam = _straddle_sam(str(tmp_path / "in.sam"), centers=CENTERS)
+    given = sam if case == "analysis" else str(tmp_path / "missing.sam")
+    runs = _ranks(None, lambda r: _cli_argv(given, str(tmp_path / f"r{r}.np")))
+    _ok(runs, rc=0 if case == "analysis" else 1)
+    if case == "analysis_error":
+        for _, _, err in runs:
+            assert "missing.sam: cannot open file" in err, err[-2000:]
+        return
+    pipeline.run(params.parse_args(_cli_argv(sam, str(tmp_path / "one.np"))
+                                   [:-4]),
+                 engine=ShardedTorchEngine("cpu", n_shards=2))
+    one = (tmp_path / "one.np").read_bytes()
+    assert one.count(b"\n") > 2
+    for r in (0, 1):
+        assert (tmp_path / f"r{r}.np").read_bytes() == one, r
+
+
+def _gloo_threads() -> list:
+    """The names of this process's gloo threads."""
+    names = []
+    for t in os.listdir("/proc/self/task"):
+        try:
+            names.append(open(f"/proc/self/task/{t}/comm").read().strip())
+        except OSError:
+            pass
+    return sorted(n for n in names if "gloo" in n)
+
+
+@pytest.fixture
+def one_rank(monkeypatch):
+    """The environment of a one-rank gloo group on 127.0.0.1; a group
+    still up after the test is ended.  Yields the gloo threads that ran
+    before."""
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    monkeypatch.setenv("MASTER_PORT", str(_free_port()))
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("GLOO_SOCKET_IFNAME", "lo")
+    assert not td.is_initialized()
+    yield _gloo_threads()
+    if td.is_initialized():
+        td.destroy_process_group()
+
+
+@pytest.mark.parametrize("how", ["clean", "raised"])
+def test_scoped_group_leaves_the_group_its_block_joined(one_rank, how):
+    with pytest.raises(KeyError) if how == "raised" \
+            else contextlib.nullcontext():
+        with tdist.scoped_group():
+            assert tdist.init_distributed("cpu") is not None
+            mesh.CardGroup(["cpu"], td.group.WORLD)
+            if how == "raised":
+                raise KeyError("in the block")
+    assert not td.is_initialized()
+    assert _gloo_threads() == one_rank
+
+
+def test_scoped_group_keeps_a_group_made_before_it(one_rank):
+    group = tdist.init_distributed("cpu")
+    with tdist.scoped_group():
+        assert tdist.init_distributed("cpu") is group
+    assert td.is_initialized() and td.group.WORLD is group
+
+
+@pytest.mark.parametrize("path", ["cli", "cli_error", "serve"])
+def test_cli_and_serve_leave_the_group_they_joined(tmp_path, monkeypatch,
+                                                   one_rank, path):
+    """``cli.main`` after a run and after an analysis error, and
+    ``serve_loop`` after a sharded line, each under a one-rank gloo
+    group joined from the environment: no group and no new gloo thread
+    after them, and the run's bytes those of no group."""
+    sam = _straddle_sam(str(tmp_path / "in.sam"), centers=CENTERS)
+    out = str(tmp_path / "out.np")
+    if path == "serve":
+        reply = io.StringIO()
+        line = " ".join(_cli_argv(sam, out)[:-2])
+        assert serve.serve_loop(stdin=io.StringIO(f"{line}\nEXIT\n"),
+                                stdout=reply, device="cpu") == 0
+        assert reply.getvalue().splitlines()[1].startswith("OK "), \
+            reply.getvalue()
+    else:
+        argv = _cli_argv(sam if path == "cli" else sam + ".missing", out)
+        assert cli.main(argv) == (0 if path == "cli" else 1)
+    assert not td.is_initialized()
+    assert _gloo_threads() == one_rank
+    if path != "cli_error":
+        for k in ("MASTER_ADDR", "WORLD_SIZE", "RANK"):
+            monkeypatch.delenv(k)       # the reference joins no group
+        ref = str(tmp_path / "ref.np")
+        pipeline.run(params.parse_args(_cli_argv(sam, ref)[:-4]),
+                     engine=ShardedTorchEngine("cpu"))
+        assert open(out, "rb").read() == open(ref, "rb").read()
+
+
 # --- refusals -------------------------------------------------------------
 
-# A rank that asks for as many CPU contexts as argv[3] says; prints the
-# error its CardGroup raised, if any.
+# A rank of the CLI whose sharded engine asks for as many CPU contexts as
+# argv[3] says (no flag asks for several CPU contexts); argv is repo,
+# tests, that count, then the CLI flags.  The script makes no process
+# group and ends none: the CLI joins the group and leaves it.
 _UNEQUAL = """
 import json, sys
 sys.path[:0] = sys.argv[1:3]
+from genrich_tpu_torch import cli
 from genrich_tpu_torch.engine.sharded_bridge import ShardedTorchEngine
-try:
-    ShardedTorchEngine(["cpu"] * int(sys.argv[3]))
-    err = None
-except ValueError as e:
-    err = str(e)
-print(json.dumps({"error": err}))
+cli.make_engine = lambda kind, device: ShardedTorchEngine(
+    ["cpu"] * int(sys.argv[3]))
+print(json.dumps({"rc": cli.main(sys.argv[4:])}))
 """
 
 
 def test_ranks_of_unequal_shard_counts_raise_on_every_rank(tmp_path):
-    ranks = _ok(_ranks(_UNEQUAL, lambda r: [str(2 - r)],
-                       timeout=60))
-    for r in ranks:
-        assert r["error"] is not None and "[2, 1] cards" in r["error"], r
+    sam = _straddle_sam(str(tmp_path / "in.sam"), centers=CENTERS)
+    runs = _ranks(_UNEQUAL, lambda r: [str(2 - r), "-t", sam, "-o", str(
+        tmp_path / f"r{r}.np")] + FLAGS + ["--engine", "sharded"],
+        timeout=60)
+    for r, (_, _, err) in zip(_ok(runs), runs):
+        assert r == {"rc": 1}
+        assert "Error! the ranks of the process group hold [2, 1] cards" \
+            in err, err[-2000:]
 
 
 def test_local_world_size_splits_the_host_cards(monkeypatch):
