@@ -9,13 +9,16 @@ Phases, each printed on its own line; any failure raises and exits
 non-zero, and the result line is printed only when every phase passed:
 
 1. Card: name, nvidia-smi power limit; no CUDA card is an error.
-2. Build: the port's ``ingest.ensure_native()`` makes the native
-   ingest library load (building native/ingest.cpp into the git-ignored
-   genrich_tpu_torch/_build/ if the committed one does not), then nvcc
-   builds genrich_tpu_torch/csrc there (one process per source, all at
-   once), and csrc/reference (the first designs of K1-K5, which the
-   port never loads); seconds and whether the ingest build has
-   libdeflate are printed.
+2. Build: the port's ``ingest.ensure_native()`` builds the port's own
+   genrich_tpu_torch/native/ingest.cpp with its Makefile into the
+   git-ignored genrich_tpu_torch/_build/ (named by a hash of the two
+   files) and loads it, then nvcc builds genrich_tpu_torch/csrc there
+   (one process per source, all at once), and csrc/reference (the first
+   designs of K1-K5, which the port never loads); the ingest library's
+   path, source hash, build seconds and whether it has libdeflate are
+   printed, and a library from anywhere but _build/ fails the phase.
+   At the end, a file under the repo's native/ (the JAX package's
+   library) mapped into this process fails the smoke.
 3. Kernels: each hand-written kernel against its plain PyTorch version
    and its first design on the card: coverage_scan (K1, 2^23 rows and a
    ragged size, with carries) bitwise in both modes and bitwise to its
@@ -25,7 +28,8 @@ non-zero, and the result line is printed only when every phase passed:
    SKIP) rtol 1e-6 against the float64 plain version with SKIP lanes
    identical and bitwise to its first design; median times with CUDA
    events.  The BAMs of phases 4-12 are synthesised by
-   scripts/perf_synth.py into the git-ignored .bench_cache/ when
+   genrich_tpu_torch/tools/perf_synth.py (the port's copy of
+   scripts/perf_synth.py) into the git-ignored .bench_cache/ when
    missing, one child process each, all started before the build and
    awaited before this phase.
 4. Main path: the 2M-pair ATAC BAM on the 2.75 Gbp human-scale genome
@@ -254,8 +258,6 @@ from contextlib import contextmanager
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-SCRIPTS = os.path.join(REPO, "scripts")
-sys.path.insert(0, SCRIPTS)                          # perf_synth, bench_e2e
 WORK = os.path.join(REPO, ".bench_cache")
 N_PAIRS = 2_000_000
 N_LOG_PAIRS = 200_000
@@ -299,12 +301,6 @@ def card():
     return smi.splitlines()[0]
 
 
-# perf_synth in a child process: argv is scripts/, the output path, the
-# pairs and the seed
-_SYNTH = ("import sys; sys.path.insert(0, sys.argv[1]); "
-          "import perf_synth; from bench_e2e import HG_CHROMS; "
-          "perf_synth.synth_bam(sys.argv[2], int(sys.argv[3]), "
-          "seed=int(sys.argv[4]), chroms=HG_CHROMS)")
 SYNTH = {}       # key -> (child process, start) of a BAM being made
 
 
@@ -315,18 +311,21 @@ def _bam_path(key: str) -> str:
 
 
 def start_synth(keys):
-    """Start scripts/perf_synth.py for every BAM of ``keys`` (of
-    ``BAMS``) missing from .bench_cache/, one child process each, all at
-    once (about 40 s for 2M pairs; one after the other they took 105 s;
-    the ladder's 10M pairs take about 513 s, while phases 2-15 run)."""
+    """Start genrich_tpu_torch/tools/perf_synth.py (``bench._SYNTH``) for
+    every BAM of ``keys`` (of ``BAMS``) missing from .bench_cache/, one
+    child process each, all at once (about 40 s for 2M pairs; one after
+    the other they took 105 s; the ladder's 10M pairs take about 513 s,
+    while phases 2-15 run)."""
+    from genrich_tpu_torch import bench
     os.makedirs(WORK, exist_ok=True)
     for key in keys:
         n, seed = BAMS[key]
         path = _bam_path(key)
         if not os.path.exists(path):
             SYNTH[key] = (subprocess.Popen(
-                [sys.executable, "-c", _SYNTH, SCRIPTS, path + ".tmp",
-                 str(n), str(seed)], stdout=subprocess.DEVNULL),
+                [sys.executable, "-c", bench._SYNTH, REPO, path + ".tmp",
+                 str(n), str(seed), json.dumps(bench.HG_CHROMS)],
+                stdout=subprocess.DEVNULL),
                 time.perf_counter())
 
 
@@ -358,11 +357,14 @@ def synth_bam(key: str) -> str:
 
 def build():
     """Native ingest, the kernels and their first designs; returns the
-    native ingest library's path."""
+    native ingest library's path, which must lie in the port's _build/."""
     from genrich_tpu_torch import kernels
     from genrich_tpu_torch.ingest import native
     t0 = time.perf_counter()
     nat_info = dict(native.ensure_native())
+    if os.path.dirname(nat_info["path"]) != str(kernels.BUILD_DIR):
+        raise AssertionError(f"native ingest loaded from {nat_info['path']}"
+                             f", not from {kernels.BUILD_DIR}")
     kernels.library()
     info = dict(kernels.BUILD_INFO)
     ptxas = info.pop("ptxas", "")
@@ -1098,8 +1100,13 @@ def _merge_counts(perf):
 
 
 def _native_used() -> bool:
+    """The port's ingest library is loaded in this process, from its
+    _build/, and no file under the repo's native/ is mapped."""
+    from genrich_tpu_torch import kernels, testing
     from genrich_tpu_torch.ingest import native
-    return native.available(build=False)
+    return native._lib is not None \
+        and os.path.dirname(native.INFO["path"]) == str(kernels.BUILD_DIR) \
+        and not testing.mapped_files(os.path.join(REPO, "native"))
 
 
 def run_port_exact(label: str, args):
@@ -1237,7 +1244,7 @@ def peak_runs(name: str, ts, need, extra=(), ref=None, flags=FLAGS,
     caller (every chromosome of the smoke is under 2^31 bp) and that
     cold and warm wrote the same bytes.  Returns the counts and perf of
     the warm run."""
-    from bench_e2e import _verify_rows
+    from genrich_tpu_torch.bench import _verify_rows
     run_dir = os.path.join(WORK, "chip_smoke")
     os.makedirs(run_dir, exist_ok=True)
     ref_np = os.path.join(run_dir, f"{ref or name}_exact.np")
@@ -1724,7 +1731,7 @@ def write_blacklist():
     from the midpoint of the strongest peak of chr1 and of chr2 in the
     main path's exact file (a perf_synth hotspot) on.  Returns its path
     and those midpoints."""
-    from bench_e2e import HG_CHROMS
+    from genrich_tpu_torch.bench import HG_CHROMS
     from genrich_tpu_torch import testing
     run_dir = os.path.join(WORK, "chip_smoke")
     rows = [ln.split("\t") for ln in open(os.path.join(
@@ -2721,6 +2728,11 @@ def run_phases(smi) -> int:
                     & {"jax", "genrich_tpu"})
     if loaded:
         raise AssertionError(f"{loaded} imported by the smoke's process")
+    from genrich_tpu_torch import testing
+    mapped = testing.mapped_files(os.path.join(REPO, "native"))
+    if mapped:
+        raise AssertionError(f"{mapped} mapped into the smoke's process")
+    say("native", jax_package_files_mapped=mapped)
     for e in entries:
         path = fisher_counts if e["name"] == "fisher_combine" \
             else main_counts

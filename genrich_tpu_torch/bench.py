@@ -33,9 +33,9 @@ device-memory bandwidth (64 read and write passes over 64 MiB, best of
 hand kernels' bounds (``testing.bound``) over one tile's calls.
 
 End-to-end legs (``bench_e2e``): the 2M-pair BAMs that ``chip_smoke.py``
-caches in ``.bench_cache/`` (``BAMS``; made by ``scripts/perf_synth.py``
-in child processes when missing), five configurations (``CONFIGS``),
-each on ``--engine exact -v`` in a child process and on ``--engine
+caches in ``.bench_cache/`` (``BAMS``; made by ``tools/perf_synth.py``,
+the port's copy of ``scripts/perf_synth.py``, in child processes when
+missing), five configurations (``CONFIGS``), each on ``--engine exact -v`` in a child process and on ``--engine
 jax`` and ``--engine sharded`` through one ``--serve`` child each (no
 process group: the sharded one spans every card the child sees).  A cold
 line per device engine, then ``reps`` paired reps: the exact run, then
@@ -695,17 +695,18 @@ def bam_path(key, work=WORK):
     return os.path.join(work, f"atac_e2e_hg_{n}{tag}.bam")
 
 
-# scripts/perf_synth.py in a child process: argv is scripts/, the output
-# path, the pairs, the seed and the chromosomes as JSON
+# tools/perf_synth.py in a child process: argv is the repo root, the
+# output path, the pairs, the seed and the chromosomes as JSON
 _SYNTH = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
-          "import perf_synth; perf_synth.synth_bam(sys.argv[2], "
-          "int(sys.argv[3]), seed=int(sys.argv[4]), "
+          "from genrich_tpu_torch.tools import perf_synth; "
+          "perf_synth.synth_bam(sys.argv[2], int(sys.argv[3]), "
+          "seed=int(sys.argv[4]), "
           "chroms=[tuple(c) for c in json.loads(sys.argv[5])])")
 
 
 def synth(jobs, chroms=HG_CHROMS):
     """Each missing BAM of ``jobs`` ({key: (path, pairs, seed)}) made by
-    scripts/perf_synth.py in a child process, all at once; returns
+    ``tools/perf_synth.py`` in a child process, all at once; returns
     {key: (path, seconds or None when it was there)}."""
     procs, made = {}, {}
     t0 = time.perf_counter()
@@ -715,8 +716,8 @@ def synth(jobs, chroms=HG_CHROMS):
             os.makedirs(os.path.dirname(os.path.abspath(path)),
                         exist_ok=True)
             procs[key] = subprocess.Popen(
-                [sys.executable, "-c", _SYNTH, os.path.join(REPO, "scripts"),
-                 path + ".tmp", str(n), str(seed), json.dumps(chroms)],
+                [sys.executable, "-c", _SYNTH, REPO, path + ".tmp",
+                 str(n), str(seed), json.dumps(chroms)],
                 stdout=subprocess.DEVNULL)
     try:
         for key, proc in procs.items():

@@ -25,10 +25,11 @@ semantics; it touches no CUDA API and ignores ``--device``.
 ``--serve`` runs ``serve.serve_loop``: one analysis per stdin line,
 with one engine per kind kept across them.
 
-Before a run, ``ingest.ensure_native()`` makes the native ingest
-library load on this host (building it if the committed one does not);
-if that fails, the run parses with the Python reader, as the JAX
-package does, after a one-line warning.  Errors print ``Error! <msg>``
+Before a run, ``ingest.ensure_native()`` loads the port's native
+ingest library, building ``genrich_tpu_torch/native/ingest.cpp`` into
+``genrich_tpu_torch/_build/`` at first use; if that fails, the run
+parses with the Python reader, as the JAX package does, after a
+one-line warning.  Errors print ``Error! <msg>``
 to stderr and exit 1.
 """
 

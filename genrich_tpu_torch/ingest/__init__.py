@@ -1,7 +1,8 @@
 """Host ingest: SAM/BAM records to per-chromosome fragment events.
 
-``ensure_native()`` makes the C++ ingest library (``native.py``) load
-on this host before a run, building it when the committed one does not.
+``ensure_native()`` loads the port's C++ ingest library (``native.py``)
+before a run, building ``genrich_tpu_torch/native/ingest.cpp`` at first
+use.
 """
 
 from .native import ensure_native

@@ -1,26 +1,31 @@
-"""ctypes bindings for the native C++ ingest library.
+"""ctypes bindings for the port's native C++ ingest library.
 
-Wraps the library built from native/ingest.cpp (SAM/BAM parsing, pair
-assembly, multimapper selection, PCR dedup, interval generation — the
-byte-level host pipeline).  The library produces per-chromosome event
-arrays and counters identical to the pure-Python ingest; tests assert
-equality.
+Wraps the library built from ``genrich_tpu_torch/native/ingest.cpp``
+(SAM/BAM parsing, pair assembly, multimapper selection, PCR dedup,
+interval generation — the byte-level host pipeline — plus the exact
+engine's float32 peak caller, the ``-P`` log reader, the ``-f``/``-k``
+row writers and a few numeric helpers).  The library produces
+per-chromosome event arrays and counters identical to the pure-Python
+ingest; tests assert equality.
 
-Which library loads: the committed ``native/libgenrich_ingest.so``
-links whatever compression libraries the machine that built it had
-(libdeflate among them), so on a host without them it does not load,
-and ingest would silently run the Python reader, some fifty times
-slower.  ``ensure_native()`` keeps the committed library when it loads;
-when it does not, it builds ``native/ingest.cpp`` with the repo's own
-Makefile (which drops libdeflate where the host lacks it) into the
-git-ignored ``genrich_tpu_torch/_build/``, keyed by a hash of
-``ingest.cpp`` and the Makefile, and loads that.  Nothing is written
-into ``native/``.
+Which library loads: always the one built from the port's own sources.
+At first use ``ensure_native()`` builds ``native/ingest.cpp`` with the
+port's ``native/Makefile`` (``-march=x86-64-v3`` and libdeflate, each
+where the host has it) into the git-ignored
+``genrich_tpu_torch/_build/``, keyed by a hash of the two files, and
+loads that; a later process finds it there, and builds it anew if it
+does not load (a tree copied from another host).  Concurrent first
+uses (test workers, ranks) build once: one process holds an ``fcntl``
+lock on the hash's lock file while it builds, and the others wait for
+it and load its result.  Every entry point below goes through
+``ensure_native()``; the Python versions run only after a build that
+failed, which is then not retried in the process.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import subprocess
@@ -35,90 +40,117 @@ from ..errors import GenrichError
 from ..kernels import BUILD_DIR
 from ..params import Params
 
-NATIVE_DIR = Path(__file__).resolve().parent.parent.parent / "native"
-_SO = str(NATIVE_DIR / "libgenrich_ingest.so")
+NATIVE_DIR = Path(__file__).resolve().parent.parent / "native"
 
 _lib = None
+# the loaded library's build info ("path", "hash", "seconds", "cached",
+# "libdeflate"), or {"error": why} after a build or load that failed
 INFO: Dict[str, object] = {}
 
 
-def build_native(build_dir) -> Dict[str, object]:
-    """Build the ingest library into ``build_dir`` (cached by hash).
-
-    Returns {"path", "seconds", "cached", "libdeflate"}; raises
-    RuntimeError if ``make`` fails.
-    """
+def source_hash() -> str:
+    """The first 16 hex digits of the sha256 of the port's
+    ``ingest.cpp`` and ``Makefile``: the built library's name."""
     h = hashlib.sha256()
     for name in ("ingest.cpp", "Makefile"):
         h.update((NATIVE_DIR / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_native(build_dir, stale: Optional[int] = None
+                 ) -> Dict[str, object]:
+    """Build the ingest library into ``build_dir`` (cached by hash).
+
+    ``stale`` is the inode of a cached library that did not load here
+    (one built on another host): it is built anew unless another
+    process has replaced it meanwhile.  Returns {"path", "hash",
+    "seconds", "cached", "libdeflate"} (``cached`` when another process
+    or an earlier run built it); raises RuntimeError if ``make`` fails.
+    """
+    digest = source_hash()
     build_dir = Path(build_dir)
-    so = build_dir / f"libgenrich_ingest_{h.hexdigest()[:16]}.so"
+    so = build_dir / f"libgenrich_ingest_{digest}.so"
     stamp = so.with_suffix(".flags")
-    if so.exists():
-        return {"path": str(so), "seconds": 0.0, "cached": True,
-                "libdeflate": stamp.exists()
+
+    def cached():
+        return {"path": str(so), "hash": digest, "seconds": 0.0,
+                "cached": True, "libdeflate": stamp.exists()
                 and "-DUSE_LIBDEFLATE" in stamp.read_text()}
+
+    def usable():
+        try:
+            return so.stat().st_ino != stale
+        except FileNotFoundError:
+            return False
+
+    if usable():
+        return cached()
     build_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
-    os.close(fd)
-    os.unlink(tmp)                     # make builds a missing target
-    t0 = time.perf_counter()
-    r = subprocess.run(["make", "-C", str(NATIVE_DIR), f"TARGET={tmp}"],
-                       capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if r.returncode != 0 or not os.path.exists(tmp):
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise RuntimeError(f"make of native/ingest.cpp failed "
-                           f"({r.returncode}): {r.stderr.strip()[-500:]}")
-    stamp.write_text(r.stdout)
-    os.replace(tmp, so)
-    return {"path": str(so), "seconds": secs, "cached": False,
-            "libdeflate": "-DUSE_LIBDEFLATE" in r.stdout}
+    with open(so.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)   # released when lock closes
+        if usable():                       # built while this one waited
+            return cached()
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
+        os.close(fd)
+        os.unlink(tmp)                     # make builds a missing target
+        t0 = time.perf_counter()
+        r = subprocess.run(["make", "-C", str(NATIVE_DIR), f"TARGET={tmp}"],
+                           capture_output=True, text=True)
+        secs = time.perf_counter() - t0
+        if r.returncode != 0 or not os.path.exists(tmp):
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            raise RuntimeError(f"make of {NATIVE_DIR / 'ingest.cpp'} failed "
+                               f"({r.returncode}): {r.stderr.strip()[-500:]}")
+        stamp.write_text(r.stdout)
+        os.replace(tmp, so)
+    return {"path": str(so), "hash": digest, "seconds": secs,
+            "cached": False, "libdeflate": "-DUSE_LIBDEFLATE" in r.stdout}
 
 
 def ensure_native() -> Dict[str, object]:
-    """Make ``_SO`` name a library that loads on this host.
+    """Build (at first use) and load the port's library.
 
-    Returns {"path", "built", ...} (the build's info when it built);
-    raises RuntimeError when the library does not load and the build
-    fails.  Idempotent within a process.
+    Returns ``INFO``; raises RuntimeError when the build or the load
+    fails, and again on every later call in this process without
+    building anew.
     """
-    global _SO, _lib
-    if INFO.get("path") == _SO:
-        return INFO
-    try:
-        ctypes.CDLL(_SO)
-        INFO.clear()
-        INFO.update(path=_SO, built=False)
-        return INFO
-    except OSError as e:
-        committed_error = str(e)
-    info = build_native(BUILD_DIR)
-    ctypes.CDLL(info["path"])
-    _SO = info["path"]
-    _lib = None
-    INFO.clear()
-    INFO.update(info, built=True, committed_error=committed_error)
+    global _lib
+    if _lib is None and "error" not in INFO:
+        try:
+            info = build_native(BUILD_DIR)
+            try:
+                lib = ctypes.CDLL(info["path"])
+            except OSError as e:
+                if not info["cached"]:
+                    raise
+                info = dict(build_native(BUILD_DIR, os.stat(
+                    info["path"]).st_ino), stale_error=str(e))
+                lib = ctypes.CDLL(info["path"])
+            _lib = _bind(lib)
+            INFO.update(info)
+        except (OSError, RuntimeError) as e:
+            INFO["error"] = str(e)
+    if "error" in INFO:
+        raise RuntimeError(INFO["error"])
     return INFO
 
 
-def available(build: bool = True) -> bool:
-    """True if the native library is loadable (building if needed)."""
+def available() -> bool:
+    """True if the native library loads (building it at first use)."""
     try:
-        _load(build=build)
+        ensure_native()
         return True
-    except Exception:
+    except RuntimeError:
         return False
 
 
-def _load(build: bool = True):
-    global _lib
-    if _lib is not None:
-        return _lib
-    if build:
-        ensure_native()
-    lib = ctypes.CDLL(_SO)
+def _load():
+    ensure_native()
+    return _lib
+
+
+def _bind(lib):
     lib.gi_create.restype = ctypes.c_void_p
     lib.gi_error_msg.restype = ctypes.c_char_p
     lib.gi_error_msg.argtypes = [ctypes.c_void_p]
@@ -162,7 +194,6 @@ def _load(build: bool = True):
     lib.gi_counters.argtypes = [ctypes.c_void_p,
                                 ctypes.POINTER(ctypes.c_uint64),
                                 ctypes.POINTER(ctypes.c_double)]
-    _lib = lib
     return lib
 
 
@@ -172,7 +203,7 @@ def call_peaks_native(stat, pval, qval, ends, min_pq, min_auc,
     library is absent.  Returns parallel numpy arrays
     (start, end, auc, summit_pval, summit_qval, summit_pos)."""
     try:
-        lib = _load(build=False)
+        lib = _load()
     except Exception:
         return None
     if not hasattr(lib, "_peaks_ready"):
@@ -230,7 +261,7 @@ def call_peaks_log_native(path: str, idx_p: int, idx_q: int,
     Returns (names, sec, start, end, auc, spv, sqv, spos,
     genome_len, peak_bp)."""
     try:
-        lib = _load(build=False)
+        lib = _load()
     except Exception:
         return None
     if not hasattr(lib, "_log_ready"):
@@ -281,7 +312,7 @@ def call_peaks_log_native(path: str, idx_p: int, idx_q: int,
 
 def _rowlog_lib():
     try:
-        lib = _load(build=False)
+        lib = _load()
     except Exception:
         return None
     if not hasattr(lib, "_rows_ready"):
@@ -370,7 +401,7 @@ def breakpoints(start, end, count):
     """
     import numpy as np
     try:
-        lib = _load(build=False)
+        lib = _load()
     except Exception:
         return None
     if not hasattr(lib, "_bp_ready"):
@@ -402,7 +433,7 @@ def exact_sum_f32(terms) -> Optional[float]:
     """Sequential double += float reduction in C; None if lib absent."""
     import numpy as np
     try:
-        lib = _load(build=False)
+        lib = _load()
     except Exception:
         return None
     if not hasattr(lib, "_sum_ready"):
@@ -429,7 +460,7 @@ def pair_index_tab(keys, uk, ends):
     """
     import numpy as np
     try:
-        lib = _load(build=False)
+        lib = _load()
         fn = lib.gi_pair_index_tab   # a stale library lacks the symbol
     except Exception:
         return None
@@ -462,7 +493,7 @@ def log10f_arr_native(x) -> Optional["np.ndarray"]:
     """Elementwise libm log10f in C; None if lib absent."""
     import numpy as np
     try:
-        lib = _load(build=False)
+        lib = _load()
     except Exception:
         return None
     # its own flag: call_peaks_log_native sets "_log_ready" for

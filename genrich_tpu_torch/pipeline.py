@@ -790,13 +790,14 @@ def run(p: Params, engine=None, perf: Optional[dict] = None) -> None:
     expt_files = _split_files(p.in_file)
     ctrl_files = _split_files(p.ctrl_file)
 
-    # native C++ ingest: default when the library is available and all
-    # inputs are regular files (stdin needs the Python reader)
+    # native C++ ingest: default when the port's library builds and
+    # loads and all inputs are regular files (stdin needs the Python
+    # reader)
     nat = None
     if p.ingest in ("auto", "native") \
             and "-" not in expt_files + ctrl_files:
         from .ingest import native as native_mod
-        if native_mod.available(build=(p.ingest == "native")):
+        if native_mod.available():
             nat = native_mod.NativeIngest(p, xbed)
         elif p.ingest == "native":
             raise fatal("native ingest library unavailable", ERRGEN)

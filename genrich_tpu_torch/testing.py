@@ -13,7 +13,8 @@ log to the exact engine's, and ``check_summits`` its narrowPeak column
 the ``*_first_design`` helpers, which launch the first designs of
 kernels K1-K5 (``csrc/reference/``) on the card so that the current
 ones can be held to them, ``median_ms`` (device time by CUDA events),
-``recording`` and the operation counters.
+``recording`` and the operation counters.  ``mapped_files`` lists the
+files under a directory that this process has mapped.
 
 ``calc_pval_opcount``, ``tile_stats_opcount``, ``coverage_scan_opcount``
 and ``fisher_combine_opcount`` tally, on a call's own inputs, the
@@ -27,11 +28,22 @@ and operations into the least time the card could take, and
 
 from __future__ import annotations
 
+import os
 from contextlib import contextmanager
 
 import numpy as np
 
 F32 = np.float32
+
+
+def mapped_files(root):
+    """The files under ``root`` that this process has mapped, as
+    ``/proc/self/maps`` names them (sorted, each once)."""
+    root = os.path.join(os.path.realpath(root), "")
+    with open("/proc/self/maps") as f:
+        fields = (ln.split(None, 5) for ln in f)
+        return sorted({p[5].rstrip("\n") for p in fields
+                       if len(p) == 6 and p[5].startswith(root)})
 
 
 @contextmanager
