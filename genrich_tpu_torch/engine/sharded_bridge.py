@@ -61,7 +61,6 @@ not the uint16-length wire.
 
 from __future__ import annotations
 
-import time
 from functools import partial
 from typing import Dict, List, Optional, Tuple
 
@@ -80,7 +79,7 @@ from ..parallel.mesh import (PEAK_CAP, CardGroup, ShardedKernels, each,
                              split_excl_to_tiles)
 from . import qvalue
 from .host_fallback import INT32_MAX, HostChromMixin
-from .perf import PerfMixin
+from .perf import PerfMixin, span
 from .pileup import Pileup
 from .torch_bridge import (PEAK_CAP as CHROM_PEAK_CAP, SKIP, check_device,
                            chrom_peaks, fetch_chrom_peaks, pow2)
@@ -164,16 +163,12 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
         """A step over every card, accounted as one dispatch a card;
         list arguments hold one value a card (``ShardedKernels``' steps
         take them whole)."""
-        t0 = time.perf_counter()
-        out = fn(*args, **kw)
-        p = self.perf
-        p["dispatch_n"] += len(self.devices)
-        p["dispatch_s"] += time.perf_counter() - t0
-        return out
+        return self._dispatch(fn, len(self.devices), fn, *args, **kw)
 
     def _each(self, fn, *args, **kw):
-        """``fn`` on each card's values (``mesh.each``), accounted."""
-        return self._step(each, fn, *args, **kw)
+        """``fn`` on each card's values (``mesh.each``), accounted as a
+        step of ``fn``."""
+        return self._dispatch(fn, len(self.devices), each, fn, *args, **kw)
 
     def _put_all(self, arr) -> list:
         """One host array on every card."""
@@ -552,8 +547,9 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
             self._qtable = (z, z)
             self._qtable_host = (np.zeros(0, F32), np.zeros(0, F32))
             return False
-        uv, qv, tab_p, tab_q, _, all_one = \
-            qvalue.merge_distinct_tables(ps, ws, genome_len, lo=1 << 8)
+        with span("pipeline.qvalue_merge", self.perf, "qvalue_merge_s"):
+            uv, qv, tab_p, tab_q, _, all_one = \
+                qvalue.merge_distinct_tables(ps, ws, genome_len, lo=1 << 8)
         self._qtable = (self._put_all(tab_p), self._put_all(tab_q))
         self._qtable_host = (uv, qv)
         return all_one
@@ -674,25 +670,25 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
             self.perf["peak_redispatch"] += 1
             res = self._pull(dispatch(
                 min(pow2(n), st["starts"][0].shape[1])))
-        t0 = time.perf_counter()
-        tile_len = st["tile_len"]
-        # no AUC filter yet: a straddling peak's AUC changes below
-        merged = merge_tile_peaks(TileResult(TilePeaks(*res), None, None),
-                                  tile_len, -np.inf, min_len, max_gap)
-        starts = np.array([m[0] for m in merged], np.int64)
-        ends = np.array([m[1] for m in merged], np.int64)
-        aucs = np.array([m[2] for m in merged], F32)
-        spv = np.array([m[3] for m in merged], F32)
-        sqv = np.array([m[4] for m in merged], F32)
-        spos = np.array([m[5] for m in merged], np.int64)
-        strad = starts // tile_len < (ends - 1) // tile_len
-        if strad.any():
-            got = self._row_order_peaks(st, starts[strad], ends[strad],
-                                        min_pq, use_q)
-            aucs[strad], spv[strad], sqv[strad], spos[strad] = got
-        keep = aucs >= F32(min_auc)
-        self.perf["straddling_peaks"] += int((strad & keep).sum())
-        self.perf["peak_merge_s"] += time.perf_counter() - t0
+        with span("pipeline.peak_merge", self.perf, "peak_merge_s"):
+            tile_len = st["tile_len"]
+            # no AUC filter yet: a straddling peak's AUC changes below
+            merged = merge_tile_peaks(
+                TileResult(TilePeaks(*res), None, None), tile_len, -np.inf,
+                min_len, max_gap)
+            starts = np.array([m[0] for m in merged], np.int64)
+            ends = np.array([m[1] for m in merged], np.int64)
+            aucs = np.array([m[2] for m in merged], F32)
+            spv = np.array([m[3] for m in merged], F32)
+            sqv = np.array([m[4] for m in merged], F32)
+            spos = np.array([m[5] for m in merged], np.int64)
+            strad = starts // tile_len < (ends - 1) // tile_len
+            if strad.any():
+                got = self._row_order_peaks(st, starts[strad], ends[strad],
+                                            min_pq, use_q)
+                aucs[strad], spv[strad], sqv[strad], spos[strad] = got
+            keep = aucs >= F32(min_auc)
+            self.perf["straddling_peaks"] += int((strad & keep).sum())
         return (starts[keep], ends[keep], aucs[keep], spv[keep], sqv[keep],
                 spos[keep])
 

@@ -38,7 +38,7 @@ from ..ops.peaks import call_peaks
 from ..ops.pipeline import tile_coverage, tile_stats
 from . import qvalue
 from .host_fallback import INT32_MAX, HostChromMixin
-from .perf import PerfMixin
+from .perf import PerfMixin, span
 from .pileup import Pileup
 
 F32 = np.float32
@@ -157,9 +157,10 @@ class TorchEngine(PerfMixin, HostChromMixin):
             z = torch.zeros(0, dtype=torch.int32, device=self.device)
             return z, z, torch.zeros(0, dtype=torch.uint8,
                                      device=self.device)
-        return (self._put(np.asarray(ev[0], np.int32)),
-                self._put(np.asarray(ev[1], np.int32)),
-                self._put(np.asarray(ev[2], np.uint8)))
+        with span("pipeline.cast", self.perf, "cast_s"):
+            host = (np.asarray(ev[0], np.int32), np.asarray(ev[1], np.int32),
+                    np.asarray(ev[2], np.uint8))
+        return tuple(self._put(a) for a in host)
 
     # --- stage 1: coverage (resident) + fragment sums -------------------
 
@@ -405,8 +406,9 @@ class TorchEngine(PerfMixin, HostChromMixin):
             self._qtable = (z, z)
             self._qtable_host = (np.zeros(0, F32), np.zeros(0, F32))
             return False
-        uv, qv, tab_p, tab_q, _, all_one = \
-            qvalue.merge_distinct_tables(ps, ws, genome_len)
+        with span("pipeline.qvalue_merge", self.perf, "qvalue_merge_s"):
+            uv, qv, tab_p, tab_q, _, all_one = \
+                qvalue.merge_distinct_tables(ps, ws, genome_len)
         self._qtable = (self._put(tab_p), self._put(tab_q))
         self._qtable_host = (uv, qv)
         return all_one

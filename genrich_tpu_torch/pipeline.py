@@ -18,13 +18,13 @@ from __future__ import annotations
 
 import os
 import sys
-import time
 from contextlib import contextmanager
 from typing import Dict, List, Optional
 
 import numpy as np
 
 from .engine import chisq, peaks as peaks_mod, pvalue, qvalue
+from .engine.perf import span
 from .engine.pileup import (Pileup, calc_factor, calc_lambda,
                             const_pileup, ctrl_frag_terms, ctrl_pileup,
                             expt_pileup, lambda_pileup)
@@ -53,19 +53,19 @@ def stage(name: str, perf: Optional[dict] = None,
     """Per-stage wall timer; the reference has no profiling at all
     (SURVEY.md §5) — this is an extension.  GENRICH_TPU_PROFILE=1
     prints to stderr; a ``perf`` dict (serve mode) accumulates the
-    wall seconds under ``key`` for the bench decomposition."""
+    wall seconds under ``key`` for the bench decomposition.  Timed by
+    ``span`` with no name: a profiler's trace names the device path's
+    own spans inside it."""
     if not _PROFILE and perf is None:
         yield
         return
-    t0 = time.perf_counter()
+    s = span(None, perf, key)
     try:
-        yield
+        with s:
+            yield
     finally:
-        dt = time.perf_counter() - t0
         if _PROFILE:
-            sys.stderr.write(f"[profile] {name}: {dt:.3f}s\n")
-        if perf is not None and key:
-            perf[key] = perf.get(key, 0.0) + dt
+            sys.stderr.write(f"[profile] {name}: {s.seconds:.3f}s\n")
 
 
 def _is_bam(filename: str) -> bool:
@@ -355,8 +355,9 @@ def _replicate_device(eng, registry: ChromRegistry,
             # the device
             warn(f"Warning! {c.name} is longer than 2^31-1 bp; "
                  f"computing it on the host\n")
-        ev = _chrom_events(expt_sink, c.index)
-        cv = _chrom_events(ctrl_sink, c.index) if ctrl_sink else None
+        with span("pipeline.cast", eng.perf, "cast_s"):
+            ev = _chrom_events(expt_sink, c.index)
+            cv = _chrom_events(ctrl_sink, c.index) if ctrl_sink else None
         handles.append(eng.coverage_chrom(c.index, ev, cv, c.bed,
                                           c.length))
     frag, ctrl_frag = eng.coverage_finish(handles)
@@ -465,19 +466,17 @@ def _find_peaks_device(registry: ChromRegistry, eng, p: Params,
                 count += 1
                 peak_bp += pk.end - pk.start
             continue
-        t0 = time.perf_counter()
-        starts, ends, aucs, spv, sqv, spos = eng.peaks_fetch(h)
-        t1 = time.perf_counter()
-        for m in range(len(starts)):
-            pk = peaks_mod.Peak(int(starts[m]), int(ends[m]),
-                                aucs[m], spv[m],
-                                sqv[m] if p.qval_opt else F32(SKIP),
-                                int(spos[m]))
-            writers.write_peak(out_stream, c.name, pk, count)
-            count += 1
-            peak_bp += pk.end - pk.start
-        eng.perf["peak_fetch_s"] += t1 - t0
-        eng.perf["peak_write_s"] += time.perf_counter() - t1
+        with span("pipeline.peaks_fetch", eng.perf, "peak_fetch_s"):
+            starts, ends, aucs, spv, sqv, spos = eng.peaks_fetch(h)
+        with span("pipeline.peaks_write", eng.perf, "peak_write_s"):
+            for m in range(len(starts)):
+                pk = peaks_mod.Peak(int(starts[m]), int(ends[m]),
+                                    aucs[m], spv[m],
+                                    sqv[m] if p.qval_opt else F32(SKIP),
+                                    int(spos[m]))
+                writers.write_peak(out_stream, c.name, pk, count)
+                count += 1
+                peak_bp += pk.end - pk.start
     if p.verbose:
         warn(f"Peaks identified: {count} ({peak_bp}bp)\n")
     eng.release()

@@ -97,11 +97,19 @@ for name, args, flags in runs:
 """
 
 
-def _device_events(prof):
+def _on_device(e) -> bool:
+    """Whether a profiler event is device work: a CUDA record that is
+    not the device-side copy of a ``record_function`` range (the port's
+    ``pipeline.*`` spans), whose time its kernels already hold."""
     import torch
+    return e.device_type == torch.autograd.DeviceType.CUDA \
+        and not getattr(e, "is_user_annotation", False)
+
+
+def _device_events(prof):
     evs = []
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if not _on_device(e):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -112,10 +120,9 @@ def _device_events(prof):
 
 def _device_ms_by_card(prof):
     """Device milliseconds of one profiled run on each card index."""
-    import torch
     per = {}
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if not _on_device(e):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -128,10 +135,9 @@ def comm_ms_by_card(prof):
     """Device milliseconds of one profiled run on each card index in
     NCCL's kernels (``nccl``), in copies between two cards (``ptop``:
     the collectives' peer copies) and in copies on one card (``dtod``)."""
-    import torch
     per = {}
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if not _on_device(e):
             continue
         kind = "nccl" if "nccl" in e.name.lower() else "ptop" \
             if "PtoP" in e.name else "dtod" if "DtoD" in e.name else None

@@ -4,10 +4,14 @@ when every hand kernel the run launched has its device records."""
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import pytest
+import torch
 
 from genrich_tpu_torch import kernels
-from genrich_tpu_torch.prof import cummax_records, record_shortfall
+from genrich_tpu_torch.prof import (_device_ms_by_card, comm_ms_by_card,
+                                    cummax_records, record_shortfall)
 
 # a warm main-path run: K1 3 calls, K2 3 (two kernels each), K5 3, K4 3
 LAUNCHES = {"coverage_scan": 3, "tile_stats": 3, "fisher_combine": 0,
@@ -89,3 +93,27 @@ def test_kernel_names_mangled_and_demangled():
         "gap_join_kernel")
     assert kernels.KERNELS_PER_CALL["gap_join"] == ("gap_join_kernel",)
     assert sum(len(v) for v in kernels.KERNELS_PER_CALL.values()) == 6
+
+
+def test_span_annotations_are_not_device_time():
+    """The device-side copy of a ``pipeline.*`` span (a CUDA record that
+    is a user annotation) spans its kernels' time: it is not counted as
+    device time again."""
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def ev(name, us, card=0, **kw):
+        return SimpleNamespace(name=name, device_type=cuda, device_index=card,
+                               self_device_time_total=us, **kw)
+    events = [ev("coverage_scan_kernel", 300.0),
+              ev("ncclDevKernel_AllGather_RING_LL", 50.0, 1),
+              ev("pipeline.dispatch.tile_coverage", 400.0,
+                 is_user_annotation=True),
+              ev("pipeline.fetch.copy nccl", 60.0, 1,
+                 is_user_annotation=True),
+              SimpleNamespace(name="pipeline.cast", device_index=-1,
+                              device_type=torch.autograd.DeviceType.CPU,
+                              self_device_time_total=0.0)]
+    prof = SimpleNamespace(events=lambda: events)
+    assert _device_ms_by_card(prof) == {0: 0.3, 1: 0.05}
+    assert comm_ms_by_card(prof) == {1: {"nccl": 0.05, "ptop": 0.0,
+                                         "dtod": 0.0}}
