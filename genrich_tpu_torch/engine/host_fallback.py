@@ -27,6 +27,13 @@ F32 = np.float32
 INT32_MAX = 0x7FFFFFFF
 
 
+def _widen(ev):
+    """An event triple as the exact engine takes it: int64 arrays (the
+    device path hands over the dtypes ingest gave)."""
+    return None if ev is None else tuple(np.asarray(a, np.int64)
+                                         for a in ev)
+
+
 class HostChromMixin:
     """Mixin for JaxEngine/ShardedEngine: exact-engine computation of
     chromosomes whose coordinates overflow device int32."""
@@ -44,6 +51,7 @@ class HostChromMixin:
         """
         from .pileup import (ctrl_frag_terms, exact_sum_f64,
                              expt_pileup)
+        expt_ev, ctrl_ev = _widen(expt_ev), _widen(ctrl_ev)
         if expt_ev is None or len(expt_ev[0]) == 0:
             epu = Pileup(np.array([chrom_len], np.int64),
                          np.zeros(1, F32))

@@ -7,9 +7,10 @@ enqueue time), and count and wall of blocking device->host pulls.
 Every host sync the engine makes (``.item()``, ``.cpu()``,
 boolean-mask reads) goes through ``_fetch``/``_fetch_many`` so that
 ``fetch_n`` counts it; ``fetch_s`` is the wait for the card
-(``fetch_wait_s``) plus the copy.  ``cast_s`` is the host's dtype
-casts of the events before their upload, ``qvalue_merge_s`` the host
-BH merge of the distinct p-values.  The peak stage's host seconds
+(``fetch_wait_s``) plus the copy.  ``cast_s`` is the host's
+narrowing of the events into their staging slots before the upload
+(``engine/staging.py``), ``qvalue_merge_s`` the host BH merge of the
+distinct p-values.  The peak stage's host seconds
 split into ``peak_fetch_s`` (the engine's ``peaks_fetch``: the wait for
 the device, and on the sharded engine its boundary merge,
 ``peak_merge_s``) and ``peak_write_s`` (the narrowPeak writer).

@@ -22,7 +22,9 @@ method at peak-calling time (``finalize_fisher``, kernel K3); the
 host (``HostChromMixin``), as in the JAX engine.
 
 Events upload as int32 starts/ends and uint8 count codes at their real
-length; the kernels mask their ragged tails, so nothing is padded.
+length, narrowed on the host into reused (on CUDA, page-locked) slots
+(``engine/staging.py``); the kernels mask their ragged tails, so
+nothing is padded.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from . import qvalue
 from .host_fallback import INT32_MAX, HostChromMixin
 from .perf import PerfMixin, span
 from .pileup import Pileup
+from .staging import EventStager
 
 F32 = np.float32
 PEAK_CAP = 1 << 15        # per-chrom device peak rows (jax_bridge's cap)
@@ -125,6 +128,7 @@ class TorchEngine(PerfMixin, HostChromMixin):
 
     def __init__(self, device):
         self.device = check_device(device)
+        self._stager = EventStager(self.device)
         self._chrom: Dict[int, dict] = {}
         self._reps: List[dict] = []
         self._qtable = None
@@ -133,11 +137,13 @@ class TorchEngine(PerfMixin, HostChromMixin):
 
     def begin_run(self) -> None:
         """Reset the per-analysis accounting, with the interval rows
-        before and after ``stats_all`` merges them (``merge_rows``)."""
+        before and after ``stats_all`` merges them (``merge_rows``) and
+        the event staging's counters (``EventStager``)."""
         super().begin_run()
         self.perf.update(interval_rows=0, real_rows=0, merged_rows=0,
                          merged_width=0, host_peak_chroms=0,
-                         peak_redispatch=0)
+                         peak_redispatch=0, stage_bytes=0,
+                         stage_alloc_n=0, stage_wait_s=0.0)
 
     def prepare(self, max_chrom_len: int = 0, max_gap: int = 0) -> None:
         """Build the CUDA kernels before the first chromosome.
@@ -152,15 +158,13 @@ class TorchEngine(PerfMixin, HostChromMixin):
     # --- input staging -------------------------------------------------
 
     def _events(self, ev):
-        """(starts int32, ends int32, count codes uint8) on the device."""
+        """(starts int32, ends int32, count codes uint8) on the device,
+        staged through ``EventStager``."""
         if ev is None or len(ev[0]) == 0:
             z = torch.zeros(0, dtype=torch.int32, device=self.device)
             return z, z, torch.zeros(0, dtype=torch.uint8,
                                      device=self.device)
-        with span("pipeline.cast", self.perf, "cast_s"):
-            host = (np.asarray(ev[0], np.int32), np.asarray(ev[1], np.int32),
-                    np.asarray(ev[2], np.uint8))
-        return tuple(self._put(a) for a in host)
+        return self._stager.put(ev, self.perf)
 
     # --- stage 1: coverage (resident) + fragment sums -------------------
 

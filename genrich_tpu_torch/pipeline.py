@@ -96,6 +96,16 @@ def _chrom_events(sink: EventSink, chrom_index: int):
             np.asarray(buf[2], np.int64))
 
 
+def _chrom_arrays(sink: EventSink, chrom_index: int):
+    """The sink's event triple as arrays of the dtypes ingest gave them
+    (the pure-Python ingest's lists become arrays): a device engine
+    narrows them once on its own way to the device."""
+    buf = sink.by_chrom.get(chrom_index)
+    if buf is None:
+        return None
+    return tuple(np.asarray(b) for b in buf)
+
+
 def _par_map(fn, items):
     """Map fn over per-chromosome work items, in parallel when it can
     help.  Results come back in input order, so every downstream
@@ -356,8 +366,8 @@ def _replicate_device(eng, registry: ChromRegistry,
             warn(f"Warning! {c.name} is longer than 2^31-1 bp; "
                  f"computing it on the host\n")
         with span("pipeline.cast", eng.perf, "cast_s"):
-            ev = _chrom_events(expt_sink, c.index)
-            cv = _chrom_events(ctrl_sink, c.index) if ctrl_sink else None
+            ev = _chrom_arrays(expt_sink, c.index)
+            cv = _chrom_arrays(ctrl_sink, c.index) if ctrl_sink else None
         handles.append(eng.coverage_chrom(c.index, ev, cv, c.bed,
                                           c.length))
     frag, ctrl_frag = eng.coverage_finish(handles)

@@ -245,3 +245,73 @@ def test_readers():
     nospan = {"recs": [_rec({}, **full)]}
     assert _reader("pipeline.unspanned_s").read(nospan) is None
     assert _reader("engine.cast_s").read({"recs": []}) is None
+
+
+
+def _host_route_output(tmp_path, handover):
+    """One analysis with a control on ``TorchEngine("cpu")`` of a
+    3 Gbp chromosome (the exact engine's host route) beside a short
+    one, the sinks holding ``handover`` of native ingest's int64 starts
+    and ends and int32 codes.  Returns the narrowPeak bytes."""
+    import numpy as np
+
+    from genrich_tpu_torch import params
+    from genrich_tpu_torch.ingest.chroms import ChromRegistry
+    from genrich_tpu_torch.ingest.intervals import EventSink
+    from genrich_tpu_torch.io import files
+    genome = (("chrBig", 3_000_000_000), ("chr2", 60_000))
+    rng = np.random.default_rng(17)
+    out = tmp_path / "out.np"
+    p = params.parse_args(["-t", "t", "-c", "c", "-o", str(out), "-y",
+                           "-p", "0.5", "-a", "0"])
+    reg = ChromRegistry(p.xchr_list, [], p.verbose)
+    for name, n in genome:
+        reg.save_chrom(name, n, False)
+    sinks = []
+    for n_ev in (4000, 1500):
+        sink = EventSink()
+        for name, n in genome:
+            lo = 2 ** 31 if n > 2 ** 31 else 0
+            centre = rng.integers(lo, lo + 50_000, 20).repeat(n_ev // 20)
+            starts = np.sort(centre + rng.integers(0, 400, n_ev))
+            ev = (starts.astype(np.int64),
+                  starts + rng.integers(50, 300, n_ev),
+                  rng.integers(1, 3, n_ev).astype(np.int32))
+            sink.by_chrom[reg.by_name[name].index] = handover(ev)
+        sinks.append(sink)
+    eng = TorchEngine("cpu")
+    eng.begin_run()
+    pipeline._replicate_device(eng, reg, sinks[0], sinks[1], p, 0, {},
+                               None, "t", "c", True, archive=False)
+    stream = files.open_write(p.out_file, p.gz_out)
+    pipeline._find_peaks_device(reg, eng, p, stream)
+    stream.close()
+    assert eng.perf["host_peak_chroms"] == 1
+    return out.read_bytes()
+
+
+@pytest.mark.parametrize("handover", ["ingest", "lists"])
+def test_host_route_gets_int64_and_same_output(tmp_path, monkeypatch,
+                                               handover):
+    """A chromosome over 2^31-1 bp still reaches the exact engine's
+    pileups as int64 triples, and its output is the one the all-int64
+    hand-over (the pipeline's widening before the staging slots)
+    gives."""
+    import numpy as np
+
+    from genrich_tpu_torch.engine import pileup
+    seen = []
+    for fn in ("expt_pileup", "ctrl_frag_terms", "ctrl_pileup"):
+        def spy(s, e, c, *a, _real=getattr(pileup, fn), _fn=fn):
+            seen[-1].add((_fn, s.dtype.name, e.dtype.name, c.dtype.name))
+            return _real(s, e, c, *a)
+        monkeypatch.setattr(pileup, fn, spy)
+    ways = {"ingest": list, "lists": lambda ev: [a.tolist() for a in ev],
+            "int64": lambda ev: [a.astype(np.int64) for a in ev]}
+    out = []
+    for way in (handover, "int64"):
+        seen.append(set())
+        out.append(_host_route_output(tmp_path, ways[way]))
+    assert out[0] == out[1] and out[0].count(b"chrBig\t") > 0
+    assert seen[0] == seen[1] == {(fn, "int64", "int64", "int64") for fn in (
+        "expt_pileup", "ctrl_frag_terms", "ctrl_pileup")}
