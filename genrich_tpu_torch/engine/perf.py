@@ -14,6 +14,14 @@ distinct p-values.  The peak stage's host seconds
 split into ``peak_fetch_s`` (the engine's ``peaks_fetch``: the wait for
 the device, and on the sharded engine its boundary merge,
 ``peak_merge_s``) and ``peak_write_s`` (the narrowPeak writer).
+With several replicates, ``archive_s`` is the host seconds of the
+replicate archive (``archive_replicate``, span ``pipeline.archive``)
+and ``fisher_s`` those of Fisher's combination (``finalize_fisher``,
+span ``pipeline.fisher``); both are parents of the dispatch and fetch
+spans inside them, not further leaves.  ``archive_rows`` counts the
+p-value runs the archive keeps and ``fisher_rows`` the lanes K3
+combines (the merged width, every replicate's kept runs), each summed
+over device chromosomes; all four stay 0 with one replicate.
 
 Each of these host seconds is taken by ``span``, which also names the
 block in any ``torch.profiler`` trace of the port (``pipeline.*``).
@@ -98,7 +106,9 @@ over several cards fetches from each, one accounted fetch a card.
                      "dispatch_s": 0.0, "fetch_n": 0, "fetch_s": 0.0,
                      "fetch_wait_s": 0.0, "cast_s": 0.0,
                      "qvalue_merge_s": 0.0,
-                     "peak_fetch_s": 0.0, "peak_write_s": 0.0}
+                     "peak_fetch_s": 0.0, "peak_write_s": 0.0,
+                     "archive_s": 0.0, "fisher_s": 0.0,
+                     "archive_rows": 0, "fisher_rows": 0}
 
     def _put(self, arr, device=None):
         """Host array -> tensor on ``device`` (``self.device`` by

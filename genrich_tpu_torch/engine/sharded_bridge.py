@@ -386,7 +386,9 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
     def archive_replicate(self) -> None:
         """Per-tile p-value RLE compaction, with each tile's first run's p
         and the previous tile's last run's p (``ShardedKernels.run_edges``);
-        coverage arrays released."""
+        coverage arrays released.  The archive keeps each tile's whole
+        padded width and pulls no count: those rows add to
+        ``perf["archive_rows"]``."""
         rep: Dict[int, tuple] = {}
         for cidx, st in self._chrom.items():
             if st.get("host"):
@@ -396,6 +398,7 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
                                       st["ends"], st["pv"], st["live"],
                                       st["limit"])
             edges = self._step(self._kern(st["tile_len"]).run_edges, pv_b, b)
+            self.perf["archive_rows"] += sum(e.numel() for e in e_b)
             rep[cidx] = (e_b, pv_b, st["len"], st["tile_len"], st["limit"],
                          edges)
         self._reps.append(rep)
@@ -406,13 +409,17 @@ class ShardedTorchEngine(PerfMixin, HostChromMixin):
         first combined interval continues the previous tile's last one
         (``cont``) iff in every replicate the tile's first run has the p
         of the previous tile's last run: the boundary cut one run of each,
-        and the exact engine has no break there."""
+        and the exact engine has no break there.  K3's lanes (every
+        tile's merged width, summed over the cards) add to
+        ``perf["fisher_rows"]``."""
         chroms = sorted({c for rep in self._reps for c in rep})
         for cidx in chroms:
             present = [rep[cidx] for rep in self._reps if cidx in rep]
             if any(self.host_is_archived(r) for r in present):
                 self.host_fisher(cidx, present)
                 continue
+            self.perf["fisher_rows"] += sum(e.numel() for p in present
+                                            for e in p[0])
             kern = self._kern(present[0][3])
             starts, ends, comb, live = self._each(
                 kern.fisher(len(present)), *(p[0] for p in present),

@@ -292,6 +292,8 @@ class TorchEngine(PerfMixin, HostChromMixin):
         at least one (chrom_len, SKIP) row; the dense arrays are
         released.  Used when a later replicate follows and the
         combination (Fisher) happens on the device at findPeaks time.
+        The kept runs of the device chromosomes add to
+        ``perf["archive_rows"]``.
         """
         rep: Dict[int, tuple] = {}
         pend = []
@@ -307,6 +309,7 @@ class TorchEngine(PerfMixin, HostChromMixin):
             counts = self._fetch_many([b for _, _, (_, _, b) in pend])
             for (cidx, length, (e_b, pv_b, _)), nb in zip(pend, counts):
                 n = max(int(nb), 1)
+                self.perf["archive_rows"] += n
                 rep[cidx] = (e_b[:n].clone(), pv_b[:n].clone(), length)
         self._reps.append(rep)
         self._chrom.clear()
@@ -317,7 +320,9 @@ class TorchEngine(PerfMixin, HostChromMixin):
         Merges every replicate's RLE breakpoints per chromosome and
         combines -log10 p with kernel K3 (``compact.merge_fisher``); the
         result repopulates ``self._chrom`` so q-values and peak calling
-        run unchanged.  Host chromosomes combine on the host.
+        run unchanged.  Host chromosomes combine on the host.  K3's
+        lanes (the merged width: every replicate's kept runs) add to
+        ``perf["fisher_rows"]``.
         """
         chroms = sorted({c for rep in self._reps for c in rep})
         for cidx in chroms:
@@ -325,6 +330,7 @@ class TorchEngine(PerfMixin, HostChromMixin):
             if any(self.host_is_archived(r) for r in present):
                 self.host_fisher(cidx, present)
                 continue
+            self.perf["fisher_rows"] += sum(r[0].shape[0] for r in present)
             starts, ends, comb, live = self._call(
                 compact.merge_fisher, [r[0] for r in present],
                 [r[1] for r in present])

@@ -384,7 +384,8 @@ def _replicate_device(eng, registry: ChromRegistry,
 
     if full_device:
         if archive:
-            eng.archive_replicate()
+            with span("pipeline.archive", eng.perf, "archive_s"):
+                eng.archive_replicate()
         return {}, {}
 
     if pile_stream is not None:
@@ -429,7 +430,8 @@ def _find_peaks_device(registry: ChromRegistry, eng, p: Params,
     the host.  Verbose output mirrors find_peaks().
     """
     if eng._reps:
-        eng.finalize_fisher()
+        with span("pipeline.fisher", eng.perf, "fisher_s"):
+            eng.finalize_fisher()
     chroms = [c for c in registry if not c.skip and c.index
               in eng._chrom]
     genome_len = p.genome_len
