@@ -3,11 +3,17 @@
 Ingest hands each chromosome's events over as int64 starts and ends and
 int32 count codes (the pure-Python ingest as int64 arrays); the device
 takes int32 starts and ends and uint8 codes.  ``EventStager`` narrows
-each array once, with numpy's wrap-around (``casting="unsafe"``, as
-``np.asarray(x, np.int32)`` and ``np.asarray(x, np.uint8)`` cast an
-integer array), straight into one of two host slots that live as long
+each array once, straight into one of two host slots that live as long
 as the stager, then copies the slot onto the device into freshly
 allocated tensors of the same dtypes and lengths.
+
+The narrowing is torch's CPU copy, ``slot[:n].copy_(torch.from_numpy(a))``:
+C's truncating conversion, which is numpy's wrap-around (``casting=
+"unsafe"``, as ``np.asarray(x, np.int32)`` and ``np.asarray(x, np.uint8)``
+cast an integer array), spread by ATen over the process's intra-op
+threads once an array passes its grain (32,768 elements), serial below
+it.  A layout that ``torch.from_numpy`` cannot view (a negative stride,
+a non-native byte order) raises; ingest hands over neither.
 
 On a CUDA device the slots are page-locked and the copies are
 ``non_blocking``: the card's copy engine reads the slot by DMA, with no
@@ -36,16 +42,15 @@ DTYPES = (torch.int32, torch.int32, torch.uint8)
 
 
 class _Slot:
-    """One (starts, ends, codes) triple of host buffers, their numpy
-    views, and the event behind their last copies (CUDA only)."""
+    """One (starts, ends, codes) triple of host buffers and the event
+    behind their last copies (CUDA only)."""
 
-    __slots__ = ("size", "host", "views", "event")
+    __slots__ = ("size", "host", "event")
 
     def __init__(self, size: int, pin: bool):
         self.size = size
         self.host = tuple(torch.empty(size, dtype=dt, pin_memory=pin)
                           for dt in DTYPES)
-        self.views = tuple(t.numpy() for t in self.host)
         self.event = torch.cuda.Event() if pin else None
 
 
@@ -83,19 +88,18 @@ class EventStager:
         """(starts int32, ends int32, count codes uint8) of the non-empty
         event triple ``ev`` (arrays or lists) as new device tensors,
         accounted as three uploads."""
-        arrays = [np.asarray(a) for a in ev]
-        n = len(arrays[0])
+        n = len(ev[0])
         slot = self._slot(n, perf)
         with span("pipeline.cast", perf, "cast_s"):
-            for a, view in zip(arrays, slot.views):
-                np.copyto(view[:n], a, casting="unsafe")
+            for a, host in zip(ev, slot.host):
+                host[:n].copy_(torch.from_numpy(np.asarray(a)))
         with span("pipeline.upload", perf, "upload_s"):
             out = tuple(torch.empty(n, dtype=h.dtype, device=self.device)
                         .copy_(h[:n], non_blocking=self._pin)
                         for h in slot.host)
             if slot.event is not None:
                 slot.event.record(torch.cuda.current_stream(self.device))
-        nbytes = sum(v[:n].nbytes for v in slot.views)
+        nbytes = sum(h[:n].nbytes for h in slot.host)
         perf["upload_n"] += len(out)
         perf["upload_bytes"] += nbytes
         perf["stage_bytes"] += nbytes

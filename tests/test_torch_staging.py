@@ -3,17 +3,18 @@
 On the CPU: the staged tensors equal, bitwise, what the engine uploaded
 before the staging slots (the pipeline's int64 widening, then
 ``np.asarray(x, np.int32)`` and ``np.asarray(x, np.uint8)``) for every
-hand-over (native ingest's int64/int64/int32 arrays, all-int64 arrays,
-the pure-Python ingest's lists, strided views), with starts at 0 and
-2^31-1 and codes that wrap (256); no tensor handed out shares memory
-with a slot, and a slot rewritten later leaves earlier tensors as they
-were; ``stage_alloc_n`` counts slot growth only, ``stage_bytes`` the
-events' share of ``upload_bytes``, and ``begin_run`` resets the three
-keys.  On a card (skipped without one): many triples staged back to
-back through the pinned slots arrive intact, the benchmark's analysis
-writes the same narrowPeak bytes as through pageable uploads over three
-analyses that reuse the slots, and the profiler sees no pageable
-host-to-device copy of an event array.
+hand-over in ``HANDOVERS``, with starts at 0 and 2^31-1 and codes that
+wrap (256), and at 200,001 events, past ATen's grain, on 1 and 4
+intra-op threads with values that wrap both ways; a layout torch cannot
+view raises; no tensor handed out shares memory with a slot, and a slot
+rewritten later leaves earlier tensors as they were; ``stage_alloc_n``
+counts slot growth only, ``stage_bytes`` the events' share of
+``upload_bytes``, and ``begin_run`` resets the three keys.  On a card
+(skipped without one): many triples staged back to back through the
+pinned slots arrive intact, the benchmark's analysis writes the same
+narrowPeak bytes as through pageable uploads over three analyses that
+reuse the slots, and the profiler sees no pageable host-to-device copy
+of an event array.
 """
 
 from __future__ import annotations
@@ -55,6 +56,12 @@ HANDOVERS = {
     "lists": lambda ev: tuple(a.tolist() for a in ev),
     "strided": lambda ev: tuple(np.repeat(a, 2)[::2] for a in ev),
 }
+# Layouts that torch.from_numpy cannot view, which ingest never makes.
+UNVIEWABLE = {
+    "reversed": lambda ev: tuple(a[::-1].copy()[::-1] for a in ev),
+    "big_endian": lambda ev: tuple(
+        a.astype(a.dtype.newbyteorder(">")) for a in ev),
+}
 
 
 def _before(ev):
@@ -82,6 +89,30 @@ def test_staged_bitwise_to_casts(handover):
     eng = TorchEngine("cpu")
     _equal(eng._events(HANDOVERS[handover](ev)), _before(ev))
     assert np.asarray(_before(ev)[2])[:5].tolist() == [0, 1, 120, 255, 0]
+
+
+@pytest.mark.parametrize("threads", [1, 4])
+def test_staged_bitwise_past_the_grain(threads):
+    rng = np.random.default_rng(threads)
+    n = 200_001
+    ev = (rng.integers(-2 ** 40, 2 ** 40, n, dtype=np.int64),
+          rng.integers(-2 ** 40, 2 ** 40, n, dtype=np.int64),
+          rng.integers(-5, 401, n).astype(np.int32))
+    eng = TorchEngine("cpu")
+    before = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        got = eng._events(ev)
+    finally:
+        torch.set_num_threads(before)
+    _equal(got, _before(ev))
+
+
+@pytest.mark.parametrize("layout", sorted(UNVIEWABLE))
+def test_unviewable_layout_raises(layout):
+    ev = UNVIEWABLE[layout](_ingest(1000, 6))
+    with pytest.raises(ValueError):
+        TorchEngine("cpu")._events(ev)
 
 
 def test_no_tensor_aliases_a_slot():
