@@ -142,19 +142,15 @@ non-zero, and the result line is printed only when every phase passed:
 12. The same three runs with ``--engine sharded`` under a one-rank NCCL
    group (the capped one with 64 slots a tile).  No path may send a
    chromosome to the host peak caller (``host_peak_chroms``).
-13. Bench: ``python -m genrich_tpu_torch.bench --kernel-only --reps 1``
-   in this process (its light and production kernel legs at
-   ``bench.py``'s shapes; every launch counted as the ``bench`` path,
-   K1, K2, K5 and K4 each at least once), then one light tile (K1 in
-   lambda mode, K5, K4) and one production tile (K1, K2, K5, K4) of it
-   again with their kernels' inputs kept: K1's coverage bitwise to its
-   plain version and its lambda-mode -log10 p within rtol = atol =
-   1e-5, each kernel held and timed on those calls as on the main
-   path's (kernels per call by graph capture), and each tile's peaks
-   equal to the same tile's through the plain versions on the CPU; then
-   the bench's ``atac`` end-to-end leg, one rep, ``--engine jax`` (its
-   serve output must be the main path's bytes).  Its seconds are
-   printed.
+13. Bench: ``python -m genrich_tpu_torch.bench --configs atac --reps
+   1`` in this process, the end-to-end leg on the main path's BAM: a
+   serve child per device engine (a cold and a warm line each) against
+   one ``--engine exact`` child, and the two-worker parser leg.  Every
+   check of the leg must pass, each engine's warm line must have
+   launched K1, K2, K5 and K4 on every card it used (the serve line's
+   ``launches_by_card``, counted as the ``bench`` path), and the jax
+   engine's cold output must be the main path's bytes.  Its seconds,
+   headline, checks and walls are printed.
 14. Sharded over the cards (``sharded_cards``): ``--engine sharded
    --device cuda`` with no process group, spanning every card of the
    machine, cold and warm, then once over two contexts on cuda:0 (so a
@@ -225,11 +221,8 @@ non-zero, and the result line is printed only when every phase passed:
    no result line.
 17. The last lines: the kernels JSON (``launches_by_path`` with the
    ChIP paths, the bench, ``sharded_cards``, ``sharded_ranks``,
-   ``ladder`` and ``ladder_sharded``, each
-   kernel's sums on
-   them under ``<path>_path``, K1's lambda mode on the bench's light tile under
-   ``lambda_mode.bench_path``), the
-   nvidia-smi line and {"ok": true, "device": {...}}; neither jax nor
+   ``ladder`` and ``ladder_sharded``, each kernel's sums on the paths
+   whose calls were kept under ``<path>_path``), the nvidia-smi line and {"ok": true, "device": {...}}; neither jax nor
    genrich_tpu is ever imported in this process.  Each kernel's bound
    is the larger of its bytes (each input read once, each output
    written once) over 3.35 TB/s and
@@ -1916,123 +1909,57 @@ def chip_phases(bam_a, bam_b, bam_c):
 
 # --- the bench ---------------------------------------------------------------
 
-def _hold_tile_peaks(got, want, where):
-    """A tile's peaks on the card (``got``) against the same tile through
-    the plain versions on the CPU (``want``): the same valid peaks, their
-    starts, ends and summit offsets equal, AUC and summit p within
-    rtol 1e-5 (K4 sums in float32 row order, the plain version as a
-    float64 prefix difference; K1's -log10 p within 1e-5)."""
-    import torch
-    gv, wv = got.valid.cpu(), want.valid
-    if not torch.equal(gv, wv):
-        raise AssertionError(f"bench {where} tile: valid peaks differ "
-                             f"({int(gv.sum())} / {int(wv.sum())})")
-    for name in ("start", "end", "summit_pos"):
-        if not torch.equal(getattr(got, name).cpu()[gv],
-                           getattr(want, name)[wv]):
-            raise AssertionError(f"bench {where} tile: peak {name} differs")
-    for name in ("auc", "summit_pval"):
-        if not _close(getattr(got, name).cpu()[gv], getattr(want, name)[wv],
-                      atol=0.0):
-            raise AssertionError(f"bench {where} tile: peak {name} beyond "
-                                 f"rtol {TOL}")
-    return int(gv.sum())
-
-
 def bench_phase(bam_a):
-    """``python -m genrich_tpu_torch.bench --kernel-only --reps 1`` in this
-    process (the bench path's launches counted), one light and one
-    production tile of it held to their plain versions (K1's coverage
-    bitwise and its lambda-mode -log10 p within rtol = atol = 1e-5, K2,
-    K5 and K4 as on the main path's calls, each call's kernels read by
-    graph capture; the tiles' peaks against the same tiles through the
-    plain versions on the CPU), and the bench's ``atac`` end-to-end leg
-    with one rep on ``--engine jax`` (its serve output must be the main
-    path's bytes).  Returns the counts and each kernel's sums."""
-    import torch
+    """``python -m genrich_tpu_torch.bench --configs atac --reps 1`` in
+    this process: the end-to-end leg on BAM A (``bam_a``, which the bench
+    finds in .bench_cache/ under the same name), a cold and a warm serve
+    line of each device engine against one ``--engine exact`` child, and
+    the two-worker parser leg.  Every check of the leg must pass (each
+    engine's rows against the exact output, cold == warm bytes, the
+    parser leg's bytes), each engine's warm line must have launched K1,
+    K2, K5 and K4 on every card it used (the serve line's
+    ``launches_by_card``), and the jax engine's cold output must be the
+    main path's bytes.  Returns the launches of both warm lines, summed
+    over their cards."""
     from genrich_tpu_torch import bench, kernels
-    from genrich_tpu_torch.ops import scan
-    from genrich_tpu_torch.testing import recording
+    if os.path.abspath(bench.bam_path("A")) != os.path.abspath(bam_a):
+        raise AssertionError(f"bench: BAM A is {bench.bam_path('A')}, "
+                             f"not {bam_a}")
     t0 = time.perf_counter()
     detail = os.path.join(WORK, "chip_smoke", "bench_detail.json")
-    kernels.reset_launches()
     line = io.StringIO()
     with contextlib.redirect_stdout(line):
-        rc = bench.main(["--kernel-only", "--reps", "1", "--out", detail])
-    counts = dict(kernels.LAUNCHES)
-    if rc != 0:
-        raise AssertionError(f"bench --kernel-only: exit code {rc}")
-    fault = _need_main(counts)
-    if fault:
-        raise AssertionError(f"bench: {fault}: {counts}")
+        rc = bench.main(["--configs", "atac", "--reps", "1", "--out",
+                         detail])
     head = json.loads(line.getvalue().splitlines()[-1])
     with open(detail) as f:
-        legs = json.load(f)
-    dev = torch.device(DEV)
-    one = [torch.as_tensor(a, device=dev)
-           for a in bench._tile_events(np.random.RandomState(0))[0]]
-    lam = bench.tile_lambda(bench.TILE_LEN, bench.EVENTS_PER_TILE)
-    zero4 = torch.zeros(4, dtype=torch.int32, device=dev)
-    excl = bench.prod_excl(bench.TILE_LEN, dev)
-    cpu = [t.cpu() for t in one]
-    tiles = {}
-    for where, tile in (
-            ("light", lambda ev, ex, z: bench.light_tile(
-                *ev, bench.TILE_LEN, lam, z)),
-            ("production", lambda ev, ex, z: bench.prod_tile(
-                *ev, ex, bench.TILE_LEN, lam, z)[0])):
-        with recording(bench.KERNEL_TARGETS) as calls:
-            got = tile(one, excl, zero4)
-        want = tile(cpu, excl.cpu(), zero4.cpu())
-        tiles[where] = (calls, _hold_tile_peaks(got.peaks, want.peaks,
-                                                where))
-    light = tiles["light"][0]
-    packed, groups, carry, lam_k = light["coverage_scan"][0]
-    got = scan.coverage_scan(packed.to(dev), groups, carry.to(dev), lam_k)
-    want = scan.coverage_scan_plain(packed, groups, carry, lam_k)
-    p_err = float((got[1].cpu() - want[1]).abs().max())
-    if not (torch.equal(got[0].cpu(), want[0])
-            and _close(got[1].cpu(), want[1])):
-        raise AssertionError(f"coverage_scan, bench light tile: coverage "
-                             f"not bitwise or -log10 p max abs err {p_err}")
-    del got, want
-    k1 = {where: k1_path_phase(calls["coverage_scan"], f"bench {where}")
-          for where, (calls, _) in tiles.items()}
-    sums = {"coverage_scan": dict(k1["production"]),
-            "tile_stats": k2_path_phase(
-                tiles["production"][0]["tile_stats"], "bench production"),
-            "gap_join": k5_path_phase(
-                [c for calls, _ in tiles.values()
-                 for c in calls["peak_candidates"]], "bench"),
-            "peak_reduce": k4_path_phase(
-                [c for calls, _ in tiles.values()
-                 for c in calls["peak_reduce"]], "bench")}
-    for key in ("ms", "call_ms", "plain_ms", "first_design_ms"):
-        sums["coverage_scan"][key] += k1["light"][key]
-    sums["coverage_scan"].update(_sum_bounds([k1["light"],
-                                              k1["production"]]))
-    sums["coverage_scan"]["mode"] = "sum over the bench's light (lambda " \
-        "mode) and production tile's calls; one kernel launch per call"
-    k1["light"]["p_max_abs_err"] = p_err
-    e2e = bench.bench_e2e({"A": bam_a}, ["atac"], 1, DEV, engines=("jax",),
-                          work=WORK, par_leg=False)
-    atac = e2e["configs"]["atac"]
+        atac = json.load(f)["e2e"]["configs"]["atac"]
+    counts = dict.fromkeys(kernels.LAUNCHES, 0)
+    by_engine, faults = {}, []
+    for eng in bench.ENGINES:
+        by_card = atac[eng]["perf_median_rep"].get("launches_by_card") or {}
+        by_engine[eng] = by_card
+        if not by_card:
+            faults.append(f"{eng}: no launches_by_card")
+        for card, c in by_card.items():
+            fault = _need_main(c)
+            if fault:
+                faults.append(f"{eng} card {card}: {fault}")
+            for k, n in c.items():
+                counts[k] += n
     same = open(os.path.join(WORK, "bench_e2e", "atac_jax_cold.np"),
                 "rb").read() == open(os.path.join(
                     WORK, "chip_smoke", "main_port_cold.np"), "rb").read()
-    say("bench", seconds=time.perf_counter() - t0, headline=head,
-        launches=counts, per_tile_ms=legs["kernel"]["per_tile_ms_batched"],
-        per_tile_ms_production=legs["kernel_production"]["per_tile_ms"],
-        host_syncs_per_dispatch=[legs[k]["host_syncs_per_dispatch"] for k
-                                 in ("kernel", "kernel_production")],
-        peaks={k: n for k, (_, n) in tiles.items()},
-        lambda_p_max_abs_err=p_err, e2e_ok=e2e["ok"],
+    say("bench", seconds=time.perf_counter() - t0, exit_code=rc,
+        headline=head, launches_by_engine=by_engine,
         e2e_checks=atac["checks"], e2e_exact_s=atac["exact"]["median_s"],
-        e2e_jax=atac["jax"], equal_to_main_path=same)
-    if not e2e["ok"] or not same:
-        raise AssertionError(f"bench atac leg: checks {atac['checks']}, "
-                             f"equal to the main path's bytes: {same}")
-    return counts, sums, k1["light"]
+        e2e_warm_s={eng: atac[eng]["median_s"] for eng in bench.ENGINES},
+        equal_to_main_path=same)
+    if rc != 0 or faults or not same:
+        raise AssertionError(f"bench atac leg: exit code {rc}, checks "
+                             f"{atac['checks']}, launches {faults}, equal "
+                             f"to the main path's bytes: {same}")
+    return counts
 
 
 # --- the sharded engine over every card -------------------------------------
@@ -2707,17 +2634,13 @@ def run_phases(smi) -> int:
     serve_phase(bam_a)
     logs_path(bam_log)
     chip_counts, chip_sums = chip_phases(bam_a, bam_b, bam_c)
-    bench_counts, chip_sums["bench"], lam_bench = bench_phase(bam_a)
-    chip_counts["bench"] = bench_counts
+    chip_counts["bench"] = bench_phase(bam_a)
     chip_counts["sharded_cards"] = sharded_cards_phase(bam_a, bam_b, bam_c,
                                                        _blacklist())
     chip_counts["sharded_ranks"] = sharded_ranks_phase(bam_a, bam_b, bam_c,
                                                        _blacklist())
     ladder_counts, chip_sums["ladder"] = ladder_phase(synth_bam("ladder"))
     chip_counts.update(ladder_counts)
-    entries[0]["lambda_mode"]["bench_path"] = lam_bench
-    entries[0]["lambda_mode"]["p_max_abs_err"] = max(
-        entries[0]["lambda_mode"]["p_max_abs_err"], lam_bench["p_max_abs_err"])
     for path, sums in chip_sums.items():
         for e in entries:
             if e["name"] in sums:

@@ -1,36 +1,19 @@
-"""Benchmark of the port on one card: kernel legs and end-to-end legs.
+"""Benchmark of the port on one card: end-to-end legs.
 
-    python -m genrich_tpu_torch.bench [--device cuda|cpu] [--kernel-only]
+    python -m genrich_tpu_torch.bench [--device cuda|cpu]
         [--configs atac,control,fisher,chip,chip_fisher] [--reps N]
         [--out PATH]
-    python -m genrich_tpu_torch.bench --scaling [--device cuda|cpu]
-        [--reps N] [--out PATH]
     python -m genrich_tpu_torch.bench --mem [N ...] [--device cuda|cpu]
         [--reps N] [--out PATH]
     python -m genrich_tpu_torch.bench --overlap [N ...] [--out PATH]
 
-The port's counterpart of the repo's ``bench.py`` and
-``scripts/bench_e2e.py``, which drive the JAX package.  It imports
-neither ``jax`` nor ``genrich_tpu`` and keeps its own copies of what it
-takes from them.  It runs on the card unless ``--device cpu`` is given;
-without a card it fails.
-
-Kernel legs (``kernel_legs``), the shapes of ``bench.py``: a genome of
-``GENOME_LEN`` bp scanned as tiles of ``TILE_LEN`` bp with
-``EVENTS_PER_TILE`` fragment events each, drawn from
-``np.random.RandomState(0)`` by ``bench.py``'s draws (``_tile_events``).
-- Light: each tile through ``ops/pipeline.py::analyze_tile_core`` (the
-  sort, K1 in lambda mode, K5, K4); a dispatch is ``BATCH`` tiles
-  launched with no host sync between them, ending in one fetch of
-  their fragment sums, which must be equal in every dispatch and rep.
-  Then the same tile dispatched alone ``N_SINGLE`` times.
-- Production: ``analyze_tile_ctrl`` (K1 in coverage mode, K2, K5, K4)
-  on ``BATCH_PROD`` tiles with a control channel of the same events and
-  ``K_EXCL`` padded exclusions.
-Both are timed by the host clock and by CUDA events; beside them the
-device-memory bandwidth (64 read and write passes over 64 MiB, best of
-5), ``bench.py``'s ideal-sort byte model of a tile and the sum of the
-hand kernels' bounds (``testing.bound``) over one tile's calls.
+The port's counterpart of the repo's ``scripts/bench_e2e.py``,
+``scripts/bench_mem.py`` and ``scripts/bench_overlap.py``, which drive
+the JAX package.  It imports neither ``jax`` nor ``genrich_tpu`` and
+keeps its own copies of what it takes from them.  It runs on the card
+unless ``--device cpu`` is given; without a card it fails.  Its device
+legs run the port's one device pipeline, the engine path of the CLI and
+``--serve`` (``TorchEngine``, ``ShardedTorchEngine``).
 
 End-to-end legs (``bench_e2e``): the 2M-pair BAMs that ``chip_smoke.py``
 caches in ``.bench_cache/`` (``BAMS``; made by ``tools/perf_synth.py``,
@@ -47,22 +30,9 @@ sources), so the headline's ``e2e_exact_ratio`` is the paired exact /
 ``--engine jax`` wall ratio on ``atac``.
 
 The full dict goes to ``.bench_cache/bench_torch_detail.json`` (or
-``--out``); the last stdout line is ``compact_headline``, with
-``bench.py``'s keys and the card's name and power limit.
-
-The scaling leg (``--scaling``, alone), the counterpart of
-``scripts/bench_scaling.py``: the script's fixed work (8 tiles of 2^16
-bp, 4,096 events a tile, a control, an exclusion, q-values, peaks
-across a tile boundary) and a rung at the light tile's size (8 tiles of
-2^24 bp, 2^19 events a tile), each through ``sharded_analyze_full`` and
-``merge_tile_peaks`` over D = 1, 2, 4 and 8 shards, warm, median of 9,
-in three forms: D contexts on ``cuda:0``; D cards, where the host has
-them; two NCCL ranks of D/2 cards each, in child processes, where the
-host has D cards.  It writes ``.bench_cache/bench_torch_scaling.json``
-(or ``--out``) and prints it as the last line: per rung and form the
-script's ``t_ms_by_D``, ``overhead_pct_by_D`` and
-``efficiency_pct_by_D`` (against one context), and it fails unless
-every leg's peaks are D = 1's.
+``--out``); the last stdout line is ``compact_headline``, with the
+end-to-end keys of ``bench.py``'s headline and the card's name and
+power limit.
 
 The scale ladder (``--mem``, alone), the counterpart of
 ``scripts/bench_mem.py``: rungs of 2M, 10M, 40M and 60M read pairs
@@ -98,7 +68,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import os
 import re
 import resource
@@ -108,31 +77,15 @@ import subprocess
 import sys
 import threading
 import time
-import warnings
 
 import numpy as np
 import torch
 
 from . import testing
-from .ops import peaks as peaks_ops
-from .ops import pipeline as tile_ops
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORK = os.path.join(REPO, ".bench_cache")
 DETAIL = os.path.join(WORK, "bench_torch_detail.json")
-
-# bench.py's shapes
-GENOME_LEN = 2_826_865_605          # Genrich's README example (hg19)
-BASELINE_POS_PER_SEC = 4.5e6        # Genrich's published single-core rate
-TILE_LEN = 1 << 24
-EVENTS_PER_TILE = 1 << 19
-BATCH = 48                          # tiles per dispatch
-BATCH_PROD = 8
-REPS = 7
-PROD_REPS = 3
-N_SINGLE = 16                       # single-tile dispatches
-K_EXCL = 64                         # padded exclusions of a production tile
-MIN_PQ, MIN_AUC, MIN_LEN, MAX_GAP = 2.0, 20.0, 0, 100
 
 # scripts/bench_e2e.py's genome and flags, chip_smoke.py's BAMs
 HG_CHROMS = (("chr1", 1_100_000_000), ("chr2", 900_000_000),
@@ -151,85 +104,7 @@ ENGINES = ("jax", "sharded")
 DIST_ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
 
 
-# --- kernel legs ----------------------------------------------------------
-
-def _tile_events(rng, n_variants=4, tile_len=TILE_LEN,
-                 events=EVENTS_PER_TILE):
-    """Distinct per-tile event sets (clustered + background), by
-    ``bench.py``'s draws from ``rng``."""
-    variants = []
-    for _ in range(n_variants):
-        hot = rng.randint(0, tile_len - 2000, 64)
-        which = rng.randint(0, 64, events)
-        is_hot = rng.rand(events) < 0.7
-        base = np.where(is_hot, hot[which] + rng.randint(0, 1500, events),
-                        rng.randint(0, tile_len - 500, events))
-        frag = rng.randint(80, 400, events)
-        start = np.clip(base, 0, tile_len - 1).astype(np.int32)
-        end = np.clip(base + frag, 1, tile_len).astype(np.int32)
-        count = rng.choice([1, 1, 1, 1, 2, 4], events).astype(np.int32)
-        variants.append((start, end, count))
-    return variants
-
-
-def tile_lambda(tile_len, events):
-    """The light tiles' background rate, as ``bench.py`` sets it."""
-    return float(np.float32(events * 200.0 / tile_len))
-
-
-def upload_batch(variants, batch, device):
-    """The variants on the device, as a [batch, E] (start, end, count)
-    triple whose row i is variant i mod len(variants), built there."""
-    n = -(-batch // len(variants))
-    return tuple(torch.as_tensor(np.stack([v[j] for v in variants]),
-                                 device=device).repeat(n, 1)[:batch]
-                 for j in range(3))
-
-
-def light_tile(s, e, c, tile_len, lam, carry):
-    """One light tile: ``analyze_tile_core`` with bench.py's arguments."""
-    return tile_ops.analyze_tile_core(s, e, c, tile_len, carry, lam, MIN_PQ,
-                                      MIN_AUC, MIN_LEN, MAX_GAP)
-
-
-def prod_tile(s, e, c, excl, tile_len, lam, carry):
-    """One production tile: ``analyze_tile_ctrl`` with a control channel
-    of the same events; returns (TileResult, control fragment sum)."""
-    res, ctrl_frag, *_ = tile_ops.analyze_tile_ctrl(
-        s, e, c, s, e, c, excl, tile_len, carry, carry, lam, 1.0, MIN_PQ,
-        MIN_AUC, MIN_LEN, MAX_GAP)
-    return res, ctrl_frag
-
-
-def light_dispatch(batch, tile_len, lam):
-    """Every tile of ``batch`` through ``light_tile``, no host sync
-    between them; the float32 sum of their fragment sums (on the
-    device)."""
-    s, e, c = batch
-    carry = torch.zeros(4, dtype=torch.int32, device=s.device)
-    return torch.stack([light_tile(s[i], e[i], c[i], tile_len, lam,
-                                   carry).frag_len
-                        for i in range(s.shape[0])]).sum()
-
-
-def prod_excl(tile_len, device):
-    """``K_EXCL`` exclusions, all padding (tile_len, tile_len)."""
-    return torch.full((K_EXCL, 2), tile_len, dtype=torch.int32,
-                      device=device)
-
-
-def prod_dispatch(batch, excl, tile_len, lam):
-    """Every tile of ``batch`` through ``prod_tile``; the float32 sum of
-    their treatment and control fragment sums."""
-    s, e, c = batch
-    carry = torch.zeros(4, dtype=torch.int32, device=s.device)
-    parts = []
-    for i in range(s.shape[0]):
-        res, ctrl_frag = prod_tile(s[i], e[i], c[i], excl, tile_len, lam,
-                                   carry)
-        parts.append(res.frag_len + ctrl_frag)
-    return torch.stack(parts).sum()
-
+# --- end-to-end legs ------------------------------------------------------
 
 def _median(xs):
     s = sorted(xs)
@@ -240,453 +115,6 @@ def _spread_pct(xs):
     """(max - min) / median, in percent."""
     return 100.0 * (max(xs) - min(xs)) / _median(xs)
 
-
-def timed_reps(device, fn, n_dispatch, reps):
-    """``reps`` reps of ``n_dispatch`` dispatches of ``fn`` each, their
-    values fetched at the end of the rep: the host seconds of each rep
-    and, on a card, the CUDA events' seconds from before the first
-    launch to after the last kernel; every value must be equal
-    (raises)."""
-    cuda = device.type == "cuda"
-    host, dev_s, first = [], [], None
-    for _ in range(reps):
-        if cuda:
-            torch.cuda.synchronize(device)
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-        t0 = time.perf_counter()
-        outs = [fn() for _ in range(n_dispatch)]
-        if cuda:
-            b.record()
-        vals = [float(o) for o in outs]
-        host.append(time.perf_counter() - t0)
-        if cuda:
-            dev_s.append(a.elapsed_time(b) / 1e3)
-        first = vals[0] if first is None else first
-        if any(v != first for v in vals):
-            raise AssertionError(f"non-deterministic dispatch: {vals} "
-                                 f"against {first}")
-    return host, (dev_s or None), first
-
-
-def host_syncs(device, fn):
-    """The host syncs one call of ``fn`` makes
-    (``torch.cuda.set_sync_debug_mode``'s warnings) and the source lines
-    that made them; (None, []) on the CPU."""
-    if device.type != "cuda":
-        return None, []
-    torch.cuda.synchronize(device)
-    with warnings.catch_warnings(record=True) as seen:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize(device)
-    syncs = [w for w in seen if "synchroniz" in str(w.message)]
-    return len(syncs), sorted({f"{os.path.relpath(w.filename, REPO)}:"
-                               f"{w.lineno}" for w in syncs})
-
-
-def measure_hbm_bw(device, iters=64, reps=5):
-    """Device-memory bytes/s of 64 read and write passes over a 64 MiB
-    float32 array (one kernel each), best of ``reps``, by CUDA events."""
-    x = torch.ones(1 << 24, dtype=torch.float32, device=device)
-    c = 1.0000001
-
-    def run():
-        for _ in range(iters):
-            x.mul_(c)
-    run()
-    best = math.inf
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        run()
-        b.record()
-        b.synchronize()
-        best = min(best, a.elapsed_time(b) / 1e3)
-    return iters * 2.0 * x.nbytes / best
-
-
-KERNEL_TARGETS = ((tile_ops, "coverage_scan"), (tile_ops, "tile_stats"),
-                  (peaks_ops, "peak_candidates"),
-                  (peaks_ops, "peak_reduce"))
-WRAPPER_KERNEL = {"peak_candidates": "gap_join"}
-
-
-def tile_calls(fn):
-    """One call of ``fn`` (a tile) with the arguments of every hand-kernel
-    call recorded: {kernel: [args, ...]} (``kernels.LAUNCHES``'s names)."""
-    with testing.recording(KERNEL_TARGETS) as calls:
-        fn()
-    return {WRAPPER_KERNEL.get(k, k): v for k, v in calls.items() if v}
-
-
-def kernel_bounds(calls):
-    """The hand kernels' bounds over these calls: each call's
-    ``testing.bound`` from its bytes and operations (``call_work``),
-    summed per kernel and over all."""
-    out, total = {}, 0.0
-    for name, cs in calls.items():
-        parts = [testing.call_work(name, args) for args in cs]
-        ms = [testing.bound(p["bytes"], p["fp32_ops"], p["fp64_ops"])
-              for p in parts]
-        out[name] = {"calls": len(cs),
-                     "bytes": sum(p["bytes"] for p in parts),
-                     "fp32_ops": sum(p["fp32_ops"] for p in parts),
-                     "fp64_ops": sum(p["fp64_ops"] for p in parts),
-                     "bound_ms": sum(m for m, _ in ms),
-                     "bound_by": sorted({b for _, b in ms})}
-        total += out[name]["bound_ms"]
-    return out, total
-
-
-def roofline(bw, n_rows, sort_payload_sum_b, chain_bytes_per_row,
-             t_tile_s, kernel_bound_ms):
-    """``bench.py``'s speed-of-light byte model of one tile, its ideal
-    sort only: ``log2 M`` merge passes over the sorted payloads plus the
-    chain's bytes per row, at the measured bandwidth ``bw``; beside it
-    the hand kernels' summed bounds over the tile's calls."""
-    logm = math.ceil(math.log2(n_rows))
-    b_ideal = 2.0 * n_rows * sort_payload_sum_b * logm \
-        + float(n_rows) * chain_bytes_per_row
-    return {"hbm_bw_gbps": bw / 1e9,
-            "model": {"rows": n_rows,
-                      "sort_payload_sum_b": sort_payload_sum_b,
-                      "merge_passes": logm,
-                      "chain_bytes_per_row": chain_bytes_per_row},
-            "bytes_ideal_sort_mb": b_ideal / 1e6,
-            "t_model_ideal_ms": 1e3 * b_ideal / bw,
-            "t_measured_ms": 1e3 * t_tile_s,
-            "frac_vs_ideal_sort": b_ideal / bw / t_tile_s,
-            "hand_kernel_bound_ms": kernel_bound_ms,
-            "frac_vs_hand_kernel_bound": kernel_bound_ms / 1e3 / t_tile_s}
-
-
-def kernel_legs(device, reps=REPS, prod_reps=PROD_REPS, tile_len=TILE_LEN,
-                events=EVENTS_PER_TILE, batch=BATCH, batch_prod=BATCH_PROD,
-                genome_len=GENOME_LEN, n_single=N_SINGLE):
-    """The light and production legs, the bandwidth and the rooflines
-    (the last two on a card only); returns the detail dict's kernel
-    part."""
-    n_dispatch = -(-genome_len // (tile_len * batch))
-    n_disp_prod = max(4, 64 // batch_prod)
-    scanned_bp = n_dispatch * batch * tile_len
-    variants = _tile_events(np.random.RandomState(0), tile_len=tile_len,
-                            events=events)
-    lam = tile_lambda(tile_len, events)
-    light = upload_batch(variants, batch, device)
-    prod = upload_batch(variants, batch_prod, device)
-    excl = prod_excl(tile_len, device)
-    one = tuple(x[:1] for x in light)
-    zero4 = torch.zeros(4, dtype=torch.int32, device=device)
-
-    def light_fn():
-        return light_dispatch(light, tile_len, lam)
-
-    def prod_fn():
-        return prod_dispatch(prod, excl, tile_len, lam)
-
-    def single_fn():
-        return light_tile(one[0][0], one[1][0], one[2][0], tile_len, lam,
-                          zero4).frag_len
-
-    t0 = time.perf_counter()
-    for fn in (light_fn, prod_fn, single_fn):    # warm up: build, allocate
-        float(fn())
-    warm_s = time.perf_counter() - t0
-    syncs = {"light": host_syncs(device, light_fn),
-             "production": host_syncs(device, prod_fn)}
-    rep_s, rep_dev_s, light_sum = timed_reps(device, light_fn, n_dispatch,
-                                             reps)
-    single_s, single_dev_s, _ = timed_reps(device, single_fn, n_single, 1)
-    prod_s, prod_dev_s, prod_sum = timed_reps(device, prod_fn, n_disp_prod,
-                                              prod_reps)
-    med, prod_med = _median(rep_s), _median(prod_s)
-    tiles, tiles_prod = n_dispatch * batch, n_disp_prod * batch_prod
-    per_tile_ms = 1e3 * med / tiles
-    per_tile_prod_ms = 1e3 * prod_med / tiles_prod
-    per_tile_single_ms = 1e3 * single_s[0] / n_single
-    light_calls = tile_calls(single_fn)
-    prod_calls = tile_calls(lambda: prod_tile(*(x[0] for x in prod), excl,
-                                              tile_len, lam, zero4))
-    light_bounds, light_bound_ms = kernel_bounds(light_calls)
-    prod_bounds, prod_bound_ms = kernel_bounds(prod_calls)
-    value = scanned_bp / med
-    prod_rate = tile_len / (per_tile_prod_ms / 1e3)
-    out = {
-        "metric": "genome_positions_per_sec", "value": value,
-        "unit": "positions/s", "vs_baseline": value / BASELINE_POS_PER_SEC,
-        "kernel": {
-            "tiles": tiles, "batch": batch, "events_per_tile": events,
-            "tile_len": tile_len, "dispatches": n_dispatch,
-            "rep_s": rep_s, "median_s": med, "spread_pct": _spread_pct(rep_s),
-            "rep_device_s": rep_dev_s,
-            "per_tile_ms_batched": per_tile_ms,
-            "per_tile_device_ms_batched": None if rep_dev_s is None
-            else 1e3 * _median(rep_dev_s) / tiles,
-            "per_tile_ms_single_dispatch": per_tile_single_ms,
-            "per_tile_device_ms_single_dispatch": None
-            if single_dev_s is None else 1e3 * single_dev_s[0] / n_single,
-            "dispatch_overhead_ms": per_tile_single_ms - per_tile_ms,
-            "dispatch_sum": light_sum,
-            "host_syncs_per_dispatch": syncs["light"][0],
-            "host_sync_sites": syncs["light"][1], "kernel_calls_per_tile": {
-                k: len(v) for k, v in light_calls.items()},
-            "kernel_bounds_per_tile": light_bounds,
-        },
-        "kernel_production": {
-            "tiles_per_dispatch": batch_prod, "dispatches": n_disp_prod,
-            "events_per_tile_per_channel": events, "rep_s": prod_s,
-            "rep_device_s": prod_dev_s, "per_tile_ms": per_tile_prod_ms,
-            "per_tile_device_ms": None if prod_dev_s is None
-            else 1e3 * _median(prod_dev_s) / tiles_prod,
-            "positions_per_sec": prod_rate,
-            "vs_baseline": prod_rate / BASELINE_POS_PER_SEC,
-            "dispatch_sum": prod_sum,
-            "host_syncs_per_dispatch": syncs["production"][0],
-            "host_sync_sites": syncs["production"][1],
-            "kernel_calls_per_tile": {
-                k: len(v) for k, v in prod_calls.items()},
-            "kernel_bounds_per_tile": prod_bounds,
-        },
-        "warmup_s": warm_s,
-    }
-    if device.type == "cuda":
-        bw = measure_hbm_bw(device)
-        # light: M = 2E + 1 rows; the sorted payloads (bench.py's model:
-        # the event sort's 4 + 4 B and two 20 B and 16 B lexicographic
-        # sorts), ~64 B a row of chain; production: expt and control
-        # points and the exclusions, ~96 B a row (two groups)
-        out["kernel"]["roofline"] = roofline(
-            bw, 2 * events + 1, 8 + 20 + 16, 64, per_tile_ms / 1e3,
-            light_bound_ms)
-        out["kernel_production"]["roofline"] = roofline(
-            bw, 4 * events + 2 * K_EXCL + 1, 8 + 20 + 16, 96,
-            per_tile_prod_ms / 1e3, prod_bound_ms)
-    else:
-        out["kernel"]["roofline"] = out["kernel_production"]["roofline"] = {
-            "frac_vs_ideal_sort": None, "note": "not measured: no card"}
-    return out
-
-
-# --- scaling leg ------------------------------------------------------------
-
-# scripts/bench_scaling.py's rung (8 tiles of 2^16 bp, 4,096 events a
-# tile), then the light tile's size, where the card has work to do
-SCALING_RUNGS = ((8, 1 << 16, 1 << 12), (8, TILE_LEN, EVENTS_PER_TILE))
-SCALING_DS = (1, 2, 4, 8)
-SCALING_REPS = 9
-SCALING_OUT = os.path.join(WORK, "bench_torch_scaling.json")
-
-
-def scaling_fixture(tiles, tile_len, events_per_tile):
-    """``scripts/bench_scaling.py``'s fixed work: background events and
-    two clusters (one inside tile 0, one across the last tile boundary)
-    with a control of as many background events, split into
-    [tiles, w] rows of one width, and one exclusion in tile 0; drawn
-    from ``np.random.RandomState(7)`` by the script's draws."""
-    from .parallel.mesh import split_events_to_tiles
-    genome = tiles * tile_len
-    rng = np.random.RandomState(7)
-    n = tiles * events_per_tile
-
-    def events(n_bg, clusters):
-        s = [rng.randint(0, genome - 256, n_bg)]
-        for (lo, hi, k) in clusters:
-            s.append(rng.randint(lo, hi, k))
-        s = np.concatenate(s).astype(np.int64)
-        e = np.minimum(s + rng.randint(40, 200, len(s)), genome)
-        return s, e, np.ones(len(s), np.int32)
-
-    b = (tiles - 1) * tile_len
-    expt = events(n, [(tile_len // 2, tile_len // 2 + 400, n // 8),
-                      (b - 300, b + 300, n // 8)])
-    ctrl = events(n, [])
-    t = split_events_to_tiles(*expt, tiles, tile_len)
-    c = split_events_to_tiles(*ctrl, tiles, tile_len)
-    w = 1
-    while w < max(t[0].shape[1], c[0].shape[1]):
-        w <<= 1
-
-    def pad(a, v):
-        return np.pad(a, ((0, 0), (0, w - a.shape[1])), constant_values=v)
-    excl = np.full((tiles, 1, 2), tile_len, np.int32)
-    excl[0, 0] = (100, 300)
-    return (pad(t[0], tile_len), pad(t[1], tile_len), pad(t[2], 0),
-            pad(c[0], tile_len), pad(c[1], tile_len), pad(c[2], 0), excl,
-            tile_len, genome)
-
-
-def scaling_leg(devices, fixture, reps=SCALING_REPS, procs=None):
-    """The script's ``time_leg`` over a ``CardGroup`` of ``devices``
-    (and the ranks of ``procs``): each shard's block of tiles on its
-    device, then ``sharded_analyze_full`` (q-values on) and
-    ``merge_tile_peaks``, once to warm up and ``reps`` times timed by
-    the host clock (the merge reads the peaks on the host, so every
-    card has finished).  Returns (median seconds, merged peaks as
-    JSON-able rows)."""
-    from .ops.peaks import TilePeaks
-    from .ops.pipeline import TileResult
-    from .parallel import mesh
-    arrays, (tile_len, genome) = fixture[:7], fixture[7:]
-    cards = mesh.CardGroup(devices, procs)
-    per = arrays[0].shape[0] // cards.size
-    blocks = [slice((cards.first + c) * per, (cards.first + c + 1) * per)
-              for c in range(cards.n_local)]
-    args = [[torch.as_tensor(x[b], device=d)
-             for b, d in zip(blocks, cards.devices)] for x in arrays]
-    kern = mesh.ShardedKernels(tile_len, group=cards)
-
-    def step():
-        res, _, _ = mesh.sharded_analyze_full(
-            *args, tile_len, genome, 1.0, 2.0, 0, 100, True, kern=kern,
-            group=cards)
-        host = TilePeaks(*(f.cpu().numpy() for f in res.peaks))
-        return mesh.merge_tile_peaks(TileResult(host, None, None), tile_len,
-                                     2.0, 0, 100)
-    merged = step()
-    if not merged:
-        raise AssertionError("the scaling fixture must produce peaks")
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        step()
-        times.append(time.perf_counter() - t0)
-    return _median(times), [[int(p[0]), int(p[1]), float(p[2]),
-                             float(p[3]), float(p[4]), int(p[5])]
-                            for p in merged]
-
-
-# A rank of the scaling leg's "ranks" form: argv is the repo and the
-# rank's settings as JSON; prints its median seconds and peaks.
-_SCALING_RANK = """
-import json, sys
-sys.path.insert(0, sys.argv[1])
-from genrich_tpu_torch import bench
-print(json.dumps(bench.scaling_rank(json.loads(sys.argv[2]))))
-"""
-
-
-def scaling_rank(cfg):
-    """One rank of a two-rank leg: joins the process group from the
-    environment (NCCL on CUDA, gloo on the CPU), then ``scaling_leg``
-    over its ``cfg["devices"]``."""
-    import torch.distributed as dist
-    from .parallel.distributed import init_distributed
-    procs = init_distributed(cfg["devices"])
-    try:
-        t, peaks = scaling_leg(cfg["devices"],
-                               scaling_fixture(*cfg["rung"]), cfg["reps"],
-                               procs)
-    finally:
-        dist.destroy_process_group()
-    return {"t_s": t, "peaks": peaks}
-
-
-def _rank_legs(devices_by_rank, rung, reps, timeout=900):
-    """``scaling_rank`` in one child process a rank (no jax imported),
-    all started together; returns each rank's result.  CPU ranks share
-    the host's cores (each spinning on all of them slows gloo's
-    collectives dozens of times over)."""
-    import socket
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    n = len(devices_by_rank)
-    env = _env({"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
-                "WORLD_SIZE": str(n), "GLOO_SOCKET_IFNAME": "lo"})
-    if torch.device(devices_by_rank[0][0]).type == "cpu":
-        env["OMP_NUM_THREADS"] = str(max(1, (os.cpu_count() or n) // n))
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", _SCALING_RANK, REPO, json.dumps(
-            {"devices": devs, "rung": list(rung), "reps": reps})],
-        env={**env, "RANK": str(r)}, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)
-        for r, devs in enumerate(devices_by_rank)]
-    try:
-        logs = [p.communicate(timeout=timeout) for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-            p.wait()
-    for r, (p, (_, err)) in enumerate(zip(procs, logs)):
-        if p.returncode != 0:
-            raise RuntimeError(f"scaling rank {r}: exit code "
-                               f"{p.returncode}: {err[-2000:]}")
-    return [json.loads(out.splitlines()[-1]) for out, _ in logs]
-
-
-def scaling_forms(device, ds):
-    """{form: {D: devices}}: "contexts", D shards on one device
-    (``cuda:0`` or the CPU); "cards", D cards of this host, where it has
-    them; "ranks", two ranks of D/2 devices each (distinct cards on
-    CUDA: NCCL takes no two ranks on one card; CPU contexts under
-    gloo)."""
-    if device.type == "cpu":
-        return {"contexts": {d: ["cpu"] * d for d in ds},
-                "ranks": {d: [["cpu"] * (d // 2)] * 2
-                          for d in ds if d >= 2 and d % 2 == 0}}
-    n = torch.cuda.device_count()
-    cards = [f"cuda:{i}" for i in range(n)]
-    return {"contexts": {d: ["cuda:0"] * d for d in ds},
-            "cards": {d: cards[:d] for d in ds if 2 <= d <= n},
-            "ranks": {d: [cards[:d // 2], cards[d // 2:d]]
-                      for d in ds if d >= 2 and d % 2 == 0 and d <= n}}
-
-
-def scaling(device, ds=SCALING_DS, rungs=SCALING_RUNGS, reps=SCALING_REPS):
-    """``scripts/bench_scaling.py`` on the port: each rung's fixed work
-    (``scaling_fixture``) over D = ``ds`` shards in each form of
-    ``scaling_forms``, the same total work at every D.  Per form
-    ``t_ms_by_D`` (the median leg), ``overhead_pct_by_D`` and
-    ``efficiency_pct_by_D`` against one context's t(1), under the
-    script's names; every leg's peaks must equal D = 1's (raises)."""
-    if device.type == "cuda":
-        from . import kernels
-        kernels.library()
-    out = {"device": card_line(device), "cards": torch.cuda.device_count()
-           if device.type == "cuda" else 0, "reps": reps, "rungs": []}
-    for rung in rungs:
-        fixture = scaling_fixture(*rung)
-        forms = {}
-        base = peaks0 = None
-        for form, by_d in scaling_forms(device, ds).items():
-            if not by_d:
-                continue
-            t_ms = {}
-            for d, devs in by_d.items():
-                if form == "ranks":
-                    got = _rank_legs(devs, rung, reps)
-                    t = max(g["t_s"] for g in got)
-                    legs = [g["peaks"] for g in got]
-                else:
-                    t, peaks = scaling_leg(devs, fixture, reps)
-                    legs = [peaks]
-                peaks0 = legs[0] if peaks0 is None else peaks0
-                if any(p != peaks0 for p in legs):
-                    raise AssertionError(f"{form} D={d}: peaks differ from "
-                                         f"D=1's")
-                t_ms[str(d)] = 1e3 * t
-                base = t_ms[str(d)] if base is None else base
-            forms[form] = {
-                "devices": {str(d): v for d, v in by_d.items()},
-                "t_ms_by_D": t_ms,
-                "overhead_pct_by_D": {d: 100.0 * (t - base) / base
-                                      for d, t in t_ms.items()},
-                "efficiency_pct_by_D": {d: 100.0 * base / t
-                                        for d, t in t_ms.items()}}
-        out["rungs"].append({"tiles": rung[0], "tile_len": rung[1],
-                             "events_per_tile": rung[2],
-                             "peaks": len(peaks0), "forms": forms})
-    return out
-
-
-# --- end-to-end legs ------------------------------------------------------
 
 def bam_path(key, work=WORK):
     """``chip_smoke.py``'s cache name of BAM ``key`` of ``BAMS``."""
@@ -1512,20 +940,13 @@ def overlap(rungs=OVERLAP_RUNGS, work=WORK, chroms=HG_CHROMS,
 # --- output -----------------------------------------------------------------
 
 def compact_headline(out):
-    """The last stdout line: ``bench.py``'s keys and the card's name and
-    power limit, well under 1,500 characters whatever the detail holds."""
+    """The last stdout line: the end-to-end keys of ``bench.py``'s
+    headline and the card's name and power limit, well under 1,500
+    characters whatever the detail holds."""
     e2e = out.get("e2e", {})
     e2e = e2e if isinstance(e2e, dict) else {}
     paired = e2e.get("paired", {})
     return {
-        "metric": out["metric"], "value": out["value"], "unit": out["unit"],
-        "vs_baseline": out["vs_baseline"],
-        "prod_pos_per_sec": out["kernel_production"]["positions_per_sec"],
-        "prod_vs_baseline": out["kernel_production"]["vs_baseline"],
-        "roofline_frac_ideal":
-            out["kernel"]["roofline"]["frac_vs_ideal_sort"],
-        "roofline_frac_ideal_prod":
-            out["kernel_production"]["roofline"]["frac_vs_ideal_sort"],
         "e2e_exact_ratio": paired.get("ratio_median"),
         "e2e_ratio_spread_pct": paired.get("ratio_spread_pct"),
         "e2e_jax_warm_s": e2e.get("jax_s"),
@@ -1554,17 +975,11 @@ def _write(path, out):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m genrich_tpu_torch.bench")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    ap.add_argument("--kernel-only", action="store_true",
-                    help="the kernel legs alone")
     ap.add_argument("--configs", default=",".join(CONFIGS),
                     help="end-to-end configurations, comma-separated")
     ap.add_argument("--reps", type=int, help="reps of every leg (default: "
-                    f"{REPS} light, {PROD_REPS} production, "
-                    "GENRICH_BENCH_E2E_REPS or 3 end to end)")
-    ap.add_argument("--scaling", action="store_true",
-                    help="the scaling leg alone (scripts/bench_scaling.py's "
-                    "measure over 1-8 shards a form); its JSON is the last "
-                    "line")
+                    "GENRICH_BENCH_E2E_REPS or 3 end to end, 3 on the "
+                    "ladder)")
     ap.add_argument("--mem", nargs="*", type=int, metavar="N",
                     help="the scale ladder alone (scripts/bench_mem.py's "
                     "measure) at N read pairs a rung (default: "
@@ -1576,24 +991,16 @@ def main(argv=None) -> int:
                     f"rung (default: {' '.join(map(str, OVERLAP_RUNGS))}); "
                     "its JSON is the last line")
     ap.add_argument("--out", help=f"the detail JSON (default: {DETAIL}, "
-                    f"with --scaling {SCALING_OUT}, --mem {MEM_OUT}, "
-                    f"--overlap {OVERLAP_OUT})")
+                    f"with --mem {MEM_OUT}, --overlap {OVERLAP_OUT})")
     a = ap.parse_args(argv)
     configs = [c for c in a.configs.split(",") if c]
     bad = [c for c in configs if c not in CONFIGS]
     if bad:
         ap.error(f"unknown configurations {bad}; known: {list(CONFIGS)}")
     device = torch.device(a.device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise SystemExit("bench: no CUDA card "
-                             "(torch.cuda.is_available() is False)")
-        device = torch.device("cuda", 0)
-    if a.scaling:
-        out = scaling(device, reps=a.reps or SCALING_REPS)
-        _write(a.out or SCALING_OUT, out)
-        print(json.dumps(out))
-        return 0
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("bench: no CUDA card "
+                         "(torch.cuda.is_available() is False)")
     if a.mem is not None:
         out = mem_ladder(a.mem or MEM_RUNGS, a.reps or 3, a.device,
                          out_path=a.out or MEM_OUT)
@@ -1604,30 +1011,21 @@ def main(argv=None) -> int:
         print(json.dumps(out))
         return 0 if out["ok"] else 1
     t0 = time.perf_counter()
-    out = kernel_legs(device, reps=a.reps or REPS,
-                      prod_reps=a.reps or PROD_REPS)
-    out["device"] = card_line(device)
-    out["detail"] = a.out or DETAIL
-    ok = True
-    if not a.kernel_only:
-        reps = a.reps or int(os.environ.get("GENRICH_BENCH_E2E_REPS", "3"))
-        keys = sorted({k for c in configs for side in CONFIGS[c][:2]
-                       for k in side.split(",") if k} | {"A"})
-        out["e2e"] = bench_e2e(make_bams(keys), configs, reps, a.device)
-        ok = out["e2e"]["ok"]
+    out = {"device": card_line(device), "detail": a.out or DETAIL}
+    reps = a.reps or int(os.environ.get("GENRICH_BENCH_E2E_REPS", "3"))
+    keys = sorted({k for c in configs for side in CONFIGS[c][:2]
+                   for k in side.split(",") if k} | {"A"})
+    out["e2e"] = bench_e2e(make_bams(keys), configs, reps, a.device)
     out["seconds"] = time.perf_counter() - t0
     _write(out["detail"], out)
-    k = out["kernel"]
-    print(f"# {k['dispatches']}x{k['batch']} tiles x {k['events_per_tile']} "
-          f"events, median {k['median_s']:.3f} s over {len(k['rep_s'])} "
-          f"reps (spread {k['spread_pct']:.1f}%), {out['device']}, "
+    print(f"# {','.join(configs)}, {reps} reps, {out['device']}, "
           f"{out['seconds']:.0f} s", file=sys.stderr)
-    if not ok:
+    if not out["e2e"]["ok"]:
         failed = {n: [c for c, v in r["checks"].items() if not v]
                   for n, r in out["e2e"]["configs"].items() if not r["ok"]}
         print(f"# FAILED checks: {failed}", file=sys.stderr)
     print(json.dumps(compact_headline(out)))
-    return 0 if ok else 1
+    return 0 if out["e2e"]["ok"] else 1
 
 
 if __name__ == "__main__":

@@ -27,14 +27,7 @@ import traceback
 from contextlib import contextmanager
 from typing import Optional
 
-import numpy as np
 import torch
-
-from ..ops.peaks import TilePeaks
-from ..ops.pipeline import TileResult
-from .mesh import (CardGroup, ShardedKernels, merge_tile_peaks,
-                   sharded_analyze_full, split_events_to_tiles,
-                   split_excl_to_tiles)
 
 _ENV = ("MASTER_ADDR", "WORLD_SIZE", "RANK")
 
@@ -200,87 +193,3 @@ def local_tile_range(n_tiles: int) -> range:
             f"cheap) before sharding")
     per = n_tiles // n_proc
     return range(pid * per, (pid + 1) * per)
-
-
-def host_local_events(start: np.ndarray, end: np.ndarray,
-                      count: np.ndarray, n_tiles: int, tile_len: int,
-                      pad_to: int):
-    """Split this host's events into its local tile rows.
-
-    Returns [T_local, pad_to] arrays for the tiles in
-    ``local_tile_range`` only.  ``pad_to`` is mandatory (every process
-    must agree on the event width), so overflow raises instead of
-    regrowing.
-    """
-    s, e, c = split_events_to_tiles(start, end, count, n_tiles,
-                                    tile_len, pad_to,
-                                    on_overflow="error")
-    r = local_tile_range(n_tiles)
-    return s[r.start:r.stop], e[r.start:r.stop], c[r.start:r.stop]
-
-
-def distributed_analyze(start, end, count, n_tiles: int,
-                        tile_len: int, genome_len: int,
-                        min_pq: float, min_auc: float,
-                        min_len: int = 0, max_gap: int = 100,
-                        qval_opt: bool = False, ctrl=None,
-                        excl_bed=None, limit=None,
-                        pad_to: Optional[int] = None,
-                        k_distinct: int = 1 << 13, device="cuda"):
-    """Full multi-process sharded analysis of one chromosome.
-
-    Every process calls this with the same parameters and the whole
-    event lists; each keeps only its own tiles' rows, cut into one
-    contiguous block a device of ``rank_devices(device, rank)`` (a list
-    of devices, a device may repeat; for a bare "cuda" the rank's share
-    of this host's cards, or one), the collectives span the default
-    process group (if any) and the devices of every rank, and the
-    outputs that reach the host (fragment sums, the distinct (p, bp)
-    tables, the per-tile peak arrays) are gathered so that every
-    process computes the identical final peak list.
-
-    Returns (peaks, lam, factor) where peaks is the merged
-    [(start, end, auc, summit_pval, summit_qval, summit_pos)] list.
-    """
-    group = init_distributed(device)
-    cards = CardGroup(rank_devices(device, _proc()[1]), group)
-    kern = ShardedKernels(tile_len, k_distinct, cards)
-
-    if ctrl is None:
-        ctrl = (np.zeros(0, np.int64), np.zeros(0, np.int64),
-                np.zeros(0, np.int32))
-    if pad_to is None:
-        # width must be agreed across processes: derive it from the
-        # full (replicated) event lists
-        w = 1
-        for (s_, e_, c_) in ((start, end, count), ctrl):
-            rows = split_events_to_tiles(s_, e_, c_, n_tiles,
-                                         tile_len)[0]
-            while w < rows.shape[1]:
-                w <<= 1
-        pad_to = w
-
-    r = local_tile_range(n_tiles)
-    if len(r) % cards.n_local:
-        raise ValueError(f"a rank's {len(r)} tiles do not split over its "
-                         f"{cards.n_local} devices")
-    per = len(r) // cards.n_local
-    es, ee, ec = host_local_events(start, end, count, n_tiles,
-                                   tile_len, pad_to)
-    cs, ce, cc = host_local_events(ctrl[0], ctrl[1], ctrl[2],
-                                   n_tiles, tile_len, pad_to)
-    excl = split_excl_to_tiles(excl_bed or [], n_tiles, tile_len)
-    if limit is None:
-        limit = np.full(n_tiles, tile_len, np.int32)
-    limit = np.asarray(limit)[r.start:r.stop]
-    blocks = [slice(c * per, (c + 1) * per) for c in range(cards.n_local)]
-    args = [[torch.as_tensor(x[b], device=d)
-             for b, d in zip(blocks, cards.devices)]
-            for x in (es, ee, ec, cs, ce, cc, excl[r.start:r.stop])]
-    res, lam, factor = sharded_analyze_full(
-        *args, tile_len, genome_len, min_pq, min_auc, min_len, max_gap,
-        qval_opt, k_distinct, [limit[b] for b in blocks], kern, cards)
-    host = TilePeaks(*(f.cpu().numpy() for f in res.peaks))
-    peaks = merge_tile_peaks(TileResult(host, None, None), tile_len,
-                             min_auc, min_len, max_gap)
-    return peaks, float(lam), float(factor)

@@ -46,8 +46,8 @@ import torch
 from ..ops.compact import (SKIP, assign_qvals, distinct_pvals_k,
                            merge_fisher, pileup_runs, rle_pv, rle_runs)
 from ..ops.peaks import TilePeaks, call_peaks
-from ..ops.pipeline import (TileResult, analyze_tile_core,
-                            tile_class_totals, tile_coverage, tile_stats)
+from ..ops.pipeline import (TileResult, tile_class_totals, tile_coverage,
+                            tile_stats)
 
 PEAK_CAP = 4096            # per-tile candidate slots (call_peaks k)
 
@@ -452,34 +452,6 @@ class ShardedKernels:
                       for i in range(arrs[0].shape[0]))
 
 
-def sharded_analyze(start, end, count, tile_len: int, genome_len: int,
-                    min_pq: float, min_auc: float, min_len: int = 0,
-                    max_gap: int = 100, group=None):
-    """The light tile pipeline (no control, no exclusions) over ranks.
-
-    start/end/count: this rank's [t, E] tile-local events (split with
-    ``split_events_to_tiles``).  Lambda is the float32 sum of every
-    tile's weighted fragment length over ``genome_len``; each tile runs
-    ``analyze_tile_core`` with its carry.  Returns (TileResult of the
-    gathered [T, K] peak arrays, lambda).
-    """
-    w = torch.where(count > 0, 1.0 / count.clamp_min(1).to(torch.float32),
-                    torch.zeros((), dtype=torch.float32, device=count.device))
-    local = ((end - start).to(torch.float32) * w).sum(dim=1).sum()
-    lam = gather_rows(local.reshape(1), group).sum() \
-        / np.float32(genome_len)
-    lam = float(lam)
-    carries = exclusive_carries(tile_class_totals(start, end, count), group)
-    res = [analyze_tile_core(start[i], end[i], count[i], tile_len,
-                             carries[i], lam, min_pq, min_auc, min_len,
-                             max_gap) for i in range(start.shape[0])]
-    peaks = TilePeaks(*(gather_rows(f, group)
-                        for f in _stack(r.peaks for r in res)))
-    frag, n = (gather_rows(torch.stack(x), group)
-               for x in zip(*((r.frag_len, r.n_intervals) for r in res)))
-    return TileResult(peaks, frag, n), np.float32(lam)
-
-
 def exact_q_table(pv_gathered, w_gathered, d_gathered, k: int,
                   genome_len: int):
     """Host-side exact BH from the gathered per-shard distinct tables.
@@ -513,55 +485,6 @@ def exact_q_table(pv_gathered, w_gathered, d_gathered, k: int,
     _, _, tab_p, tab_q, total_bp, all_one = \
         qvalue.merge_distinct_tables(ps, ws, genome_len, lo=1 << 8)
     return tab_p, tab_q, total_bp, all_one
-
-
-def sharded_analyze_full(es, ee, ec, cs, ce, cc, excl, tile_len: int,
-                         genome_len: int, min_pq: float, min_auc: float,
-                         min_len: int = 0, max_gap: int = 100,
-                         qval_opt: bool = False,
-                         k_distinct: int = 1 << 13, limit=None,
-                         kern: Optional[ShardedKernels] = None, group=None):
-    """Full pipeline over this rank's tiles: ctrl + exclusions + exact BH.
-
-    Inputs are this rank's [t, ...] tensors on its device, or over a
-    ``CardGroup`` lists of each card's; ``excl`` is [t, K, 2] tile-local
-    exclusions padded with tile_len; ``limit`` [t] (host ints, a list of
-    each card's over a ``CardGroup``) clips each tile's span at the
-    chromosome's end.  Returns (TileResult(peak arrays of every shard,
-    on the first card; the gathered fragment sums), lambda, factor).
-    """
-    if kern is None:
-        kern = ShardedKernels(tile_len, k_distinct, group)
-    if not kern.listed:
-        # one card's tensors: the same steps over a list of one card
-        kern = ShardedKernels(kern.tile_len, kern.k, kern.cards)
-        es, ee, ec, cs, ce, cc, excl = ([x] for x in (es, ee, ec, cs, ce,
-                                                      cc, excl))
-        limit = None if limit is None else [limit]
-    if limit is None:
-        limit = [np.full(x.shape[0], tile_len, np.int64) for x in es]
-    (starts, ends, ev, cr, excluded, live, frag_all,
-     cfrag_all) = kern.cov(es, ee, ec, cs, ce, cc, excl, limit)
-    frag = float(frag_all[0].cpu().numpy().astype(np.float64).sum())
-    cfrag = float(cfrag_all[0].cpu().numpy().astype(np.float64).sum())
-    lam = np.float32(frag / genome_len)
-    factor = np.float32(1.0) if cfrag == 0.0 \
-        else np.float32(frag / cfrag)
-    pval = each(kern.stats, ev, cr, excluded, lam, factor)
-    if qval_opt:
-        pv_all, w_all, d_all = (x[0].cpu().numpy() for x in kern.distinct(
-            starts, ends, pval, live))
-        tab_p, tab_q, _, _ = exact_q_table(pv_all, w_all, d_all, kern.k,
-                                           genome_len)
-    else:
-        tab_p = np.full(1, np.inf, np.float32)
-        tab_q = np.zeros(1, np.float32)
-    tabs = [[torch.as_tensor(t, device=x.device) for x in es]
-            for t in (tab_p, tab_q)]
-    # replicated: over one card with no process group the identity
-    peaks = kern.peaks(qval_opt, min_len, max_gap, True, PEAK_CAP)(
-        starts, ends, pval, live, *tabs, min_pq, min_auc)
-    return TileResult(_first(peaks), frag_all[0], None), lam, factor
 
 
 def merge_tile_peaks(result: TileResult, tile_len: int,

@@ -367,40 +367,6 @@ def test_bad_device_rejected(tmp_path, sam):
     assert r.returncode == 1 and "--device" in r.stderr
 
 
-_BENCH = """
-import sys
-class Refuse:
-    def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "genrich_tpu"):
-            raise ImportError("refused: " + name)
-        return None
-sys.meta_path.insert(0, Refuse())
-import torch
-from genrich_tpu_torch import bench
-out = bench.kernel_legs(torch.device("cpu"), reps=1, prod_reps=1,
-                        tile_len=1 << 20, events=1 << 10, batch=4,
-                        batch_prod=4, genome_len=1 << 22, n_single=1)
-print("SUM", out["kernel"]["dispatch_sum"] > 0)
-print("LOADED", sorted({m.split(".")[0] for m in sys.modules}
-                       & {"jax", "genrich_tpu"}))
-sys.exit(bench.main(["--kernel-only"]))
-"""
-
-
-def test_bench_runs_with_jax_and_genrich_tpu_refused(tmp_path):
-    """The bench's kernel legs run with both imports refused, and its
-    entry point without a card fails (``--device cuda``, the default)
-    before it measures anything: no fall-back to the CPU."""
-    import torch
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA card is present: the bench would run")
-    r = subprocess.run([sys.executable, "-c", _BENCH], cwd=str(tmp_path),
-                       capture_output=True, text=True, env=_env())
-    assert "SUM True" in r.stdout and "LOADED []" in r.stdout, r.stderr
-    assert r.returncode == 1 and "no CUDA card" in r.stderr
-    assert not (tmp_path / ".bench_cache").exists()
-
-
 # refuses jax and genrich_tpu in every Python process that finds it on
 # PYTHONPATH (the bench's serve, exact and perf_synth children), and
 # leaves a line per process, its pid and argv, in the file GUARD_PIDS
@@ -416,6 +382,47 @@ sys.meta_path.insert(0, Refuse())
 with open(os.environ["GUARD_PIDS"], "a") as f:
     f.write(f"{os.getpid()} {' '.join(sys.argv)}\\n")
 """
+
+_BENCH = """
+import os, sys
+from genrich_tpu_torch import bench
+small = (("chr1", 30_000_000), ("chr2", 20_000_000), ("chr3", 15_000_000))
+work = os.path.abspath("w")
+made = bench.synth({"A": (os.path.join(work, "A.bam"), 20_000, 7)}, small)
+out = bench.bench_e2e({"A": made["A"][0]}, ["atac"], 1, device="cpu",
+                      work=work, chroms=small, timeout=300, par_leg=False)
+print("OK", out["ok"])
+print("LOADED", sorted({m.split(".")[0] for m in sys.modules}
+                       & {"jax", "genrich_tpu"}))
+sys.exit(bench.main([]))
+"""
+
+
+def test_bench_runs_with_jax_and_genrich_tpu_refused(tmp_path):
+    """The bench's end-to-end leg (``atac`` on a 20,000-pair BAM, one
+    rep, both device engines on the CPU) with both imports refused in
+    the bench's own process and in every child it starts: perf_synth,
+    the ``--engine exact`` run and the serve children.  Then its entry
+    point without a card fails (``--device cuda``, the default) before
+    it measures anything: no fall-back to the CPU."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the bench would run")
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_SITECUSTOMIZE)
+    pids = tmp_path / "pids.txt"
+    env = {**_env(), "GUARD_PIDS": str(pids),
+           "PYTHONPATH": f"{site}{os.pathsep}{oracle.REPO}"}
+    r = subprocess.run([sys.executable, "-c", _BENCH], cwd=str(tmp_path),
+                       capture_output=True, text=True, env=env)
+    assert "OK True" in r.stdout and "LOADED []" in r.stdout, r.stderr
+    assert r.returncode == 1 and "no CUDA card" in r.stderr
+    procs = pids.read_text().splitlines()
+    for child in (".bam.tmp", "--serve", "--engine exact"):
+        assert any(child in p for p in procs), (child, procs)
+    assert not (tmp_path / ".bench_cache").exists()
+
 
 _LADDER = """
 import json, sys

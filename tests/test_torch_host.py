@@ -240,8 +240,7 @@ def _tile_peaks(rng, n_tiles=24, cap=8, tile_len=4096):
 
 @pytest.mark.parametrize("name", [
     "split_events_to_tiles", "split_excl_to_tiles", "merge_tile_peaks",
-    "_merge_tile_peaks_loop", "exact_q_table", "local_tile_range",
-    "host_local_events"])
+    "_merge_tile_peaks_loop", "exact_q_table", "local_tile_range"])
 def test_parallel_numpy_copies_equal(name):
     """Each numpy helper of genrich_tpu_torch.parallel against its
     original in genrich_tpu.parallel, on one input: equal results."""
@@ -260,10 +259,9 @@ def test_parallel_numpy_copies_equal(name):
                           np.int64([10, 20, 0, 5, 7, 0]),
                           np.int32([2, 2, 0]), 2, 1000),
         "local_tile_range": (8,),
-        "host_local_events": (start, end, count, 16, 4096, 256),
     }
     args["_merge_tile_peaks_loop"] = args["merge_tile_peaks"]
-    src = jd if name in ("local_tile_range", "host_local_events") else jm
+    src = jd if name == "local_tile_range" else jm
     dst = td if src is jd else tm
     want = getattr(src, name)(*args[name])
     got = getattr(dst, name)(*args[name])

@@ -7,11 +7,6 @@ The JAX package's multi-process mesh spans every process's devices
 rank's contexts on its first before one ``all_gather`` across the
 ranks.  Here, on the CPU under gloo (spawned processes, the port only):
 
-- dist2_worker's fixture through ``distributed_analyze`` on 2 ranks x 4
-  contexts: both ranks agree, bitwise with the port's one process (1 x
-  8 contexts and one context) and with 2 ranks x 1 context, and within
-  1e-5 relative of ``dist2_worker.run()`` through JAX on the conftest's
-  8 virtual devices, the peak across the process boundary present;
 - the collectives over ``CardGroup(["cpu"] * 2, procs=gloo)`` on two
   ranks equal ``CardGroup(["cpu"] * 4)`` in one process;
 - ``ShardedTorchEngine(["cpu", "cpu"], n_shards=8)`` through
@@ -22,7 +17,9 @@ ranks.  Here, on the CPU under gloo (spawned processes, the port only):
   ranks' boundary (column 10 the exact engine's); the ChIP flags on two
   controlled replicates; the caps cut small (re-dispatch on the
   device); a -g of 2^28 (one call a chromosome over every shard's
-  rows); and the -f/-k logs;
+  rows); the -f/-k logs; and, with four contexts a rank (one tile
+  each), a control, -E regions and -q, peaks across the contexts' and
+  the ranks' boundaries;
 - ranks of unequal shard counts raise on both ranks, through the CLI's
   own path; torchrun's ``LOCAL_WORLD_SIZE`` splits a host's cards
   evenly or raises;
@@ -36,10 +33,7 @@ ranks.  Here, on the CPU under gloo (spawned processes, the port only):
   gloo thread left when its interpreter starts to finalize (``_AT_EXIT``;
   a gloo worker still running there can take the interpreter lock
   after finalization began, and the process aborts with "terminate
-  called without an active exception");
-- the bench's ``--scaling`` legs on the script's rung at D = 1, 2 and 4
-  contexts and 2 ranks x 1 and x 2 contexts give the same peaks, under
-  the JSON keys of scripts/bench_scaling.py.
+  called without an active exception").
 """
 
 from __future__ import annotations
@@ -52,15 +46,14 @@ import subprocess
 import sys
 import tempfile
 
-import numpy as np
 import pytest
 import torch
 import torch.distributed as td
 
 import conftest  # noqa: F401  (8 virtual CPU devices for JAX)
-import dist2_worker as w
+import oracle
 
-from genrich_tpu_torch import bench, cli, params, pipeline, serve
+from genrich_tpu_torch import cli, params, pipeline, serve
 from genrich_tpu_torch.engine.sharded_bridge import ShardedTorchEngine
 from genrich_tpu_torch.parallel import distributed as tdist
 from genrich_tpu_torch.parallel import mesh
@@ -169,61 +162,6 @@ def _ok(runs, rc=0):
             for _, out, _ in runs]
 
 
-# --- distributed_analyze on 2 ranks x 4 contexts -----------------------------
-
-# A rank of dist2_worker's fixture through distributed_analyze; argv is
-# repo, tests, then the number of CPU contexts of the rank.
-_ANALYZE = """
-import json, sys
-sys.path[:0] = sys.argv[1:3]
-import dist2_worker as w
-import torch.distributed as td
-from genrich_tpu_torch.parallel import distributed as dist
-expt, ctrl = w.make_fixture()
-peaks, lam, factor = dist.distributed_analyze(
-    expt[0], expt[1], expt[2], w.N_TILES, w.TILE_LEN, w.GENOME_LEN,
-    w.MIN_PQ, w.MIN_AUC, min_len=0, max_gap=w.MAX_GAP, qval_opt=True,
-    ctrl=ctrl, excl_bed=w.EXCL_BED, device=["cpu"] * int(sys.argv[3]))
-print(json.dumps({"peaks": [[int(s), int(e), float(a), float(p), float(q),
-                             int(x)] for (s, e, a, p, q, x) in peaks],
-                  "lam": lam, "factor": factor,
-                  "rank": td.get_rank()}))
-td.destroy_process_group()
-"""
-
-
-def _one_process(devices):
-    expt, ctrl = w.make_fixture()
-    peaks, lam, factor = tdist.distributed_analyze(
-        expt[0], expt[1], expt[2], w.N_TILES, w.TILE_LEN, w.GENOME_LEN,
-        w.MIN_PQ, w.MIN_AUC, min_len=0, max_gap=w.MAX_GAP, qval_opt=True,
-        ctrl=ctrl, excl_bed=w.EXCL_BED, device=devices)
-    return {"peaks": [[int(s), int(e), float(a), float(p), float(q), int(x)]
-                      for (s, e, a, p, q, x) in peaks],
-            "lam": lam, "factor": factor}
-
-
-def test_two_ranks_of_four_contexts_match_one_process_and_jax(tmp_path):
-    by_local = {k: _ok(_ranks(_ANALYZE, lambda r, k=k: [str(k)]))
-                for k in (4, 1)}
-    for k, (r0, r1) in by_local.items():
-        assert (r0["rank"], r1["rank"]) == (0, 1)
-        assert {**r0, "rank": 0} == {**r1, "rank": 0}, f"{k} contexts"
-    got = {key: by_local[4][0][key] for key in ("peaks", "lam", "factor")}
-    assert got == {key: by_local[1][0][key] for key in got}
-    assert got == _one_process(["cpu"] * 8) == _one_process("cpu")
-
-    want = w.run()      # JAX, this process's 8-device mesh
-    assert len(want["peaks"]) == len(got["peaks"]) > 0
-    for g, ref in zip(got["peaks"], want["peaks"]):
-        assert (g[0], g[1], g[5]) == (ref[0], ref[1], ref[5])
-        np.testing.assert_allclose(g[2:5], ref[2:5], rtol=1e-5)
-    np.testing.assert_allclose([got["lam"], got["factor"]],
-                               [want["lam"], want["factor"]], rtol=1e-5)
-    assert any(s < 4 * w.TILE_LEN < e for s, e, *_ in got["peaks"]), \
-        "fixture lost its process-boundary-straddling peak"
-
-
 # --- the collectives ------------------------------------------------------
 
 # A rank of two CPU contexts in the collective check; argv is repo,
@@ -267,7 +205,8 @@ def test_collectives_of_two_ranks_of_two_contexts_match_one_process(
 
 # A rank of the engine run; argv is repo, tests, the run's settings as
 # JSON ({"cap": the sharded engine's PEAK_CAP, the host peak caller
-# refused, or null}), then the CLI flags.
+# refused, or null; "contexts": the rank's CPU contexts}), then the CLI
+# flags.
 _ENGINE = """
 import json, sys
 sys.path[:0] = sys.argv[1:3]
@@ -281,7 +220,7 @@ if cfg["cap"]:
     def refuse(*a, **kw):
         raise AssertionError("host peak caller called")
     peaks.call_peaks_chrom = refuse
-eng = ShardedTorchEngine(["cpu", "cpu"], n_shards=8)
+eng = ShardedTorchEngine(["cpu"] * cfg["contexts"], n_shards=8)
 perf = {}
 pipeline.run(params.parse_args(sys.argv[4:]), engine=eng, perf=perf)
 print(json.dumps({"shards": [eng.world, eng.rank, len(eng.devices)],
@@ -305,6 +244,17 @@ def _fixture(tmp_path, name):
         sam = _straddle_sam(str(tmp_path / "in.sam"), centers=CENTERS)
         logs = ["-f", "f.log", "-k", "k.log"] if name == "logs" else []
         return ["-t", sam] + FLAGS + logs, None
+    if name == "four_contexts":
+        # dist2_worker's design on the straddle fixture: a control, an
+        # exclusion inside tile 0 and one across a tile boundary, -q
+        sam = _straddle_sam(str(tmp_path / "in.sam"), centers=CENTERS)
+        ctrl = oracle.random_sam(str(tmp_path / "c.sam"),
+                                 chroms=(("chr1", 1_000_000),), seed=7,
+                                 n_pairs=1500, cluster=False)
+        bed = tmp_path / "x.bed"
+        bed.write_text("chr1\t1000\t1400\nchr1\t393016\t393516\n")
+        return ["-t", sam, "-c", ctrl, "-E", str(bed), "-y", "-q", "0.05",
+                "-a", "20"], None
     if name == "fisher_straddle":
         return fisher_straddle_args(tmp_path), None
     if name == "chip_fisher":
@@ -328,21 +278,26 @@ def _outputs(d):
 
 
 @pytest.mark.parametrize("fixture", ["straddle", "logs", "fisher_straddle",
-                                     "chip_fisher", "capped", "huge_gap"])
+                                     "chip_fisher", "capped", "huge_gap",
+                                     "four_contexts"])
 def test_two_ranks_of_two_contexts_write_one_process_bytes(tmp_path,
                                                            fixture):
+    """Two ranks of two CPU contexts each (four each on
+    ``four_contexts``, one 2^17-bp tile a context) write one process's
+    bytes."""
     args, cap = _fixture(tmp_path, fixture)
+    n = 4 if fixture == "four_contexts" else 2
     dirs = [tmp_path / f"r{i}" for i in (0, 1)]
     for d in dirs + [tmp_path / "one"]:
         d.mkdir()
     ranks = _ok(_ranks(_ENGINE, lambda r: [
-        json.dumps({"cap": cap})] + _argv(dirs[r], args)))
+        json.dumps({"cap": cap, "contexts": n})] + _argv(dirs[r], args)))
     perf = {}
     pipeline.run(params.parse_args(_argv(tmp_path / "one", args)),
                  engine=ShardedTorchEngine("cpu", n_shards=8), perf=perf)
     one = _outputs(tmp_path / "one")
     assert _outputs(dirs[0]) == one == _outputs(dirs[1])
-    assert [r["shards"] for r in ranks] == [[4, 0, 2], [4, 2, 2]]
+    assert [r["shards"] for r in ranks] == [[2 * n, 0, n], [2 * n, n, n]]
     for r in ranks:
         assert r["host_peak_chroms"] == 0
         assert (r["grid_tile_len"], r["grid_tiles"]) \
@@ -368,6 +323,12 @@ def test_two_ranks_of_two_contexts_write_one_process_bytes(tmp_path,
     if fixture == "huge_gap":
         assert perf["grid_tile_len"] == 1 << 28
         assert all(r["straddling_peaks"] == 0 for r in ranks)
+    if fixture == "four_contexts":
+        # every tile boundary is a boundary of contexts: inside a rank
+        # (131,072, 262,144) and the ranks' (524,288)
+        assert perf["grid_tile_len"] == 131_072
+        for edge in (131_072, 262_144, RANK_EDGE):
+            assert any(s < edge < e for s, e in spans), (edge, spans)
 
 
 # --- the CLI itself as ranks, and leaving the group -------------------------
@@ -537,29 +498,3 @@ def test_local_world_size_splits_the_host_cards(monkeypatch):
     monkeypatch.delenv("LOCAL_RANK")
     with pytest.raises(ValueError, match="LOCAL_RANK"):
         tdist.rank_devices("cuda", 0)
-
-
-# --- the bench's scaling leg ----------------------------------------------
-
-def test_bench_scaling_legs_agree_on_the_cpu():
-    out = bench.scaling(torch.device("cpu"), ds=(1, 2, 4),
-                        rungs=bench.SCALING_RUNGS[:1], reps=1)
-    assert out["device"] == "cpu"
-    (rung,) = out["rungs"]
-    assert (rung["tiles"], rung["tile_len"], rung["events_per_tile"]) \
-        == (8, 1 << 16, 1 << 12)
-    assert rung["peaks"] > 0
-    forms = rung["forms"]
-    assert set(forms) == {"contexts", "ranks"}
-    assert list(forms["contexts"]["t_ms_by_D"]) == ["1", "2", "4"]
-    assert list(forms["ranks"]["t_ms_by_D"]) == ["2", "4"]
-    for form in forms.values():
-        assert set(form) == {"devices", "t_ms_by_D", "overhead_pct_by_D",
-                             "efficiency_pct_by_D"}
-        for d, t in form["t_ms_by_D"].items():
-            assert t > 0
-            base = forms["contexts"]["t_ms_by_D"]["1"]
-            assert form["efficiency_pct_by_D"][d] == pytest.approx(
-                100.0 * base / t)
-    assert forms["ranks"]["devices"]["4"] == [["cpu", "cpu"],
-                                              ["cpu", "cpu"]]

@@ -5,24 +5,19 @@ the boundary merge and its loop oracle, the exact BH over gathered
 tables) are bitwise equal to ``genrich_tpu.parallel.mesh``'s on the
 cases of test_tile_split.py, test_mesh_merge.py and
 test_compact_jax.py:73-93; the sharded engine's flat staging wire
-round-trips; ``local_tile_range`` and ``host_local_events`` keep the
-JAX module's contract.  Then ``distributed_analyze`` on two gloo ranks
-(spawned processes, 4 tiles each, jax and genrich_tpu refused) against
-each other, against one process of the port and against
-``dist2_worker.run()`` through JAX: the same peaks (coordinates
-identical, floats within 1e-5 relative), with the peak that straddles
-the process boundary present.  Last, ``ShardedTorchEngine`` through
-``pipeline.run`` on two gloo ranks against one process, on peaks that
-straddle a tile boundary inside a rank and the boundary between the
-ranks: the same narrowPeak bytes (the row-order AUC gathers each
-straddling peak's rows from both ranks); and on two replicates whose
+round-trips; ``local_tile_range`` keeps the JAX module's contract.
+Then ``ShardedTorchEngine`` through ``pipeline.run`` on two gloo ranks
+(spawned processes) against one process, on peaks that straddle a tile
+boundary inside a rank and the boundary between the ranks (a 1 Mbp
+chromosome, and dist2_worker's draw without its control): the same
+narrowPeak bytes (the row-order AUC gathers each straddling peak's
+rows from both ranks); and on two replicates whose
 Fisher peak straddles the ranks' boundary, column 10 equal to the exact
 engine's (each tile's ``cont`` from the previous rank's last run).
 """
 
 from __future__ import annotations
 
-import json
 import os
 import socket
 import subprocess
@@ -45,6 +40,8 @@ from test_mesh_merge import _rand_tilepeaks
 from test_tile_split import _random_events
 from test_torch_lambda import fisher_straddle_args
 from test_torch_sharded import _exact, _straddle_sam
+
+import oracle  # noqa: E402  (tests/ is on the path: dist2_worker)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
@@ -228,84 +225,11 @@ def test_stage_events_flat_wire_roundtrip():
     assert eng.perf["upload_bytes"] > 0
 
 
-def test_sharded_analyze_boundary_peak_matches_single_tile():
-    """test_mesh_merge.py's case on the port: 8 tiles with carries, the
-    host merge, and one whole-chromosome tile give the same peaks, and
-    the same as the JAX twin's 8-device run."""
-    import jax.numpy as jnp
-    from genrich_tpu_torch.ops import pipeline
-    length, tl = 8 * 4096, 4096
-    rng = np.random.RandomState(3)
-    start = np.concatenate([rng.randint(0, length - 300, 2000),
-                            rng.randint(3 * tl + 3600, 4 * tl + 400, 800)])
-    end = np.minimum(start + rng.randint(80, 300, len(start)), length)
-    start, end = start.astype(np.int32), end.astype(np.int32)
-    count = np.ones(len(start), np.int32)
-    lam = float((end - start).sum()) / length
-    single = pipeline.analyze_tile(*(torch.from_numpy(a) for a in
-                                     (start, end, count)), length, lam, 2.0,
-                                   20.0, 0, 100)
-    v = single.peaks.valid.numpy()
-    want = sorted(zip(single.peaks.start.numpy()[v].tolist(),
-                      single.peaks.end.numpy()[v].tolist()))
-    assert any(s < 4 * tl < e for s, e in want)
-    tiles = tmesh.split_events_to_tiles(start, end, count, 8, tl)
-    res, lam8 = tmesh.sharded_analyze(*(torch.from_numpy(a) for a in tiles),
-                                      tl, length, 2.0, 20.0, 0, 100)
-    host = type(res.peaks)(*(f.numpy() for f in res.peaks))
-    merged = tmesh.merge_tile_peaks(TileResult(host, None, None), tl, 20.0,
-                                    0, 100)
-    assert sorted((s, e) for s, e, *_ in merged) == want
-    jres, jlam = jmesh.sharded_analyze(jmesh.make_mesh(8), *(jnp.asarray(a)
-                                                             for a in tiles),
-                                       tl, length, 2.0, 20.0, 0, 100)
-    jmerged = jmesh.merge_tile_peaks(jres, tl, 20.0, 0, 100)
-    assert [m[:2] for m in merged] == [m[:2] for m in jmerged]
-    np.testing.assert_allclose(float(lam8), float(jlam), rtol=1e-6)
-
-
 def test_local_tile_range_single():
     assert list(tdist.local_tile_range(8)) == list(range(8))
 
 
-def test_host_local_events_overflow_errors():
-    start = np.arange(0, 40, 2, np.int64)
-    with pytest.raises(ValueError, match="overflow"):
-        tdist.host_local_events(start, start + 1,
-                                np.ones(len(start), np.int32), 4, 16,
-                                pad_to=2)
-
-
 # --- two gloo ranks ---------------------------------------------------------
-
-# A rank of the two-process run: dist2_worker's fixture through the port's
-# distributed_analyze on the CPU (gloo), with jax and genrich_tpu refused;
-# argv is repo, tests, output path.
-_WORKER = """
-import json, sys
-class Refuse:
-    def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "genrich_tpu"):
-            raise ImportError("refused: " + name)
-        return None
-sys.meta_path.insert(0, Refuse())
-sys.path[:0] = sys.argv[1:3]
-import dist2_worker as w
-from genrich_tpu_torch.parallel import distributed as dist
-expt, ctrl = w.make_fixture()
-peaks, lam, factor = dist.distributed_analyze(
-    expt[0], expt[1], expt[2], w.N_TILES, w.TILE_LEN, w.GENOME_LEN,
-    w.MIN_PQ, w.MIN_AUC, min_len=0, max_gap=w.MAX_GAP, qval_opt=True,
-    ctrl=ctrl, excl_bed=w.EXCL_BED, device="cpu")
-import torch.distributed as td
-res = {"peaks": [[int(s), int(e), float(a), float(p), float(q), int(x)]
-                 for (s, e, a, p, q, x) in peaks], "lam": lam,
-       "factor": factor, "world": td.get_world_size(),
-       "rank": td.get_rank()}
-td.destroy_process_group()
-json.dump(res, open(sys.argv[3], "w"))
-"""
-
 
 def _free_port() -> int:
     s = socket.socket()
@@ -315,51 +239,8 @@ def _free_port() -> int:
     return port
 
 
-def _port_single():
-    expt, ctrl = w.make_fixture()
-    peaks, lam, factor = tdist.distributed_analyze(
-        expt[0], expt[1], expt[2], w.N_TILES, w.TILE_LEN, w.GENOME_LEN,
-        w.MIN_PQ, w.MIN_AUC, min_len=0, max_gap=w.MAX_GAP, qval_opt=True,
-        ctrl=ctrl, excl_bed=w.EXCL_BED, device="cpu")
-    return [[int(s), int(e), float(a), float(p), float(q), int(x)]
-            for (s, e, a, p, q, x) in peaks], lam, factor
-
-
-def test_two_gloo_ranks_match_one_process_and_jax(tmp_path):
-    port = _free_port()
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("XLA_FLAGS", "PYTHONPATH")}
-    env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-               WORLD_SIZE="2", GLOO_SOCKET_IFNAME="lo")
-    outs = [str(tmp_path / f"r{i}.json") for i in (0, 1)]
-    procs = [subprocess.Popen([sys.executable, "-c", _WORKER, REPO, HERE,
-                               outs[i]], env={**env, "RANK": str(i)},
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True) for i in (0, 1)]
-    logs = [p.communicate(timeout=300) for p in procs]
-    for i, p in enumerate(procs):
-        assert p.returncode == 0, f"rank {i}:\n{logs[i][1][-2000:]}"
-    r0, r1 = (json.load(open(o)) for o in outs)
-    assert (r0["world"], r0["rank"], r1["rank"]) == (2, 0, 1)
-    assert r0["peaks"] == r1["peaks"] and r0["lam"] == r1["lam"] \
-        and r0["factor"] == r1["factor"], "ranks disagree"
-
-    single, lam, factor = _port_single()
-    assert r0["peaks"] == single and (r0["lam"], r0["factor"]) == (lam,
-                                                                    factor)
-
-    want = w.run()      # JAX, this process's 8-device mesh
-    assert len(want["peaks"]) == len(single) > 0
-    for got, ref in zip(single, want["peaks"]):
-        assert (got[0], got[1], got[5]) == (ref[0], ref[1], ref[5])
-        np.testing.assert_allclose(got[2:5], ref[2:5], rtol=1e-5)
-    np.testing.assert_allclose([lam, factor],
-                               [want["lam"], want["factor"]], rtol=1e-5)
-    assert any(s < 4 * w.TILE_LEN < e for s, e, *_ in single), \
-        "fixture lost its process-boundary-straddling peak"
-
-
-# A rank of the two-process engine run: argv is repo, then the CLI flags.
+# A rank of the two-process engine run: argv is repo, the engine's least
+# tile length, then the CLI flags.
 _ENGINE_WORKER = """
 import sys
 sys.path.insert(0, sys.argv[1])
@@ -367,14 +248,16 @@ import torch.distributed as td
 from genrich_tpu_torch import params, pipeline
 from genrich_tpu_torch.engine.sharded_bridge import ShardedTorchEngine
 perf = {}
-pipeline.run(params.parse_args(sys.argv[2:]),
-             engine=ShardedTorchEngine("cpu", n_shards=8), perf=perf)
+pipeline.run(params.parse_args(sys.argv[3:]),
+             engine=ShardedTorchEngine("cpu", n_shards=8,
+                                       min_tile_len=int(sys.argv[2])),
+             perf=perf)
 print("RUN", td.get_world_size(), perf["straddling_peaks"])
 td.destroy_process_group()
 """
 
 
-def _two_ranks(tmp_path, args):
+def _two_ranks(tmp_path, args, min_tile_len=1 << 16):
     """``args`` through ShardedTorchEngine on two gloo ranks (processes),
     each writing tmp/r{rank}.np; returns their stdout."""
     env = {k: v for k, v in os.environ.items()
@@ -382,9 +265,10 @@ def _two_ranks(tmp_path, args):
     env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
                WORLD_SIZE="2", GLOO_SOCKET_IFNAME="lo")
     procs = [subprocess.Popen(
-        [sys.executable, "-c", _ENGINE_WORKER, REPO] + args
-        + ["-o", str(tmp_path / f"r{i}.np")], env={**env, "RANK": str(i)},
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        [sys.executable, "-c", _ENGINE_WORKER, REPO, str(min_tile_len)]
+        + args + ["-o", str(tmp_path / f"r{i}.np")],
+        env={**env, "RANK": str(i)}, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
         for i in (0, 1)]
     logs = [p.communicate(timeout=300) for p in procs]
     for i, p in enumerate(procs):
@@ -392,22 +276,55 @@ def _two_ranks(tmp_path, args):
     return [out for out, _ in logs]
 
 
-def test_two_gloo_ranks_sharded_engine_match_one_process(tmp_path):
-    sam = _straddle_sam(str(tmp_path / "in.sam"),
-                        centers=(131_072, 524_288, 800_000))
-    args = ["-t", sam, "-y", "-p", "0.01", "-a", "20"]
-    for out in _two_ranks(tmp_path, args):
-        assert "RUN 2 2" in out, out
+def _dist2_sam(path):
+    """dist2_worker's treatment draw, without its control, as pairs on
+    one chromosome of 8 x 4,096 bp: an event of weight 1/c is one of a
+    read's c alignments of equal score, the events of each weight taken
+    c at a time in draw order (a remainder of fewer is left out)."""
+    (start, end, count), _ = w.make_fixture()
+    b = oracle.SamBuilder([("chr1", w.GENOME_LEN)])
+    for c in np.unique(count).tolist():
+        idx = np.flatnonzero(count == c)
+        for j in range(0, len(idx) - c + 1, c):
+            q = None
+            for i in idx[j:j + c].tolist():
+                q = b.add_pair("chr1", int(start[i]), int(end[i]) - 50,
+                               score=0, secondary=q is not None, qname=q)
+    return b.write(path)
+
+
+@pytest.mark.parametrize("case", ["straddle", "dist2_no_control"])
+def test_two_gloo_ranks_sharded_engine_match_one_process(tmp_path, case):
+    """Peaks across a tile boundary inside a rank and across the ranks'
+    boundary: on a 1 Mbp chromosome of 2^17-bp tiles, and on
+    dist2_worker's draw (weights 1, 1/2 and 1/5, its -E regions, -q) on
+    tiles of 4,096 bp, whose cluster straddles the ranks' boundary."""
+    if case == "straddle":
+        sam = _straddle_sam(str(tmp_path / "in.sam"),
+                            centers=(131_072, 524_288, 800_000))
+        args = ["-t", sam, "-y", "-p", "0.01", "-a", "20"]
+        tile, edges, n_straddling = 1 << 16, (131_072, 524_288), 2
+    else:
+        bed = tmp_path / "x.bed"
+        ex = w.EXCL_BED
+        bed.write_text("".join(f"chr1\t{ex[i]}\t{ex[i + 1]}\n"
+                               for i in range(0, len(ex), 2)))
+        args = ["-t", _dist2_sam(str(tmp_path / "in.sam")), "-y", "-q",
+                "0.05", "-a", "20", "-E", str(bed)]
+        tile, edges, n_straddling = w.TILE_LEN, (4 * w.TILE_LEN,), 1
+    for out in _two_ranks(tmp_path, args, tile):
+        assert f"RUN 2 {n_straddling}" in out, out
     from genrich_tpu_torch import params, pipeline
     pipeline.run(params.parse_args(args + ["-o", str(tmp_path / "one.np")]),
-                 engine=ShardedTorchEngine("cpu", n_shards=8))
+                 engine=ShardedTorchEngine("cpu", n_shards=8,
+                                           min_tile_len=tile))
     one = (tmp_path / "one.np").read_bytes()
     assert (tmp_path / "r0.np").read_bytes() == one \
         == (tmp_path / "r1.np").read_bytes()
     spans = [(int(f[1]), int(f[2])) for f in
              (ln.split("\t") for ln in one.decode().splitlines())]
-    assert any(s < 131_072 < e for s, e in spans)
-    assert any(s < 524_288 < e for s, e in spans), spans
+    for edge in edges:
+        assert any(s < edge < e for s, e in spans), (edge, spans)
 
 
 def test_two_gloo_ranks_sharded_fisher_straddle(tmp_path):

@@ -14,7 +14,9 @@ rounds two values to one and the exact rule still breaks; positions
 whose events cancel; the sharded engine's per-tile merge with non-zero
 carries, joined across tiles where ``cont`` says a boundary cut an
 interval; and the summit of a peak whose longest interval a tile
-boundary cuts.
+boundary cuts.  Both engines also take three one-chromosome draws: a
+light tile of weights 1, 1/2 and 1/5, the same under a large carry,
+and a control with exclusions.
 """
 
 from __future__ import annotations
@@ -84,34 +86,100 @@ def _assert_exact(got, want):
                                       .view(np.uint8), w.view(np.uint8))
 
 
-def _run(eng, expt, ctrl, beds):
+def _run(eng, lens, expt, ctrl, beds):
     handles = [eng.coverage_chrom(i, expt[i], ctrl[i], beds[i], n)
-               for i, n in enumerate(LENS)]
+               for i, n in enumerate(lens)]
     frag, cfrag = eng.coverage_finish(handles)
-    lam = ep.calc_lambda(frag, sum(LENS))
+    lam = ep.calc_lambda(frag, sum(lens))
     factor = ep.calc_factor(frag, cfrag)
     eng.stats_all(float(lam), float(factor))
     return lam, factor
 
 
-CASES = {"none": (False, False), "ctrl": (True, False),
-         "excl": (False, True), "ctrl_excl": (True, True)}
+# The draws of the single-tile tests that once held the port's
+# standalone tile pipeline to the JAX package's: one chromosome each,
+# (length, treatment, control or None, -E bed).
+
+def _light(seed=42):
+    """32,768 bp: 2,500 fragments of weight 1, 1/2 or 1/5, half of them
+    on a hotspot at 9-11 kbp."""
+    rng = np.random.RandomState(seed)
+    length, n = 1 << 15, 2500
+    s = np.concatenate([rng.randint(0, length - 300, n // 2),
+                        rng.randint(9000, 11000, n - n // 2)])
+    e = np.minimum(s + rng.randint(80, 300, n), length)
+    c = rng.choice([1, 1, 1, 2, 5], n)
+    return length, tuple(a.astype(np.int64) for a in (s, e, c)), None, []
+
+
+def _light_carry():
+    """``_light`` over 1,024 times the class sums (3, 5, 1, 2), coverage
+    3 + 5/8 + 1/6 + 2/10 a time: fragments of weight 1, 1/8, 1/6 and
+    1/10 across the whole chromosome, so every tile of the sharded
+    engine takes a large carry."""
+    length, (s, e, c), _, bed = _light()
+    k = 1 << 10
+    w = np.repeat(np.array([1, 8, 6, 10], np.int64), [3 * k, 5 * k, k, 2 * k])
+    return length, (np.concatenate([s, np.zeros(len(w), np.int64)]),
+                    np.concatenate([e, np.full(len(w), length, np.int64)]),
+                    np.concatenate([c, w])), None, bed
+
+
+def _hot_events(rng, n, length, hot):
+    """Fragments of count codes 1-10, 70% of them (``hot``) on six
+    centres."""
+    centers = rng.randint(500, length - 1500, 6)
+    base = np.where(rng.rand(n) < (0.7 if hot else 0.0),
+                    centers[rng.randint(0, 6, n)] + rng.randint(0, 800, n),
+                    rng.randint(0, length - 500, n))
+    s = np.clip(base, 0, length - 2)
+    e = np.minimum(s + rng.randint(30, 400, n), length)
+    c = rng.choice([1, 1, 1, 2, 3, 4, 5, 6, 8, 10], n)
+    return tuple(a.astype(np.int64) for a in (s, e, c))
+
+
+def _ctrl_excl_tile(seed=43):
+    """60,000 bp: a hot treatment, a flat control and two -E regions."""
+    rng = np.random.RandomState(seed)
+    length = 60_000
+    expt = _hot_events(rng, 1500, length, True)
+    ctrl = _hot_events(rng, 700, length, False)
+    return length, expt, ctrl, [4000, 9000, 30_000, 30_500]
+
+
+def _two_chroms(with_ctrl, with_excl):
+    """(lengths, treatments, controls, beds) on ``LENS``."""
+    expt = [_events(1 + i, n, 900) for i, n in enumerate(LENS)]
+    ctrl = [_events(11 + i, n, 300) if with_ctrl else None
+            for i, n in enumerate(LENS)]
+    return LENS, expt, ctrl, [ADJACENT if with_excl else [], []]
+
+
+def _one_chrom(draw):
+    length, expt, ctrl, bed = draw()
+    return [length], [expt], [ctrl], [bed]
+
+
+CASES = {"none": lambda: _two_chroms(False, False),
+         "ctrl": lambda: _two_chroms(True, False),
+         "excl": lambda: _two_chroms(False, True),
+         "ctrl_excl": lambda: _two_chroms(True, True),
+         "light": lambda: _one_chrom(_light),
+         "light_carry": lambda: _one_chrom(_light_carry),
+         "ctrl_excl_tile": lambda: _one_chrom(_ctrl_excl_tile)}
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_torch_engine_rows_are_exact_intervals(case):
-    with_ctrl, with_excl = CASES[case]
-    expt = [_events(1 + i, n, 900) for i, n in enumerate(LENS)]
-    ctrl = [_events(11 + i, n, 300) if with_ctrl else None
-            for i, n in enumerate(LENS)]
-    beds = [ADJACENT if with_excl else [], []]
+    lens, expt, ctrl, beds = CASES[case]()
     eng = TorchEngine("cpu")
-    lam, factor = _run(eng, expt, ctrl, beds)
-    for i, n in enumerate(LENS):
+    lam, factor = _run(eng, lens, expt, ctrl, beds)
+    for i, n in enumerate(lens):
         want = _exact(expt[i], ctrl[i], n, beds[i], lam, factor)
         _assert_exact(_rows(eng._chrom[i], lam, factor), want)
-        if with_excl and i == 0:
+        if beds[i] == ADJACENT:
             assert (want[3] == SKIP).sum() == 3     # 5000 breaks, twice
+        assert (want[3] == SKIP).any() == bool(beds[i])
     p = eng.perf
     # the merge's teeth: rows that were pieces of one interval
     assert p["merged_rows"] == p["merged_width"] < p["real_rows"] \
@@ -172,11 +240,10 @@ def test_cancelling_events_merge():
 
 
 TL = 4096
-N_TILES = 8
 
 
 def _tile_case():
-    """Global events on 6 tiles and a bit of 8: weights 1/N, so the tiles'
+    """Global events on 6 tiles and a bit: weights 1/N, so the tiles'
     carries are non-zero; an event starting at a tile boundary (no
     continuation there) and adjacent -E regions meeting at another."""
     rng = np.random.RandomState(9)
@@ -192,26 +259,40 @@ def _tile_case():
     return length, (s, e, c), (cs, ce, np.ones(600, np.int64)), bed
 
 
-def test_sharded_tile_runs_join_to_exact_intervals():
-    length, expt, ctrl, bed = _tile_case()
+# each draw with the tile boundaries that must be breaks (no
+# continuation): the first tile's, events starting at 2 TL, adjacent -E
+# regions meeting at 4 TL, the tiles past the chromosome's end
+TILE_CASES = {"tile_case": (_tile_case, (0, 2, 4, 7)),
+              "light": (_light, (0, 8, 9)),
+              "light_carry": (_light_carry, (0, 8, 9)),
+              "ctrl_excl_tile": (_ctrl_excl_tile, (0, 15))}
+
+
+@pytest.mark.parametrize("case", list(TILE_CASES))
+def test_sharded_tile_runs_join_to_exact_intervals(case):
+    draw, breaks = TILE_CASES[case]
+    length, expt, ctrl, bed = draw()
+    n_tiles = length // TL + 2         # the last one past the end
+    if ctrl is None:
+        ctrl = (np.zeros(0, np.int64),) * 3
     kern = mesh.ShardedKernels(TL)
     es, ee, ec = (torch.from_numpy(a) for a in mesh.split_events_to_tiles(
-        *expt, N_TILES, TL))
+        *expt, n_tiles, TL))
     cs, ce, cc = (torch.from_numpy(a) for a in mesh.split_events_to_tiles(
-        *ctrl, N_TILES, TL, pad_to=es.shape[1]))
-    excl = torch.from_numpy(mesh.split_excl_to_tiles(bed, N_TILES, TL))
-    limit = np.clip(length - np.arange(N_TILES) * TL, 0, TL)
+        *ctrl, n_tiles, TL, pad_to=es.shape[1]))
+    excl = torch.from_numpy(mesh.split_excl_to_tiles(bed, n_tiles, TL))
+    limit = np.clip(length - np.arange(n_tiles) * TL, 0, TL)
     carries = mesh.exclusive_carries(tile_class_totals(es, ee, ec), None)
     assert bool((carries != 0).any()), "fixture must carry across tiles"
     out = kern.cov(es, ee, ec, cs, ce, cc, excl, limit, levels=True)
     frag = float(out[6].double().sum())
     cfrag = float(out[7].double().sum())
     lam, factor = ep.calc_lambda(frag, length), ep.calc_factor(frag, cfrag)
-    bound = torch.from_numpy(np.isin(np.arange(N_TILES) * TL, bed))
+    bound = torch.from_numpy(np.isin(np.arange(n_tiles) * TL, bed))
     s, e, v, cr, x, n, n_rows, cont = kern.runs(*out[:6], out[8], excl,
                                                 bound, lam, factor)
     got = [[], [], [], []]       # chromosome rows: start, end, ev, net
-    for t in range(N_TILES):
+    for t in range(n_tiles):
         k = int(n[t])
         xt = x[t, :k].numpy()
         tile = (s[t, :k].numpy() + t * TL, e[t, :k].numpy() + t * TL,
@@ -229,12 +310,11 @@ def test_sharded_tile_runs_join_to_exact_intervals():
                 col.append(a[i])
     got = [np.array(col) for col in got]
     _assert_exact(got, _exact(expt, ctrl, length, bed, lam, factor))
-    # the teeth: intervals cut by a boundary, and boundaries that are
-    # breaks (the first tile, events starting at 2 TL, adjacent -E
-    # regions meeting at 4 TL, the tile past the chromosome's end)
+    # the teeth: intervals cut by a boundary, and the boundaries that
+    # are breaks
     cont = cont.tolist()
-    assert any(cont) and not any(cont[t] for t in (0, 2, 4, 7))
-    assert int(n[7]) == 0 and int(n_rows.sum()) > int(n.sum())
+    assert any(cont) and not any(cont[t] for t in breaks)
+    assert int(n[-1]) == 0 and int(n_rows.sum()) > int(n.sum())
 
 
 def test_straddling_summit_counts_a_cut_interval_once():
